@@ -10,6 +10,10 @@ it into the port's `state_dict`:
 - raw parameters (encoder stages, slot queries, the PairDense kernel,
   whose rows are split by meaning) keep their layout.
 
+`state_dict_to_flax` is its inverse, so a state_dict trained by the port
+is written as a port checkpoint (`save_port_checkpoint`) that
+`serve.WireframePredictor` serves.
+
 The port's checkpoint is a directory with `params.npz` (flax paths ->
 float32 arrays) and `config.json` (`config_to_dict` layout).  Reading
 the JAX package's orbax checkpoints needs jax, so that stays out of the
@@ -70,6 +74,27 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to {key}")
         state[key] = torch.from_numpy(np.array(value, np.float32))
     return state
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor],
+                       cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The port's state_dict (or named parameters) -> flat flax-path
+    float32 arrays, the inverse of `params_from_flax` for the model of
+    `cfg`."""
+    out = {}
+    for path, shape in flax_param_shapes(cfg).items():
+        key, ported = _torch_entry(path, np.zeros(shape, np.float32))
+        if key not in state:
+            raise KeyError(f"state_dict has no {key} (flax {path})")
+        arr = state[key].detach().float().cpu().numpy()
+        if arr.shape != ported.shape:
+            raise ValueError(f"{key}: shape {arr.shape}, expected "
+                             f"{ported.shape}")
+        leaf = path.rsplit("/", 1)[-1]
+        transposed = (leaf == "kernel" and path not in _RAW_KERNELS)
+        out[path] = np.ascontiguousarray(
+            (arr.T if transposed else arr).reshape(shape), np.float32)
+    return out
 
 
 def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

@@ -18,13 +18,11 @@
 // limit (989 TFLOP/s bf16 dense).
 //
 // Design of this first version (right and simple first):
-//   (a) k1_gemm_bias: one tiled GEMM + bias, bf16 operands staged through
-//       shared memory, nvcuda::wmma 16x16x16 bf16 tiles with f32
-//       accumulators, 128x128x32 block tiles, two shared-memory stages fed
-//       by register prefetch.  The ragged M / N / K edges are masked on
-//       load (zero fill) and on store.  A is bf16, or f32 for the first
-//       stage (the raw (B*N, 8) cloud, rounded to bf16 on load exactly as
-//       `x.astype(bf16)`).  Used for the 4 stages and the projection.
+//   (a) k1_gemm_bias: the tiled WMMA GEMM + bias of wmma_gemm.cuh
+//       (bf16 operands, f32 accumulators, 128x128x32 block tiles).  A is
+//       bf16, or f32 for the first stage (the raw (B*N, 8) cloud, rounded
+//       to bf16 on load exactly as `x.astype(bf16)`).  Used for the 4
+//       stages and the projection.
 //   (b) k1_ln_relu: one warp per row, two-pass f32 mean / variance as in
 //       pallas_encoder.py:_ln, ReLU, rounded to bf16.
 //   (c) k1_pool_partials + k1_pool_finalize: the validity mask from the
@@ -47,174 +45,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "wmma_gemm.cuh"
+
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int GEMM_THREADS = 256;         // 8 warps: 2 (rows) x 4 (cols)
-constexpr int WARP_M = 64;                // each warp: 64 x 32 outputs
-constexpr int WARP_N = 32;
-constexpr int FRAG_M = WARP_M / 16;       // 4
-constexpr int FRAG_N = WARP_N / 16;       // 2
-constexpr int A_LD = BK + 8;              // padded leading dims (bf16)
-constexpr int B_LD = BN + 8;
 constexpr float NEG_SENTINEL = -1e30f;
-
-__device__ __forceinline__ uint4 pack8(const float* v) {
-    uint4 out;
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-        p[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    return out;
-}
-
-// 8 consecutive A elements (row, col..col+7) as bf16, zero outside.
-__device__ __forceinline__ uint4 load_a8(const bf16* A, int M, int K,
-                                         int row, int col) {
-    if (row < M && col + 8 <= K && (K & 7) == 0)
-        return *reinterpret_cast<const uint4*>(A + (size_t)row * K + col);
-    uint4 out;
-    bf16* p = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-        p[e] = (row < M && col + e < K) ? A[(size_t)row * K + col + e]
-                                        : __float2bfloat16(0.0f);
-    return out;
-}
-
-__device__ __forceinline__ uint4 load_a8(const float* A, int M, int K,
-                                         int row, int col) {
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-        v[e] = (row < M && col + e < K) ? A[(size_t)row * K + col + e]
-                                        : 0.0f;
-    return pack8(v);
-}
-
-// 8 consecutive W elements (k, col..col+7) of the row-major (K, N) weight.
-__device__ __forceinline__ uint4 load_b8(const bf16* W, int K, int N,
-                                         int k, int col) {
-    if (k < K && col + 8 <= N && (N & 7) == 0)
-        return *reinterpret_cast<const uint4*>(W + (size_t)k * N + col);
-    uint4 out;
-    bf16* p = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-        p[e] = (k < K && col + e < N) ? W[(size_t)k * N + col + e]
-                                      : __float2bfloat16(0.0f);
-    return out;
-}
-
-// C (M, N) f32 = A (M, K) @ W (K, N) + bias (N,), row-major throughout.
-template <typename TA>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bias_kernel(const TA* __restrict__ A, const bf16* __restrict__ W,
-                 const float* __restrict__ bias, float* __restrict__ C,
-                 int M, int N, int K) {
-    __shared__ __align__(128) bf16 sA[2][BM * A_LD];
-    __shared__ __align__(128) bf16 sB[2][BK * B_LD];
-    __shared__ __align__(128) float sOut[GEMM_THREADS / 32][16 * 16];
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int wm = warp >> 2;             // 0..1
-    const int wn = warp & 3;              // 0..3
-    const int m0 = blockIdx.y * BM;
-    const int n0 = blockIdx.x * BN;
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FRAG_M][FRAG_N];
-#pragma unroll
-    for (int i = 0; i < FRAG_M; ++i)
-#pragma unroll
-        for (int j = 0; j < FRAG_N; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    // Each thread moves 2 vectors of 8 bf16 for A (128 x 32) and for
-    // B (32 x 128) per k-tile.
-    uint4 ra[2], rb[2];
-    auto load_regs = [&](int kt) {
-        const int k0 = kt * BK;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int v = tid + i * GEMM_THREADS;
-            ra[i] = load_a8(A, M, K, m0 + v / (BK / 8), k0 + (v % (BK / 8)) * 8);
-            rb[i] = load_b8(W, K, N, k0 + v / (BN / 8), n0 + (v % (BN / 8)) * 8);
-        }
-    };
-    auto store_smem = [&](int buf) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int v = tid + i * GEMM_THREADS;
-            *reinterpret_cast<uint4*>(
-                &sA[buf][(v / (BK / 8)) * A_LD + (v % (BK / 8)) * 8]) = ra[i];
-            *reinterpret_cast<uint4*>(
-                &sB[buf][(v / (BN / 8)) * B_LD + (v % (BN / 8)) * 8]) = rb[i];
-        }
-    };
-
-    const int nk = (K + BK - 1) / BK;
-    load_regs(0);
-    store_smem(0);
-    __syncthreads();
-    for (int kt = 0; kt < nk; ++kt) {
-        const int cur = kt & 1;
-        if (kt + 1 < nk) load_regs(kt + 1);   // global loads in flight
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-                fa[FRAG_M];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                fb[FRAG_N];
-#pragma unroll
-            for (int i = 0; i < FRAG_M; ++i)
-                wmma::load_matrix_sync(
-                    fa[i], &sA[cur][(wm * WARP_M + i * 16) * A_LD + kk], A_LD);
-#pragma unroll
-            for (int j = 0; j < FRAG_N; ++j)
-                wmma::load_matrix_sync(
-                    fb[j], &sB[cur][kk * B_LD + wn * WARP_N + j * 16], B_LD);
-#pragma unroll
-            for (int i = 0; i < FRAG_M; ++i)
-#pragma unroll
-                for (int j = 0; j < FRAG_N; ++j)
-                    wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        if (kt + 1 < nk) store_smem(cur ^ 1);
-        __syncthreads();
-    }
-
-    // Epilogue: each warp stages one 16x16 accumulator at a time through
-    // its own shared-memory tile, adds the bias and stores in bounds.
-    float* stage = sOut[warp];
-#pragma unroll
-    for (int i = 0; i < FRAG_M; ++i) {
-#pragma unroll
-        for (int j = 0; j < FRAG_N; ++j) {
-            wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int row0 = m0 + wm * WARP_M + i * 16;
-            const int col0 = n0 + wn * WARP_N + j * 16;
-#pragma unroll
-            for (int t = 0; t < 8; ++t) {
-                const int e = lane + t * 32;
-                const int r = row0 + e / 16;
-                const int c = col0 + e % 16;
-                if (r < M && c < N)
-                    C[(size_t)r * N + c] = stage[e] + bias[c];
-            }
-            __syncwarp();
-        }
-    }
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -348,16 +187,12 @@ extern "C" {
 
 int k1_gemm_bias(const void* A, int a_is_f32, const void* W, const float* bias,
                  float* C, int M, int N, int K, cudaStream_t stream) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    const bf16* w = static_cast<const bf16*>(W);
     if (a_is_f32)
-        gemm_bias_kernel<float><<<grid, GEMM_THREADS, 0, stream>>>(
-            static_cast<const float*>(A), static_cast<const bf16*>(W), bias,
-            C, M, N, K);
-    else
-        gemm_bias_kernel<bf16><<<grid, GEMM_THREADS, 0, stream>>>(
-            static_cast<const bf16*>(A), static_cast<const bf16*>(W), bias,
-            C, M, N, K);
-    return (int)cudaGetLastError();
+        return wgemm::launch_gemm<float, false, false>(
+            static_cast<const float*>(A), w, bias, C, M, N, K, 1, K, stream);
+    return wgemm::launch_gemm<bf16, false, false>(
+        static_cast<const bf16*>(A), w, bias, C, M, N, K, 1, K, stream);
 }
 
 int k1_ln_relu(const float* Z, const float* gamma, const float* beta,

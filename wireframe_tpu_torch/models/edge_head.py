@@ -8,7 +8,10 @@ an MLP 1031 -> 512 -> 256 -> 128 -> 1 with sigmoid, over the static
 (E, 2) pair table of all `max_vertices` slots.
 
 Names are pinned to the flax tree: Dense_0..Dense_5, LayerNorm_0..3,
-`attention`; `Dense_2` is the distributive `PairDense`.
+`attention`; `Dense_2` is the distributive `PairDense`.  In train mode
+dropout acts at flax's sites: after the embedding LayerNorm, on the
+attention weights (one mask shared by batch and heads), and after each of
+the first two pair layers.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ import torch
 from torch import nn
 
 from wireframe_tpu_torch.models.attention import MultiHeadDotProductAttention
-from wireframe_tpu_torch.models.layers import Dense, LayerNorm, gelu
-from wireframe_tpu_torch.ops.pairs import triu_pairs_np
+from wireframe_tpu_torch.models.layers import Dense, LayerNorm, dropout, gelu
+from wireframe_tpu_torch.ops.pairs import triu_pairs_on
 
 
 class PairDense(nn.Module):
@@ -62,15 +65,18 @@ class PairDense(nn.Module):
 class EdgePredictor(nn.Module):
     def __init__(self, vertex_dim: int = 3, hidden_dim: int = 512,
                  num_heads: int = 8, slot_feature_dim: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_dropout: float = 0.0, mlp_dropout: float = 0.0):
         super().__init__()
         h = hidden_dim
         self.dtype = dtype
+        self.mlp_dropout = mlp_dropout
         self.Dense_0 = Dense(vertex_dim + slot_feature_dim, h // 2, dtype)
         self.LayerNorm_0 = LayerNorm(h // 2)
         self.Dense_1 = Dense(h // 2, h, dtype)
         self.LayerNorm_1 = LayerNorm(h)
-        self.attention = MultiHeadDotProductAttention(h, num_heads, dtype)
+        self.attention = MultiHeadDotProductAttention(h, num_heads, dtype,
+                                                      attn_dropout)
         self.Dense_2 = PairDense(h, vertex_dim, h, dtype)
         self.LayerNorm_2 = LayerNorm(h)
         self.Dense_3 = Dense(h, h // 2, dtype)
@@ -80,7 +86,9 @@ class EdgePredictor(nn.Module):
 
     def forward(self, vertices: torch.Tensor, slot_mask: torch.Tensor,
                 attn_slot_mask: Optional[torch.Tensor] = None,
-                slot_features: Optional[torch.Tensor] = None
+                slot_features: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """vertices (B, V, 3); slot_mask (B, V) bool live slots;
         attn_slot_mask (B, V) attention key mask (default slot_mask);
@@ -96,11 +104,12 @@ class EdgePredictor(nn.Module):
 
         f = self.LayerNorm_0(self.Dense_0(embed_in))
         f = self.LayerNorm_1(self.Dense_1(gelu(f)))
+        f = dropout(f, self.mlp_dropout, train, generator)
         attn_mask = attn_slot_mask[:, None, None, :].expand(b, 1, v, v)
-        f = f + self.attention(f, f, attn_mask)
+        f = f + self.attention(f, f, attn_mask, train=train,
+                               generator=generator)
 
-        pairs = torch.as_tensor(triu_pairs_np(v), dtype=torch.long,
-                                device=vertices.device)
+        pairs = triu_pairs_on(v, vertices.device)
         i_idx, j_idx = pairs[:, 0], pairs[:, 1]
         c1 = x[:, i_idx, :]
         c2 = x[:, j_idx, :]
@@ -110,7 +119,9 @@ class EdgePredictor(nn.Module):
 
         y = self.Dense_2(f, x, dist, i_idx, j_idx)
         y = gelu(self.LayerNorm_2(y))
+        y = dropout(y, self.mlp_dropout, train, generator)
         y = gelu(self.LayerNorm_3(self.Dense_3(y)))
+        y = dropout(y, self.mlp_dropout, train, generator)
         y = gelu(self.Dense_4(y))
         logits = self.Dense_5(y)[..., 0].float()
 

@@ -1,4 +1,4 @@
-"""PointNet-style point-cloud encoder (inference branches).
+"""PointNet-style point-cloud encoder.
 
 Port of `wireframe_tpu/models/encoder.py`: a per-point shared MLP
 input_dim -> 512 -> 1024 -> 2048 -> 1024 -> 512 (Linear + LayerNorm +
@@ -6,12 +6,17 @@ ReLU per stage, plain Linear projection), mask-aware mean + max pooling
 over points, and a fusion MLP 1024 -> 2048 -> 1024 -> 512 over the
 concatenated pools.
 
-Two interchangeable compute paths over ONE parameter layout, routed
-exactly as the JAX module routes them: the fused kernel K1
-(`ops.fused_encoder.fused_point_encoder`, the CUDA kernel on the card)
-when `use_pallas` and N divides by the tile, otherwise the plain chain
-plus masked pools.  The training branch (the custom-VJP chain kernels
-K2, K3, K5) is not ported yet.
+Three compute paths over ONE parameter layout, routed exactly as the JAX
+module routes them:
+- inference with `use_pallas` and N divisible by the tile: the fused
+  kernel K1 (`ops.fused_encoder.fused_point_encoder`);
+- training (`train=True`) with `use_pallas` and N divisible by the chain
+  tile: the differentiable chain (`ops.chain_grad.differentiable_chain`,
+  forward K2, backward K3), which with an eligible kv_pool also emits the
+  decoder's pooled KV and the window sums;
+- otherwise the plain chain plus masked pools, differentiated by autograd.
+The chain's `chain_backward="remat"` flavour (K5) raises
+NotImplementedError (ROADMAP.md item A2).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from wireframe_tpu_torch.models.layers import Dense, LayerNorm
+from wireframe_tpu_torch.ops.chain_grad import differentiable_chain
 from wireframe_tpu_torch.ops.fused_encoder import (
     fused_point_encoder,
     point_encoder_reference,
@@ -82,6 +88,7 @@ class PointNetEncoder(nn.Module):
                  output_dim: int = 512, dtype: torch.dtype = torch.float32,
                  return_point_features: bool = False,
                  use_pallas: bool = False, pallas_tile: int = 512,
+                 chain_tile: int = 0, chain_backward: str = "remat",
                  kv_pool: int = 0, point_features_for_kv: bool = False):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
@@ -89,6 +96,10 @@ class PointNetEncoder(nn.Module):
         self.return_point_features = return_point_features
         self.use_pallas = use_pallas
         self.pallas_tile = pallas_tile
+        # Tile of the training chain (0 = pallas_tile); on the card it only
+        # decides, as in the JAX module, which shapes take the chain.
+        self.chain_tile = chain_tile
+        self.chain_backward = chain_backward
         self.kv_pool = kv_pool
         self.point_features_for_kv = point_features_for_kv
         prev = input_dim
@@ -111,10 +122,11 @@ class PointNetEncoder(nn.Module):
                       for k in ("w", "b", "ln_scale", "ln_bias"))
                 for i in range(len(self.hidden_dims))]
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         # x: (B, N, input_dim); all-zero rows are padding.
         b, n = x.shape[:2]
-        tile = self.pallas_tile
+        tile = (self.chain_tile or self.pallas_tile) if train \
+            else self.pallas_tile
         use_pallas = self.use_pallas and (n % tile == 0)
         # In-kernel KV pooling eligibility, as models/encoder.py:147-150.
         kv_pool = self.kv_pool if (
@@ -124,7 +136,51 @@ class PointNetEncoder(nn.Module):
         if self.kv_pool > 1 and not kv_pool and use_pallas:
             _warn_kv_pool_fallback(self.kv_pool, tile)
         point_features = None
-        if use_pallas:
+        if use_pallas and train:
+            # The differentiable chain (models/encoder.py:156-223).  With
+            # kv_pool the decoder consumes only the pooled KV, so the slim
+            # flavour never returns the (B, N, C) features.
+            need_feats = bool(self.return_point_features) or not kv_pool
+            xf = x.float().contiguous()
+            mask = point_validity_mask(x)
+            outs = differentiable_chain(
+                xf, self.stage_params(), self.proj_w, self.proj_b,
+                kv_pool=kv_pool, emit_features=need_feats,
+                compute_dtype=self.dtype, backward=self.chain_backward)
+            if kv_pool:
+                if need_feats:
+                    feats, pooled_kv, kv_sums = outs
+                else:
+                    (pooled_kv, kv_sums), feats = outs, None
+                kv_mask = torch.any(mask.reshape(b, n // kv_pool, kv_pool),
+                                    dim=-1)
+                # Global masked pools from the window outputs: the max of
+                # the window maxes is the masked max, and the window sums
+                # total the masked sum.
+                count = torch.clamp_min(
+                    torch.sum(mask.float(), dim=-1), 1.0)
+                pooled = {
+                    "masked_max": masked_max(pooled_kv, kv_mask),
+                    "masked_mean": torch.sum(kv_sums, dim=-2)
+                    / count[:, None],
+                    "kv": pooled_kv,
+                    "kv_mask": kv_mask,
+                }
+                if feats is not None:
+                    pooled["mean"] = torch.mean(feats, dim=-2)
+                    pooled["max"] = torch.amax(feats, dim=-2)
+            else:
+                feats = outs
+                pooled = {
+                    "masked_max": masked_max(feats, mask),
+                    "masked_mean": masked_mean(feats, mask),
+                    "mean": torch.mean(feats, dim=-2),
+                    "max": torch.amax(feats, dim=-2),
+                }
+            if self.return_point_features or (self.point_features_for_kv
+                                              and not kv_pool):
+                point_features = feats
+        elif use_pallas:
             need_pf = self.return_point_features or (
                 self.point_features_for_kv and not kv_pool)
             pooled = fused_point_encoder(

@@ -7,9 +7,14 @@
 - `LayerNorm` is `flax.linen.LayerNorm(dtype=float32)`: eps 1e-6 (torch's
   default is 1e-5), statistics in f32 with flax's fast variance
   E[x^2] - E[x]^2 clamped at 0, output in f32.
+- `dropout` is `flax.linen.Dropout`: in train mode each element is kept
+  with probability 1 - rate and divided by it; the draws come from the
+  caller's `torch.Generator`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -45,3 +50,16 @@ class LayerNorm(nn.Module):
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax `nn.gelu`: the tanh approximation."""
     return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout(rate)` with `deterministic=not train`."""
+    if not train or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -1,15 +1,17 @@
-"""End-to-end point-cloud -> wireframe model (inference).
+"""End-to-end point-cloud -> wireframe model.
 
 Port of `wireframe_tpu/models/wireframe.py:PointCloudToWireframe`:
 encoder -> query vertex decoder -> edge head, as one batched,
-fixed-shape call, with the same output dict.  Inference only: training
-(GT counts driving the edge head, dropout) arrives with the training
-slice, and so does the parity MLP vertex head (ROADMAP.md item A3).
+fixed-shape call, with the same output dict.  `train=True` takes the
+encoder's differentiable chain, turns dropout on (draws from the caller's
+generator) and, in prefix slot-mask mode, lets the ground-truth vertex
+counts drive the edge head.  The parity MLP vertex head is not ported
+(ROADMAP.md item A3).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -45,6 +47,8 @@ class PointCloudToWireframe(nn.Module):
             return_point_features=cfg.return_point_features,
             use_pallas=cfg.use_pallas_encoder,
             pallas_tile=cfg.pallas_tile,
+            chain_tile=cfg.pallas_chain_tile,
+            chain_backward=cfg.chain_backward,
             kv_pool=cfg.decoder_kv_pool,
             point_features_for_kv=True,
         )
@@ -56,6 +60,7 @@ class PointCloudToWireframe(nn.Module):
             num_layers=cfg.decoder_layers,
             num_heads=cfg.decoder_heads,
             ffn_dim=cfg.decoder_ffn_dim,
+            dropout=cfg.decoder_dropout,
             dtype=dt,
             kv_pool=cfg.decoder_kv_pool,
             fused_cross_kv=cfg.decoder_fused_cross_kv,
@@ -68,10 +73,19 @@ class PointCloudToWireframe(nn.Module):
             slot_feature_dim=(cfg.decoder_dim
                               if cfg.edge_use_slot_features else 0),
             dtype=dt,
+            attn_dropout=cfg.attn_dropout,
+            mlp_dropout=cfg.edge_dropout,
         )
 
-    def forward(self, point_cloud: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """point_cloud: (B, N, input_dim); zero rows are padding."""
+    def forward(self, point_cloud: torch.Tensor,
+                target_vertex_counts: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """point_cloud: (B, N, input_dim), zero rows are padding;
+        target_vertex_counts: (B,) GT counts, which drive the edge head in
+        train mode (prefix slot masks); train: training mode; generator:
+        the dropout draws."""
         cfg = self.config
         if cfg.decoder_kv_pool > 1 and not cfg.points_z_sorted:
             # KV pooling maxes over windows of CONSECUTIVE rows: sort the
@@ -84,7 +98,8 @@ class PointCloudToWireframe(nn.Module):
             point_cloud = torch.take_along_dim(point_cloud, order[..., None],
                                                dim=1)
 
-        global_features, pooled, point_features = self.encoder(point_cloud)
+        global_features, pooled, point_features = self.encoder(
+            point_cloud, train=train)
 
         kv_feats = point_features
         kv_mask = point_validity_mask(point_cloud)
@@ -93,7 +108,8 @@ class PointCloudToWireframe(nn.Module):
             kv_feats = pooled["kv"]
             kv_mask = pooled["kv_mask"]
         vertex_out = self.vertex_decoder(kv_feats, kv_mask, global_features,
-                                         kv_pre_pooled=kv_pre_pooled)
+                                         kv_pre_pooled=kv_pre_pooled,
+                                         train=train, generator=generator)
 
         if cfg.slot_mask_mode == "existence":
             # Live slots from per-slot existence; the edge head attends
@@ -102,7 +118,10 @@ class PointCloudToWireframe(nn.Module):
             attn_slot_mask = torch.ones_like(slot_mask)
             used_counts = torch.sum(slot_mask.to(torch.int32), dim=-1)
         else:
-            used_counts = vertex_out["actual_vertex_counts"]
+            if train and target_vertex_counts is not None:
+                used_counts = target_vertex_counts.to(torch.int32)
+            else:
+                used_counts = vertex_out["actual_vertex_counts"]
             slot_ids = torch.arange(cfg.max_vertices, dtype=torch.int32,
                                     device=point_cloud.device)
             slot_mask = slot_ids[None, :] < used_counts[:, None]
@@ -112,7 +131,8 @@ class PointCloudToWireframe(nn.Module):
             vertex_out["vertices"], slot_mask,
             attn_slot_mask=attn_slot_mask,
             slot_features=(vertex_out["slot_features"]
-                           if cfg.edge_use_slot_features else None))
+                           if cfg.edge_use_slot_features else None),
+            train=train, generator=generator)
 
         out = {
             "vertices": vertex_out["vertices"],

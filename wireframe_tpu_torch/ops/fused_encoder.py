@@ -59,7 +59,10 @@ def point_encoder_reference(x: torch.Tensor,
     for w, b, g, be in stage_params:
         h = _dot(h, w, compute_dtype) + b.float()
         h = _ln(h, g.float(), be.float())
-        h = torch.clamp_min(h, 0.0)
+        # torch.maximum, not relu: its gradient at an exact 0 is half the
+        # cotangent, as jnp.maximum's (the plain chain is the training
+        # path when the kernels are off).
+        h = torch.maximum(h, torch.zeros_like(h))
         h = h.to(compute_dtype)
     return _dot(h, final_w, compute_dtype) + final_b.float()
 

@@ -7,8 +7,11 @@ Port of `wireframe_tpu/ops/masked_pool.py`.  Reference semantics
 - masked max: -inf fill on invalid rows, then max; non-finite results
   (all-invalid cloud) are replaced by 0.
 
-`window_max_pool` is the forward only; its custom backward (the whole
-cotangent to the lowest-index tied row) belongs to the training slice.
+`window_max_pool` is differentiated as the JAX package's custom VJP
+(masked_pool.py:82-128): the forward saves the window argmax (the lowest
+tied offset) and the backward routes each window's whole cotangent to
+that row, and nothing to a fully-invalid window, instead of splitting it
+among tied rows.
 """
 
 from __future__ import annotations
@@ -60,11 +63,43 @@ def window_max_pool(features: torch.Tensor, mask: torch.Tensor,
         features = F.pad(features, (0, 0, 0, pad))
         mask = F.pad(mask, (0, pad))
     nw = features.shape[1] // window
-    m = mask.reshape(b, nw, window)
-    win_mask = torch.any(m, dim=2)
+    win_mask = torch.any(mask.reshape(b, nw, window), dim=2)
+    pooled = _WindowMax.apply(features, mask, window, win_mask)
+    return pooled, win_mask
+
+
+def _window_max_fwd(features, mask, window, win_mask):
+    b, n, c = features.shape
+    nw = n // window
     f = features.reshape(b, nw, window, c)
+    m = mask.reshape(b, nw, window)
     filled = torch.where(m[..., None], f, torch.full_like(f, -torch.inf))
     pooled = torch.amax(filled, dim=2)
+    idx = torch.argmax(filled, dim=2)          # lowest tied window offset
     pooled = torch.where(win_mask[..., None], pooled,
                          torch.zeros_like(pooled))
-    return pooled, win_mask
+    return pooled, idx
+
+
+class _WindowMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, mask, window, win_mask):
+        pooled, idx = _window_max_fwd(features, mask, window, win_mask)
+        ctx.save_for_backward(idx, win_mask)
+        ctx.window = window
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, win_mask = ctx.saved_tensors
+        window = ctx.window
+        n = idx.shape[1] * window
+        # Kill cotangents of fully-invalid windows, then route each
+        # window's cotangent to its argmax row.
+        g = torch.where(win_mask[..., None], g, torch.zeros_like(g))
+        gather = torch.repeat_interleave(g, window, dim=1)       # (B, N, C)
+        idx_full = torch.repeat_interleave(idx, window, dim=1)
+        offs = torch.arange(n, device=g.device) % window
+        hit = idx_full == offs[None, :, None]
+        df = torch.where(hit, gather, torch.zeros_like(gather))
+        return df, None, None, None

@@ -13,6 +13,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=None)
@@ -20,6 +21,19 @@ def triu_pairs_np(v: int) -> np.ndarray:
     """(E, 2) int32 pairs (i, j), i<j, lexicographic. E = v*(v-1)/2."""
     i, j = np.triu_indices(v, k=1)
     return np.stack([i, j], axis=1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def triu_pairs_on(v: int, device: torch.device) -> torch.Tensor:
+    """`triu_pairs_np(v)` as an int64 tensor on `device`, made once per
+    (v, device): a table copied from the host on every forward would be a
+    blocking copy each step.  Read-only; callers must not write to it.
+    Made outside inference mode even when first asked for inside it, so a
+    table cached while serving can still index tensors that autograd
+    saves in a later train step."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(triu_pairs_np(v), dtype=torch.long,
+                               device=device)
 
 
 def pair_slot(i, j, v: int):
