@@ -4,8 +4,8 @@
 
 Phases (any failure exits nonzero and prints no final `ok` line):
   1. device   — require CUDA; print the card's name and power limit;
-  2. build    — compile K1 (fused_encoder.cu), K2 + K3 (chain_grad.cu) and
-                K4 (lockstep_lsa.cu) from wireframe_tpu_torch/csrc/, one
+  2. build    — compile K1 (fused_encoder.cu), K2 + K3 + K5 (chain_grad.cu)
+                and K4 (lockstep_lsa.cu) from wireframe_tpu_torch/csrc/, one
                 nvcc per source, all started together; ptxas lines;
   3. K1       — against its plain PyTorch version at the recipe's full
                 width (bf16 weights, kv_pool 4, tile 512) on padded and
@@ -18,14 +18,31 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 versions at the recipe's training shape (8, 2560), full
                 width, plus small ragged shapes in all three flavours;
                 times and bounds;
-  6. training — the full-width recipe train step (train_model, overfit
+  6. K5       — the remat chain (non-stash forward, recomputing backward)
+                against its plain versions in all three flavours, at the
+                parity (3, 2560) features shape, the recipe's (8, 2560)
+                slim shape and small ragged shapes; its forward
+                array_equal to K2's; times and bounds;
+  7. training — the full-width recipe train step (train_model, overfit
                 one synthetic batch of 8 box buildings, 20 steps): finite
                 losses, K2 / K3 / K4 launched once per step each; the first
                 3 losses against the same steps with the plain versions on
-                the card; a 30-step constant-LR run whose loss falls; ms per
-                step, clouds/s and a torch.profiler breakdown of one step;
-                the trained weights saved through the bridge and served;
-  7. serving  — the full-width recipe WireframePredictor (random weights
+                the card; 3 steps with chain_backward=remat (K5 in place of
+                K2 / K3, the same first losses); a 30-step constant-LR run
+                whose loss falls; ms per step, clouds/s, a torch.profiler
+                breakdown of one step and a step under CUDA sync debug
+                mode; the trained weights saved through the bridge and
+                served;
+  8. parity   — the reference-parity model (configs/default.yaml with the
+                fused bf16 encoder: MLP vertex head, remat chain, matcher
+                "device") trained 20 steps at batch 3 x 2560: K5 forward,
+                K5 backward and K4 once per step, K2 / K3 never; the first
+                3 losses against the plain versions; a falling loss; the
+                checkpoint of epoch 10 resumed twice to the same losses;
+                the memory the forward leaves for the backward, remat
+                against stash; ms per step, profile, no host sync; the
+                trained checkpoint served over all four buckets with K1;
+  9. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
                 buckets; the K1 launch count must equal the batches
@@ -77,6 +94,9 @@ MODEL_ATOL = {"vertices": 5e-2, "existence_probabilities": 2e-2,
               "edge_probs": 2e-2}
 RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "configs", "recommended.yaml")
+PARITY = os.path.join(os.path.dirname(RECIPE), "default.yaml")
+# The reference-parity model as QUALITY.md's bf16 ablation runs it.
+PARITY_SET = ["model.use_pallas_encoder=true", "model.compute_dtype=bfloat16"]
 
 
 def card_line() -> str:
@@ -485,6 +505,47 @@ def k4_phase(torch, dev, card):
 K3_MAX_REL, K3_MEAN_REL = 2e-2, 5e-3
 
 
+def forward_close(label, got, want, keys):
+    """Hold each output of a chain forward to its plain version with K1's
+    tolerances; returns the largest absolute difference."""
+    max_abs = 0.0
+    for key in keys:
+        g, w = got[key], want[key]
+        err = (g - w).abs()
+        ok = bool((err <= K1_ATOL + K1_RTOL * w.abs()).all()) and (
+            err.mean().item() <= K1_MEAN_ATOL)
+        max_abs = max(max_abs, err.max().item())
+        print(f"{label} {key:8s} max_abs {err.max().item():.3e} mean_abs "
+              f"{err.mean().item():.3e} (K1's atol {K1_ATOL}, rtol "
+              f"{K1_RTOL}, mean {K1_MEAN_ATOL}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{label} {key} disagrees")
+    return max_abs
+
+
+def grad_errors(gk, gp):
+    """(worst max rel, its label, worst mean rel, its label, max abs) over
+    dx and every parameter gradient of two chain backward results."""
+    flat = lambda r: [("dx", r[0])] + [  # noqa: E731
+        (f"{t}{i}", v) for i, st in enumerate(r[1])
+        for t, v in zip(("dW", "db", "dgamma", "dbeta"), st)] + [
+        ("dW_proj", r[2]), ("db_proj", r[3])]
+    worst = [0.0, "", 0.0, "", 0.0]
+    for (label, a), (_, w) in zip(flat(gk), flat(gp)):
+        err = (a - w).abs()
+        rel_max = (err.max() / w.abs().max().clamp_min(1e-30)).item()
+        rel_mean = (err.mean() / w.abs().mean().clamp_min(1e-30)).item()
+        if rel_max > worst[0]:
+            worst[:2] = rel_max, label
+        if rel_mean > worst[2]:
+            worst[2:4] = rel_mean, label
+        worst[4] = max(worst[4], err.max().item())
+    return worst
+
+
+
+
 def bf16_ulp(torch, v):
     """Spacing of bf16 numbers at |v| (8 significant bits)."""
     _, e = torch.frexp(v.abs().float())
@@ -544,21 +605,9 @@ def chain_phase(torch, dev, card, shapes=CHAIN_SHAPES):
         want = chain_forward_plain(x, stages, fw, fb, emit_features=True,
                                    **kw)
         torch.cuda.synchronize()
-        max_abs = bwd_abs = 0.0
         keys = (["pooled", "sums"] if p else []) + (["features"] if emit
                                                      else [])
-        for key in keys:
-            g, w = got[key], want[key]
-            err = (g - w).abs()
-            ok = bool((err <= K1_ATOL + K1_RTOL * w.abs()).all()) and (
-                err.mean().item() <= K1_MEAN_ATOL)
-            max_abs = max(max_abs, err.max().item())
-            print(f"K2 {name} ({b}, {n}) {key:8s} max_abs "
-                  f"{err.max().item():.3e} mean_abs {err.mean().item():.3e}"
-                  f" (K1's atol {K1_ATOL}, rtol {K1_RTOL}, mean "
-                  f"{K1_MEAN_ATOL}) {'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise AssertionError(f"K2 {key} disagrees ({name})")
+        max_abs = forward_close(f"K2 {name} ({b}, {n})", got, want, keys)
         # The stash: within one bf16 ulp of the plain version, at the
         # scale of its row.  Stage 0 differs only by the f32 sums' order
         # (a flip of one rounding); a later stage's z also carries the
@@ -615,26 +664,15 @@ def chain_phase(torch, dev, card, shapes=CHAIN_SHAPES):
         gk = chain_backward(x, stages, fw, fb, zs, **kw, **cot)
         gp = chain_backward_plain(x, stages, fw, fb, zs, **kw, **cot)
         torch.cuda.synchronize()
-        flat = lambda r: [("dx", r[0])] + [  # noqa: E731
-            (f"{t}{i}", v) for i, st in enumerate(r[1])
-            for t, v in zip(("dW", "db", "dgamma", "dbeta"), st)] + [
-            ("dW_proj", r[2]), ("db_proj", r[3])]
-        worst_max = worst_mean = 0.0
-        for (label, a), (_, w) in zip(flat(gk), flat(gp)):
-            err = (a - w).abs()
-            rel_max = (err.max() / w.abs().max().clamp_min(1e-30)).item()
-            rel_mean = (err.mean() / w.abs().mean().clamp_min(1e-30)).item()
-            worst_max, worst_mean = (max(worst_max, rel_max),
-                                     max(worst_mean, rel_mean))
-            bwd_abs = max(bwd_abs, err.max().item())
-            if rel_max > K3_MAX_REL or rel_mean > K3_MEAN_REL:
-                raise AssertionError(
-                    f"K3 {label} disagrees ({name}): max rel {rel_max:.2e}"
-                    f", mean rel {rel_mean:.2e}")
-        print(f"K3 {name} ({b}, {n}): dx and {len(flat(gp)) - 1} parameter "
-              f"gradients, worst max rel err {worst_max:.2e} (limit "
-              f"{K3_MAX_REL}), worst mean rel err {worst_mean:.2e} (limit "
-              f"{K3_MEAN_REL}) ok", flush=True)
+        worst_max, max_at, worst_mean, mean_at, bwd_abs = grad_errors(gk, gp)
+        ok = worst_max <= K3_MAX_REL and worst_mean <= K3_MEAN_REL
+        print(f"K3 {name} ({b}, {n}): dx and {len(gk[1]) * 4 + 2} parameter "
+              f"gradients, worst max rel err {worst_max:.2e} ({max_at}; "
+              f"limit {K3_MAX_REL}), worst mean rel err {worst_mean:.2e} "
+              f"({mean_at}; limit {K3_MEAN_REL}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"K3 disagrees ({name})")
 
         if name == "recipe":
             fwd = lambda: chain_forward(  # noqa: E731
@@ -666,6 +704,157 @@ def chain_phase(torch, dev, card, shapes=CHAIN_SHAPES):
 
 
 # ---------------------------------------------------------------------------
+# K5: the remat chain (non-stash forward + recomputing backward)
+# ---------------------------------------------------------------------------
+
+# K5's backward against its plain version.  Unlike K3's check, where the
+# kernel and the plain version read one stash, each side here recomputes
+# the stage activations with its own summation order, so every bf16
+# rounding flip of the forward (features within 7.4e-3 of each other, the
+# level of K1's and K2's checks) reaches the two backward passes
+# independently and compounds over the four stages.  Each gradient tensor
+# is held to 5e-2 of its largest and 1e-2 of its mean magnitude; a wrong
+# row, column, stage or statistic gives O(1).  The yardstick printed
+# beside it is the same comparison for the stash path end to end: K3 on
+# K2's own stash against the plain version on the plain stash.
+K5_MAX_REL, K5_MEAN_REL = 5e-2, 1e-2
+
+
+def k5_bound_ms(b, n, d, hidden, out, kv_pool, emit, backward):
+    """Least time for K5's forward or backward: bf16 tensor-core operations
+    (forward 2, backward 6 FLOP per multiply-add: recompute, dW, dh)
+    against the bytes each must move (no stash)."""
+    dims = [d, *hidden, out]
+    macs = sum(i * o for i, o in zip(dims[:-1], dims[1:]))
+    m = b * n
+    weights = 2 * macs + 4 * (3 * sum(hidden) + out)
+    feats = 4 * m * out if emit else 0
+    kv = 3 * 4 * m // kv_pool * out if kv_pool else 0
+    if backward:
+        flops = 6.0 * m * macs
+        nbytes = 4 * m * d + weights + feats + kv + 4 * (
+            macs + 3 * sum(hidden) + out) + 4 * m * d
+    else:
+        flops = 2.0 * m * macs
+        nbytes = 4 * m * d + weights + feats + kv
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+FULL = (512, 1024, 2048, 1024)
+K5_SHAPES = (
+    # (name, B, N, hidden widths, output width, kv_pool, emit features)
+    ("parity features", 3, 2560, FULL, 512, 0, True),
+    ("recipe-remat slim", 8, 2560, FULL, 512, 4, False),
+    ("ragged kv", 2, 200, (40, 72), 36, 4, True),
+    ("ragged features", 2, 256, (40, 72), 36, 0, True),
+    ("ragged slim", 2, 200, (40, 72), 36, 4, False))
+
+
+def k5_phase(torch, dev, card, shapes=K5_SHAPES):
+    """K5's forward and backward against their plain versions in every
+    flavour, K5's forward against K2's (array_equal), then both timed at
+    the parity (3, 2560) and recipe (8, 2560) shapes.  Returns the JSON
+    fields of the forward and the backward at the parity shape."""
+    from wireframe_tpu_torch.ops.chain_grad import (
+        chain_backward,
+        chain_backward_plain,
+        chain_forward,
+        chain_forward_plain,
+        remat_chain_backward,
+        remat_chain_forward,
+    )
+
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    bf = torch.bfloat16
+    result = {}
+    for name, b, n, hidden, out, p, emit in shapes:
+        stages, fw, fb = recipe_encoder_params(torch, rng, dev,
+                                               hidden=hidden, out=out)
+        x = torch.tensor(padded_clouds(rng, b, n), device=dev)
+        kw = dict(kv_pool=p, compute_dtype=bf, emit_features=emit)
+        got = remat_chain_forward(x, stages, fw, fb, **kw)
+        k2 = chain_forward(x, stages, fw, fb, **kw)
+        want = chain_forward_plain(x, stages, fw, fb, stash=False,
+                                   **{**kw, "emit_features": True})
+        torch.cuda.synchronize()
+        keys = (["pooled", "sums"] if p else []) + (["features"] if emit
+                                                     else [])
+        fwd_abs = forward_close(f"K5 fwd {name} ({b}, {n})", got, want, keys)
+        same = [k for k in got if not torch.equal(got[k], k2[k])]
+        print(f"K5 fwd {name}: {sorted(got)} array_equal to K2's: "
+              f"{not same}; no stash returned: {'zs' not in got}",
+              flush=True)
+        if same or "zs" in got:
+            raise AssertionError(f"K5 forward differs from K2's in {same}")
+        cot = {}
+        if p:
+            cot = dict(dpool=torch.randn(want["pooled"].shape, device=dev,
+                                         generator=gen),
+                       dsums=torch.randn(want["sums"].shape, device=dev,
+                                         generator=gen) * 0.1,
+                       idx=got["idx"])
+        if emit:
+            cot["g"] = torch.randn(want["features"].shape, device=dev,
+                                   generator=gen) * 0.1
+        bkw = dict(kv_pool=p, compute_dtype=bf, **cot)
+        gk = remat_chain_backward(x, stages, fw, fb, **bkw)
+        gp = chain_backward_plain(x, stages, fw, fb, None, **bkw)
+        yard = grad_errors(
+            chain_backward(x, stages, fw, fb, k2["zs"], **bkw),
+            chain_backward_plain(x, stages, fw, fb, chain_forward_plain(
+                x, stages, fw, fb, **kw)["zs"], **bkw))
+        torch.cuda.synchronize()
+        worst_max, max_at, worst_mean, mean_at, bwd_abs = grad_errors(gk, gp)
+        ok = worst_max <= K5_MAX_REL and worst_mean <= K5_MEAN_REL
+        print(f"K5 bwd {name} ({b}, {n}): dx and {len(gk[1]) * 4 + 2} "
+              f"parameter gradients, worst max rel err {worst_max:.2e} "
+              f"({max_at}; limit {K5_MAX_REL}), worst mean rel err "
+              f"{worst_mean:.2e} ({mean_at}; limit {K5_MEAN_REL}) "
+              f"{'ok' if ok else 'FAIL'}; yardstick K3 on K2's stash vs "
+              f"plain on the plain stash: {yard[0]:.2e} ({yard[1]}), "
+              f"{yard[2]:.2e} ({yard[3]})", flush=True)
+        if not ok:
+            raise AssertionError(f"K5 backward disagrees ({name})")
+
+        if b * n >= 3 * 2560:
+            timed = {}
+            for label, fn, plain, backward in (
+                    ("forward", lambda: remat_chain_forward(
+                        x, stages, fw, fb, **kw),
+                     lambda: chain_forward_plain(
+                         x, stages, fw, fb, stash=False, **kw), False),
+                    ("backward", lambda: remat_chain_backward(
+                        x, stages, fw, fb, **bkw),
+                     lambda: chain_backward_plain(
+                         x, stages, fw, fb, None, **bkw), True)):
+                ms = cuda_ms(torch, fn, 10)
+                plain_ms = cuda_ms(torch, plain, 3)
+                bound, bound_by = k5_bound_ms(b, n, 8, hidden, out, p, emit,
+                                              backward)
+                print(f"K5 {label} time {name} ({b}, {n}): kernel "
+                      f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                      f"{bound:.4f} ms ({bound_by}), "
+                      f"{bound / ms * 100:.1f}% of bound; library: none "
+                      f"(no single PyTorch call computes it) [{card}]",
+                      flush=True)
+                timed[label] = {"shape": f"B={b} N={n} kv_pool={p}"
+                                + ("" if emit else " slim"),
+                                "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound, "bound_by": bound_by,
+                                "max_abs_err": fwd_abs if label == "forward"
+                                else bwd_abs}
+            if name == "parity features":
+                result = timed
+        del x, got, want, k2, gk, gp
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Training: the recipe train step
 # ---------------------------------------------------------------------------
 
@@ -676,6 +865,26 @@ FALL_STEPS = 30
 # flips (pooled kv within 1e-2), carried through the decoder and the loss;
 # warmup makes the first update 0 and the next two tiny.
 TRAIN_LOSS_RTOL = 1e-2
+
+
+def _counters():
+    from wireframe_tpu_torch.ops import chain_grad, fused_encoder
+    from wireframe_tpu_torch.ops.lockstep_lsa import solve_lsa_rows
+
+    return {"K1": fused_encoder.fused_point_encoder,
+            "K2": chain_grad.chain_forward, "K3": chain_grad.chain_backward,
+            "K4": solve_lsa_rows,
+            "K5 fwd": chain_grad.remat_chain_forward,
+            "K5 bwd": chain_grad.remat_chain_backward}
+
+
+def reset_launches():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in _counters().items()}
 
 
 class _Losses:
@@ -716,6 +925,9 @@ TRAIN_KERNELS = {
            "false, true>", "true, false>"),
     "K4": ("lsa_kernel",),
 }
+# The remat chain runs the same kernels as K2 + K3 (row_bwd on f32 z).
+PARITY_KERNELS = {"K5": TRAIN_KERNELS["K2"] + TRAIN_KERNELS["K3"],
+                  "K4": TRAIN_KERNELS["K4"]}
 
 
 def training_phase(torch, dev, card, work):
@@ -727,14 +939,8 @@ def training_phase(torch, dev, card, work):
     )
     from wireframe_tpu_torch.config import load_config
     from wireframe_tpu_torch.io.obj import load_wireframe
-    from wireframe_tpu_torch.ops.chain_grad import (
-        chain_backward,
-        chain_forward,
-    )
-    from wireframe_tpu_torch.ops.lockstep_lsa import solve_lsa_rows
     from wireframe_tpu_torch.serve import WireframePredictor
     from wireframe_tpu_torch.train.loop import device_batch, train_model
-    from wireframe_tpu_torch.train.step import make_train_step
     from wireframe_tpu_torch.utils.synth import make_box_building_batch
 
     base = ["train.overfit_one_batch=true", "train.log_every=1"]
@@ -756,14 +962,13 @@ def training_phase(torch, dev, card, work):
 
     # The main path: counts to 0, 20 steps, counts read.
     writer = _Losses()
-    chain_forward.launches = chain_backward.launches = 0
-    solve_lsa_rows.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     state = train_model(cfg, [batch], metric_writer=writer, device=dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"K2": chain_forward.launches, "K3": chain_backward.launches,
-                "K4": solve_lsa_rows.launches}
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("K2", "K3", "K4")}
     losses = [r["total_loss"] for r in writer.rows]
     print(f"train {TRAIN_STEPS} steps in {secs:.2f} s, metrics read back "
           f"every step; losses "
@@ -771,9 +976,9 @@ def training_phase(torch, dev, card, work):
     print(f"train launches over {TRAIN_STEPS} steps: {launches}", flush=True)
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError("a training loss is not finite")
-    if any(v != TRAIN_STEPS for v in launches.values()):
+    if any(v != TRAIN_STEPS for v in launches.values()) or counts["K5 fwd"]:
         raise AssertionError(f"kernels not launched once per step: "
-                             f"{launches}")
+                             f"{counts}")
 
     # The same first 3 steps with the plain versions on the card.
     plain_cfg = load_config(RECIPE, base + ["train.num_epochs=3"])
@@ -788,6 +993,29 @@ def training_phase(torch, dev, card, work):
           f"{TRAIN_LOSS_RTOL})", flush=True)
     if max(rel) > TRAIN_LOSS_RTOL:
         raise AssertionError("training losses differ from the plain run")
+
+    # The recipe with the remat chain: K5's slim kv flavour in place of
+    # K2 + K3.  K5's forward is K2's bit for bit, and warmup makes the
+    # first update 0, so the first 2 losses equal the stash run's.
+    remat_cfg = load_config(RECIPE, base + ["model.chain_backward=remat",
+                                            "train.num_epochs=3"])
+    remat_writer = _Losses()
+    reset_launches()
+    train_model(remat_cfg, [batch], metric_writer=remat_writer, device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    rl = [r["total_loss"] for r in remat_writer.rows]
+    print(f"train recipe chain_backward=remat, 3 steps: losses {rl} vs "
+          f"stash {losses[:3]}; launches {counts}", flush=True)
+    if (counts["K5 fwd"], counts["K5 bwd"], counts["K4"]) != (3, 3, 3) or (
+            counts["K2"] or counts["K3"]):
+        raise AssertionError(f"recipe remat launches {counts}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(rl, losses)]
+    print(f"train recipe remat vs stash: bit-identical first 2 losses "
+          f"{rl[:2] == losses[:2]}, relative differences {rel} (limits "
+          f"1e-6, 1e-6, {TRAIN_LOSS_RTOL})", flush=True)
+    if max(rel[:2]) > 1e-6 or rel[2] > TRAIN_LOSS_RTOL:
+        raise AssertionError("recipe remat losses differ from the stash's")
 
     # Warmup from lr 0 moves little in 20 steps: show the loss falls at
     # the recipe's peak LR.
@@ -805,47 +1033,9 @@ def training_phase(torch, dev, card, work):
     if not all(map(math.isfinite, fl)) or not last < first:
         raise AssertionError("the constant-LR loss does not fall")
 
-    # ms per step: the step alone, no metric read-back, after warm-up.
-    step = make_train_step(cfg)
     dbatch = device_batch(batch, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    for _ in range(2):
-        step(state, dbatch, gen)
-    torch.cuda.synchronize()
-    n_timed = 10
-    t0 = time.perf_counter()
-    for _ in range(n_timed):
-        step(state, dbatch, gen)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n_timed * 1e3
-    print(f"train step: {step_ms:.2f} ms/step, "
-          f"{t.batch_size / step_ms * 1e3:.1f} training clouds/s (batch "
-          f"{t.batch_size} x {cfg.data.num_points} points, host clock over "
-          f"{n_timed} steps ending in a synchronize) [{card}]", flush=True)
-    profile_train_step(torch, step, state, dbatch, gen, card)
-
-    # No host sync inside the step: CUDA's sync debug mode flags every
-    # operation that waits for the device (a read-back, a blocking copy).
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step(state, dbatch, gen)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    # Setting the mode also warns that it is a prototype: count only the
-    # operations it flags.
-    syncs = [w for w in caught
-             if "called a synchronizing CUDA operation" in str(w.message)]
-    print(f"train step under CUDA sync debug mode: {len(syncs)} "
-          f"synchronizing operations", flush=True)
-    for w in syncs[:10]:
-        print(f"  {w.filename}:{w.lineno}: {str(w.message)[:80]}",
-              flush=True)
-    if syncs:
-        raise AssertionError("the train step synchronizes with the host")
+    step_ms = time_and_check_step(torch, cfg, state, dbatch, dev, card,
+                                  TRAIN_KERNELS, "train")
 
     # The trained weights, through the bridge, served.
     with torch.no_grad():
@@ -880,7 +1070,293 @@ def training_phase(torch, dev, card, work):
     return launches, step_ms
 
 
-def profile_train_step(torch, step, state, batch, gen, card):
+# ---------------------------------------------------------------------------
+# Training: the reference-parity model (remat chain K5, MLP head, K4)
+# ---------------------------------------------------------------------------
+
+PARITY_STEPS = 20
+PARITY_CKPT_EPOCH = 10
+STASH_BYTES = 2 * 3 * 2560 * sum(FULL)   # bf16 z_k of the stash at (3, 2560)
+
+
+def held_after_loss(torch, cfg, dev, dbatch):
+    """Device bytes that one train-mode forward + loss leaves allocated
+    for the backward (the model's weights excluded)."""
+    from wireframe_tpu_torch.losses.wireframe_loss import wireframe_loss
+    from wireframe_tpu_torch.train.loop import init_model
+    from wireframe_tpu_torch.train.step import loss_config
+
+    model = init_model(cfg, dev).train()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    preds = model(dbatch["point_clouds"], dbatch["vertex_counts"],
+                  train=True, generator=gen)
+    losses = wireframe_loss(preds, {
+        "vertices": dbatch["target_vertices"],
+        "vertex_existence": dbatch["vertex_existence"],
+        "edge_labels": dbatch["edge_labels"],
+        "vertex_counts": dbatch["vertex_counts"]}, loss_config(cfg))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    del preds, losses, model
+    return held
+
+
+def parity_phase(torch, dev, card, work):
+    """Train the full-width reference-parity model (configs/default.yaml
+    with the fused bf16 encoder): K5 forward and backward and K4 once per
+    step; checkpoint at epoch 10 resumed twice; remat's memory against
+    the stash's; the trained checkpoint served over all four buckets with
+    K1.  Returns (launch counts of the 20-step main-path run, ms/step)."""
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.data.bucketing import choose_bucket
+    from wireframe_tpu_torch.io.obj import load_wireframe
+    from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
+    from wireframe_tpu_torch.serve import WireframePredictor
+    from wireframe_tpu_torch.train.checkpoint import (
+        latest_step,
+        restore_train_state,
+        save_checkpoint,
+    )
+    from wireframe_tpu_torch.train.loop import (
+        device_batch,
+        init_model,
+        train_model,
+    )
+    from wireframe_tpu_torch.train.state import create_train_state
+    from wireframe_tpu_torch.utils.synth import make_box_building_batch
+
+    ckdir = os.path.join(work, "parity_ckpt")
+    base = PARITY_SET + ["train.log_every=1",
+                         f"train.checkpoint_dir={ckdir}",
+                         f"train.checkpoint_every={PARITY_CKPT_EPOCH}"]
+    cfg = load_config(PARITY, base + [f"train.num_epochs={PARITY_STEPS}"])
+    m, t = cfg.model, cfg.train
+    print(f"training parity: encoder {m.encoder_hidden_dims}->"
+          f"{m.encoder_output_dim}, vertex head {m.vertex_head} "
+          f"(512->4096->2048->2048->1024->{m.max_vertices}x{m.vertex_dim}), "
+          f"edge head {m.edge_hidden_dim}/{m.edge_num_heads} heads over "
+          f"{m.max_vertices * (m.max_vertices - 1) // 2} pairs, "
+          f"{m.compute_dtype}, chain_backward {m.chain_backward}, chain "
+          f"tile {m.pallas_chain_tile}, slot masks {m.slot_mask_mode}, batch "
+          f"{t.batch_size} x {cfg.data.num_points} points, lr "
+          f"{t.learning_rate} {t.lr_schedule}, matcher {t.matcher}, labels "
+          f"{'matched' if t.matched_edge_labels else 'positional'}, "
+          f"augment {t.device_augment and cfg.data.augment}, "
+          f"checkpoint_every {t.checkpoint_every}", flush=True)
+    batch = make_box_building_batch(cfg, t.batch_size, seed=0)
+
+    # The main path: counts to 0, 20 steps, counts read.
+    writer = _Losses()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = train_model(cfg, [batch], metric_writer=writer, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [r["total_loss"] for r in writer.rows]
+    print(f"parity train {PARITY_STEPS} steps in {secs:.2f} s; launches "
+          f"{counts}; losses {', '.join(f'{v:.5f}' for v in losses)}",
+          flush=True)
+    if len(losses) != PARITY_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError("a parity training loss is not finite")
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": PARITY_STEPS,
+            "K5 fwd": PARITY_STEPS, "K5 bwd": PARITY_STEPS}
+    if counts != want:
+        raise AssertionError(f"parity launches {counts}, expected {want}")
+
+    # At the reference's lr 1e-3 Adam overshoots first: on the H100 the
+    # loss rose for ~8 steps and fell back below its start by step 60,
+    # alike with the plain versions, the stash chain, the plain chain and
+    # f32.  Show the fall at lr 1e-4 in as many steps.
+    fall = ["train.learning_rate=0.0001", "train.checkpoint_every=0"]
+    fall_writer = _Losses()
+    train_model(load_config(PARITY, base + fall + [
+        f"train.num_epochs={PARITY_STEPS}"]), [batch],
+        metric_writer=fall_writer, device=dev)
+    fl = [r["total_loss"] for r in fall_writer.rows]
+    first, last = float(np.mean(fl[:3])), float(np.mean(fl[-3:]))
+    print(f"parity {PARITY_STEPS} steps with the override {fall[0]}: mean "
+          f"loss of the first 3 steps {first:.5f}, of the last 3 "
+          f"{last:.5f}; losses {', '.join(f'{v:.4f}' for v in fl)}",
+          flush=True)
+    if not all(map(math.isfinite, fl)) or not last < first:
+        raise AssertionError("the parity loss does not fall")
+
+    # The first 3 steps, kernels against the plain versions on the card,
+    # at lr 1e-6, as the recipe's warmup gives its first steps (0, 1.5e-6,
+    # 3e-6).  Adam's first updates move each parameter by about +-lr, so
+    # the sign flips of near-zero gradients between the two summation
+    # orders, and the matchings they then flip, moved the third loss by 5%
+    # at lr 1e-3 and by 4% at 1e-4 on the H100.
+    tiny = ["train.learning_rate=0.000001", "train.checkpoint_every=0",
+            "train.num_epochs=3"]
+    runs = []
+    for plain_versions in (False, True):
+        w = _Losses()
+        with plain_kernels() if plain_versions else contextlib.nullcontext():
+            train_model(load_config(PARITY, base + tiny), [batch],
+                        metric_writer=w, device=dev)
+        runs.append([r["total_loss"] for r in w.rows])
+    rel = [abs(a - b) / abs(b) for a, b in zip(*runs)]
+    print(f"parity first 3 losses at lr 1e-6, kernels {runs[0]} vs plain "
+          f"versions {runs[1]}: max rel diff {max(rel):.2e} (rtol "
+          f"{TRAIN_LOSS_RTOL})", flush=True)
+    if max(rel) > TRAIN_LOSS_RTOL:
+        raise AssertionError("parity losses differ from the plain run")
+
+    # The checkpoint written at epoch 10, resumed twice.
+    if latest_step(ckdir) != PARITY_CKPT_EPOCH:
+        raise AssertionError(f"checkpoints under {ckdir}: "
+                             f"{sorted(os.listdir(ckdir))}")
+    runs = []
+    for _ in range(2):
+        fresh = create_train_state(cfg, init_model(cfg, dev, seed=7))
+        fresh, start = restore_train_state(fresh, ckdir)
+        w = _Losses()
+        train_model(cfg, [batch], metric_writer=w, state=fresh,
+                    start_epoch=start, device=dev)
+        runs.append([r["total_loss"] for r in w.rows])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+    print(f"parity resume from step {start} (epoch {start}), twice: "
+          f"{len(runs[0])} losses each, bit-identical {runs[0] == runs[1]}, "
+          f"max rel diff {rel:.2e} (limit 1e-5); continuous run "
+          f"{losses[start:]}, resumed {runs[0]}", flush=True)
+    if len(runs[0]) != PARITY_STEPS - PARITY_CKPT_EPOCH or rel > 1e-5:
+        raise AssertionError("two resumes from one checkpoint differ")
+
+    # What the forward leaves for the backward: remat holds no stash.
+    dbatch = device_batch(batch, dev)
+    held = {mode: held_after_loss(torch, load_config(PARITY, base + [
+        f"model.chain_backward={mode}"]), dev, dbatch)
+        for mode in ("remat", "stash")}
+    saved = held["stash"] - held["remat"]
+    print(f"parity memory held between forward and backward: remat "
+          f"{held['remat'] / 1e6:.1f} MB, stash {held['stash'] / 1e6:.1f} "
+          f"MB; remat saves {saved / 1e6:.2f} MB (the stash is "
+          f"{STASH_BYTES / 1e6:.2f} MB) [{card}]", flush=True)
+    if saved < STASH_BYTES:
+        raise AssertionError("remat does not save the stash's memory")
+
+    step_ms = time_and_check_step(torch, cfg, state, dbatch, dev, card,
+                                  PARITY_KERNELS, "parity")
+
+    # The trained checkpoint, served with K1 over all four buckets.
+    path = save_checkpoint(ckdir, state, cfg, epoch=PARITY_STEPS)
+    predictor = WireframePredictor(path, device=dev)
+    sizes = (1300, 3000, 6000, 12000, 20000)
+    rng = np.random.default_rng(8)
+    offset = np.array([534000.0, 6588000.0, 40.0])
+    paths = []
+    for i, n in enumerate(sizes):
+        pth = os.path.join(work, f"parity_cloud{i}_{n}.xyz")
+        np.savetxt(pth, synthetic_building(rng, n, offset), fmt="%.4f")
+        paths.append(pth)
+    buckets = [choose_bucket(n, predictor.buckets) for n in sizes]
+    if sorted(set(buckets)) != sorted(predictor.buckets):
+        raise AssertionError(f"parity clouds miss a bucket: {buckets}")
+    batches = sum(-(-buckets.count(k) // predictor.batch_size)
+                  for k in set(buckets))
+    reset_launches()
+    results = predictor.predict_files(paths, out_dir=os.path.join(
+        work, "parity_obj"))
+    k1 = launch_counts()["K1"]
+    for pth, r in zip(paths, results):
+        v, e = r["vertices"], r["edges"]
+        lv, le = load_wireframe(r["obj_path"])
+        if not np.isfinite(v).all() or lv.shape != v.shape or (
+                len(le) != r["num_edges"]) or (
+                len(e) and e.max() >= r["num_vertices"]):
+            raise AssertionError(f"parity checkpoint: {pth} does not serve")
+        if len(v) and np.linalg.norm(v.mean(0) - offset) > 100.0:
+            raise AssertionError(f"vertices of {pth} not in world frame")
+        print(f"served parity checkpoint: {os.path.basename(pth)} -> "
+              f"{r['num_vertices']} vertices, {r['num_edges']} edges",
+              flush=True)
+    print(f"parity serving: {len(paths)} clouds in {batches} batches over "
+          f"buckets {predictor.buckets}; K1 launches {k1}", flush=True)
+    if k1 != batches:
+        raise AssertionError(f"K1 launched {k1} times for {batches} batches")
+
+    # Kernel encoder against the plain chain on one served batch.  The
+    # trained model's vertices leave the unit sphere (the lr 1e-3
+    # overshoot), where one bf16 ulp exceeds the unit-frame atol: each
+    # output is held to its atol plus 2e-2 (~5 bf16 ulps) of its size.
+    pcs = [predictor._preprocess(np.loadtxt(pth))["pc"] for pth in paths[:2]]
+    xb = torch.tensor(predictor.batch_array(pcs, predictor.buckets[1]),
+                      device=dev)
+    plain_cfg = load_config(PARITY, [*base,
+                                     "model.use_pallas_encoder=false"])
+    plain_model = PointCloudToWireframe(plain_cfg.model).to(dev).eval()
+    plain_model.load_state_dict(predictor.model.state_dict(), strict=True)
+    with torch.inference_mode():
+        out_k = predictor.model(xb)
+        out_p = plain_model(xb)
+    for key, atol in MODEL_ATOL.items():
+        diff = (out_k[key] - out_p[key]).abs()
+        ok = bool((diff <= atol + 2e-2 * out_p[key].abs()).all())
+        print(f"parity model kernel vs plain chain: {key} max_abs "
+              f"{diff.max().item():.3e} where the largest |value| is "
+              f"{out_p[key].abs().max().item():.3f} (atol {atol}, rtol "
+              f"2e-2) {'ok' if ok else 'FAIL'}", flush=True)
+        if not torch.isfinite(out_k[key]).all() or not ok:
+            raise AssertionError(f"parity model {key} disagrees")
+    return counts, step_ms
+
+
+def time_and_check_step(torch, cfg, state, dbatch, dev, card, kernels,
+                        label):
+    """ms per step (the step alone, no metric read-back, after warm-up),
+    a profile of one step, and one step under CUDA's sync debug mode,
+    which must flag no synchronizing operation.  Returns ms per step."""
+    from wireframe_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for _ in range(2):
+        step(state, dbatch, gen)
+    torch.cuda.synchronize()
+    n_timed = 10
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        step(state, dbatch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    b, n = dbatch["point_clouds"].shape[:2]
+    print(f"{label} step: {step_ms:.2f} ms/step, {b / step_ms * 1e3:.1f} "
+          f"training clouds/s (batch {b} x {n} points, host clock over "
+          f"{n_timed} steps ending in a synchronize) [{card}]", flush=True)
+    profile_train_step(torch, step, state, dbatch, gen, card, kernels, label)
+
+    # No host sync inside the step: CUDA's sync debug mode flags every
+    # operation that waits for the device (a read-back, a blocking copy).
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, dbatch, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # Setting the mode also warns that it is a prototype: count only the
+    # operations it flags.
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    print(f"{label} step under CUDA sync debug mode: {len(syncs)} "
+          f"synchronizing operations", flush=True)
+    for w in syncs[:10]:
+        print(f"  {w.filename}:{w.lineno}: {str(w.message)[:80]}",
+              flush=True)
+    if syncs:
+        raise AssertionError(f"the {label} step synchronizes with the host")
+    return step_ms
+
+
+def profile_train_step(torch, step, state, batch, gen, card, kernels,
+                       label):
     """Where one train step's time goes: device time by kernel from
     torch.profiler against the host wall clock of the same step."""
     from torch.profiler import ProfilerActivity, profile
@@ -894,12 +1370,12 @@ def profile_train_step(torch, step, state, batch, gen, card):
     rows = device_rows(prof)
     device_ms = sum(r[0] for r in rows)
     per = {k: sum(r[0] for r in rows if any(s in r[2] for s in subs))
-           for k, subs in TRAIN_KERNELS.items()}
+           for k, subs in kernels.items()}
     rest = device_ms - sum(per.values())
-    print(f"profile train step: wall {wall_ms:.2f} ms, device busy "
-          f"{device_ms:.2f} ms ({device_ms / wall_ms * 100:.1f}%), K2 "
-          f"{per['K2']:.2f} ms, K3 {per['K3']:.2f} ms, K4 {per['K4']:.3f} "
-          f"ms, rest of the step {rest:.2f} ms, "
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
+    print(f"profile {label} step: wall {wall_ms:.2f} ms, device busy "
+          f"{device_ms:.2f} ms ({device_ms / wall_ms * 100:.1f}%), {parts}, "
+          f"rest of the step {rest:.2f} ms, "
           f"{sum(r[1] for r in rows)} device ops [{card}]", flush=True)
     for ms, count, name in sorted(rows, reverse=True)[:10]:
         print(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}", flush=True)
@@ -949,8 +1425,14 @@ def main() -> int:
         phase = "K2 / K3 kernels and times"
         chain = chain_phase(torch, dev, card)
 
+        phase = "K5 kernels and times"
+        k5 = k5_phase(torch, dev, card)
+
         phase = "training"
         train_launches, _ = training_phase(torch, dev, card, work)
+
+        phase = "parity training"
+        parity_launches, _ = parity_phase(torch, dev, card, work)
 
         phase = "serving"
         launches, batches = serving_phase(torch, dev, card, work)
@@ -980,6 +1462,16 @@ def main() -> int:
                             "source": src + source, "replaces": replaces,
                             "launches": train_launches[key], **fields,
                             "library_ms": None})
+        for key, count, name, replaces in (
+                ("forward", "K5 fwd", "chain forward, remat (K5)",
+                 "wireframe_tpu/ops/pallas_chain_grad.py:159"),
+                ("backward", "K5 bwd", "chain backward, remat (K5)",
+                 "wireframe_tpu/ops/pallas_chain_grad.py:400")):
+            kernels.append({"name": name, "route": "cuda",
+                            "source": src + "chain_grad.cu",
+                            "replaces": replaces,
+                            "launches": parity_launches[count],
+                            **k5[key], "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:
         traceback.print_exc()

@@ -134,6 +134,16 @@ def test_nan_prediction_is_clamped_before_the_solver():
 
 
 def test_device_matcher_raises():
+    """matcher="device" (formerly refused) now takes K4 and gives the JAX
+    package's XLA-loop "device" loss: the same matching (array_equal) and
+    the loss to f32 noise (rtol 1e-5), gradients as above."""
     pred, tgt = _inputs(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        _torch_loss(pred, tgt, WireframeLossConfig(matcher="device"))
+    want, want_g = _jax_loss(pred, tgt, JaxLossConfig(matcher="device"))
+    got, got_g = _torch_loss(pred, tgt, WireframeLossConfig(matcher="device"))
+    np.testing.assert_array_equal(got["matched_cols"].numpy(),
+                                  np.asarray(want["matched_cols"]))
+    np.testing.assert_allclose(float(got["total_loss"].detach()),
+                               float(want["total_loss"]), rtol=1e-5)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-6)

@@ -5,7 +5,8 @@ the assignments must be EQUAL (array_equal, ties included) to
 `solve_lsa_rows_lockstep` and to the Pallas kernel in interpret mode, on
 random costs, quantized costs full of ties, samples with fewer active
 rows than R, and a NaN row after the loss's clamp.  Costs are checked
-optimal against scipy to 1e-5.
+optimal against scipy to 1e-5.  `matcher="device"` runs K4 because its
+result is also EQUAL to the JAX package's XLA-loop `solve_lsa_rows_batch`.
 """
 
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
 
+from wireframe_tpu.ops.lsa import solve_lsa_rows_batch
 from wireframe_tpu.ops.pallas_lsa import (
     max_safe_cost as jax_max_safe_cost,
     solve_lsa_rows_lockstep,
@@ -40,6 +42,8 @@ def _costs(kind, shape, seed):
     if kind in ("random", "ties"):
         nr[:] = r
     nr[0] = min(nr[0], r)
+    if kind == "zero_rows":
+        nr[:] = 0
     if kind == "nan_clamped":
         cost[1, 2, :] = np.nan
         cost[2, 0, 3] = 1e12
@@ -93,6 +97,23 @@ def test_plain_equals_pallas_interpret(kind):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("kind", ["random", "ties", "partial_rows",
+                                  "zero_rows"])
+@pytest.mark.parametrize("shape", [(3, 64, 64), (8, 38, 40)])
+def test_device_matcher_equals_jax_xla_loop(kind, shape):
+    """The solver the loss runs for matcher="device" (K4, its plain version
+    on the CPU) gives the assignments of the JAX package's XLA-loop
+    solver, array_equal: random costs and full counts, forced ties, random
+    counts including 0 and R, all counts 0."""
+    cost, nr = _costs(kind, shape, 13)
+    if kind == "partial_rows":
+        nr[:2] = (0, shape[1])
+    want = np.asarray(solve_lsa_rows_batch(jnp.asarray(cost),
+                                           jnp.asarray(nr)))
+    got = solve_lsa_rows(torch.from_numpy(cost), torch.from_numpy(nr))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_wrapper_takes_plain_on_cpu_without_counting():
     cost, nr = _costs("random", (3, 6, 8), 5)
     before = solve_lsa_rows.launches
@@ -110,8 +131,11 @@ def test_square_solvers_and_assignment_cost():
     s = solve_square(cost, "scipy")
     np.testing.assert_allclose(assignment_cost(cost, a).numpy(),
                                assignment_cost(cost, s).numpy(), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        solve_square(cost, "device")
+    d = solve_square(cost, "device")
+    np.testing.assert_array_equal(d.numpy(), a.numpy())
+    want = np.asarray(solve_lsa_rows_batch(jnp.asarray(cost.numpy()),
+                                           jnp.full((5,), 9, jnp.int32)))
+    np.testing.assert_array_equal(d.numpy(), want)
 
 
 def test_matcher_matches_scipy_optimum():
@@ -134,5 +158,6 @@ def test_matcher_matches_scipy_optimum():
                                rtol=1e-5)
     np.testing.assert_array_equal(matched.sum(1).numpy(),
                                   counts.numpy())
-    with pytest.raises(NotImplementedError, match="A9"):
-        WireframeMatcher("device")(pv, pe, tv, counts)
+    col_d, matched_d = WireframeMatcher("device")(pv, pe, tv, counts)
+    np.testing.assert_array_equal(col_d.numpy(), col.numpy())
+    np.testing.assert_array_equal(matched_d.numpy(), matched.numpy())

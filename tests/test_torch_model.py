@@ -142,8 +142,7 @@ def test_unsorted_cloud_is_sorted_in_graph():
                                **F32)
 
 
-@pytest.mark.parametrize("bad", ["model.vertex_head=mlp",
-                                 "model.decoder_scan=true",
+@pytest.mark.parametrize("bad", ["model.decoder_scan=true",
                                  "model.decoder_fused_cross_kv=true"])
 def test_unported_layouts_raise(bad):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,13 +2,18 @@
 
 The recipe at small width (`configs/recommended.yaml`: query decoder,
 existence slot masks, slot features, kv_pool 4 through the stash chain,
-matched edge and existence labels, EMA 0.999), in f32, from the same
-flax-initialized weights (carried over by the bridge, with randomized
-biases and slot queries), on the same `make_random_batch` arrays.  The
-JAX side runs its Pallas kernels in interpret mode with
-`train.matcher=pallas`, so both sides use the lockstep tie rule.  Dropout
-is 0 and the device augmentation off: both draw from different random
-streams.
+or through the remat chain K5, matched edge and existence labels, EMA
+0.999), and the reference-parity model (`configs/default.yaml` with
+`model.use_pallas_encoder=true`: the MLP vertex head, the remat chain in
+its features flavour with eager pools, positional edge and existence
+labels, prefix slot masks, `matcher="device"`, constant LR), in f32,
+from the same flax-initialized weights (carried over by the bridge, with
+randomized biases and slot queries), on the same `make_random_batch`
+arrays.  The JAX side runs its Pallas kernels in interpret mode; the
+recipe uses `train.matcher=pallas`, so both sides use the lockstep tie
+rule, and the parity model `matcher="device"`, whose XLA loop gives the
+same assignments (tests/test_torch_lsa.py).  Dropout is 0 and the device
+augmentation off: both draw from different random streams.
 
 Tolerances, each with its reason:
 - step-0 losses and metrics: rtol 1e-5 (same f32 arithmetic, other
@@ -51,8 +56,10 @@ from wireframe_tpu_torch.train.state import create_train_state
 from wireframe_tpu_torch.train.step import make_train_step
 from wireframe_tpu_torch.utils.synth import make_random_batch
 
-RECIPE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "configs", "recommended.yaml")
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
+RECIPE = os.path.join(CONFIGS, "recommended.yaml")
+PARITY = os.path.join(CONFIGS, "default.yaml")
 SMALL = ["model.encoder_hidden_dims=32,64", "model.encoder_output_dim=32",
          "model.decoder_dim=32", "model.decoder_layers=2",
          "model.decoder_heads=4", "model.decoder_ffn_dim=64",
@@ -62,6 +69,13 @@ SMALL = ["model.encoder_hidden_dims=32,64", "model.encoder_output_dim=32",
          "model.compute_dtype=float32", "train.matcher=pallas",
          "model.attn_dropout=0", "model.edge_dropout=0",
          "train.device_augment=false", "train.num_epochs=3"]
+PARITY_SMALL = ["model.encoder_hidden_dims=32,64",
+                "model.encoder_output_dim=32", "data.max_vertices=8",
+                "model.edge_hidden_dim=32", "model.edge_num_heads=4",
+                "model.pallas_chain_tile=32", "data.num_points=64",
+                "train.batch_size=2", "model.use_pallas_encoder=true",
+                "model.attn_dropout=0", "model.edge_dropout=0",
+                "train.device_augment=false", "train.num_epochs=3"]
 STEPS = 3
 
 
@@ -84,11 +98,25 @@ def _np_tree(tree):
     ["train.lr_schedule=constant"],
     # warmup_cosine: lr(0) = 0, then 1.5e-4 and 3e-4.
     ["train.lr_schedule=warmup_cosine", "train.warmup_steps=2"],
+    ["train.lr_schedule=constant", "model.chain_backward=remat"],
 ])
 def test_three_steps_match_make_train_step(schedule):
-    overrides = SMALL + schedule
-    jcfg = jax_load_config(RECIPE, overrides)
-    cfg = load_config(RECIPE, overrides)
+    _three_steps_match(RECIPE, SMALL + schedule)
+
+
+def test_parity_three_steps_match_make_train_step():
+    cfg = load_config(PARITY, PARITY_SMALL)
+    assert (cfg.model.vertex_head, cfg.model.chain_backward,
+            cfg.train.matcher, cfg.model.slot_mask_mode) == (
+                "mlp", "remat", "device", "prefix")
+    assert not (cfg.train.matched_edge_labels
+                or cfg.train.matched_existence_labels)
+    _three_steps_match(PARITY, PARITY_SMALL)
+
+
+def _three_steps_match(config, overrides):
+    jcfg = jax_load_config(config, overrides)
+    cfg = load_config(config, overrides)
     b, n, d = 2, 64, jcfg.model.input_dim
 
     jstate = jax_create_state(jcfg, jax.random.PRNGKey(0), (b, n, d))
@@ -97,9 +125,13 @@ def test_three_steps_match_make_train_step(schedule):
     for k, v in flat.items():
         if k.endswith("bias") or k.endswith("_b"):
             flat[k] = (v + rng.normal(size=v.shape) * 0.1).astype(np.float32)
-    flat["vertex_decoder/slot_queries"] = rng.normal(
-        size=flat["vertex_decoder/slot_queries"].shape).astype(np.float32)
-    jstate = jstate.replace(params=_nested(flat), ema_params=_nested(flat))
+    if "vertex_decoder/slot_queries" in flat:
+        flat["vertex_decoder/slot_queries"] = rng.normal(
+            size=flat["vertex_decoder/slot_queries"].shape).astype(
+                np.float32)
+    jstate = jstate.replace(
+        params=_nested(flat),
+        ema_params=None if jstate.ema_params is None else _nested(flat))
 
     batch = make_random_batch(cfg, b, seed=3)
     jbatch = jax_random_batch(jcfg, b, seed=3)
@@ -143,13 +175,16 @@ def test_three_steps_match_make_train_step(schedule):
     tol = 2 * lr_sum + 1e-6
     got_p = state_dict_to_flax(state.params, cfg.model)
     want_p = _np_tree(jstate.params)
-    got_e = state_dict_to_flax(state.ema_params, cfg.model)
-    want_e = _np_tree(jstate.ema_params)
     for k in want_p:
         np.testing.assert_allclose(got_p[k], want_p[k], rtol=0, atol=tol,
                                    err_msg=k)
-        np.testing.assert_allclose(got_e[k], want_e[k], rtol=0, atol=tol,
-                                   err_msg=k)
+    assert (state.ema_params is None) == (jstate.ema_params is None)
+    if state.ema_params is not None:
+        got_e = state_dict_to_flax(state.ema_params, cfg.model)
+        want_e = _np_tree(jstate.ema_params)
+        for k in want_e:
+            np.testing.assert_allclose(got_e[k], want_e[k], rtol=0,
+                                       atol=tol, err_msg=k)
     moved = max(np.abs(got_p[k] - flat[k]).max() for k in flat)
     assert moved > 0.5 * step.optimizer.lr(STEPS - 1)
 

@@ -99,7 +99,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor],
 
 def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Every leaf of the flax `PointCloudToWireframe` tree for `cfg` (the
-    query head, unrolled layout) with its shape."""
+    query head in its unrolled layout, or the parity MLP head) with its
+    shape."""
     shapes: Dict[str, Tuple[int, ...]] = {}
 
     def dense(path, i, o):
@@ -132,27 +133,40 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     dense("encoder/fusion/Dense_2", 2 * c, c)
 
     d, v = cfg.decoder_dim, cfg.max_vertices
-    dense("vertex_decoder/point_proj", c, d)
-    norm("vertex_decoder/point_ln", d)
-    shapes["vertex_decoder/slot_queries"] = (v, d)
-    dense("vertex_decoder/global_proj", c, d)
-    for i in range(cfg.decoder_layers):
-        blk = f"vertex_decoder/block{i}"
-        norm(f"{blk}/ln_self", d)
-        attention(f"{blk}/self_attn", d, cfg.decoder_heads)
-        norm(f"{blk}/ln_cross", d)
-        attention(f"{blk}/cross_attn", d, cfg.decoder_heads)
-        norm(f"{blk}/ln_ffn", d)
-        dense(f"{blk}/ffn_in", d, cfg.decoder_ffn_dim)
-        dense(f"{blk}/ffn_out", cfg.decoder_ffn_dim, d)
-    norm("vertex_decoder/out_ln", d)
-    dense("vertex_decoder/coord_head", d, 3)
-    dense("vertex_decoder/exist_head", d, 1)
+    query = cfg.vertex_head == "query"
+    if query:
+        dense("vertex_decoder/point_proj", c, d)
+        norm("vertex_decoder/point_ln", d)
+        shapes["vertex_decoder/slot_queries"] = (v, d)
+        dense("vertex_decoder/global_proj", c, d)
+        for i in range(cfg.decoder_layers):
+            blk = f"vertex_decoder/block{i}"
+            norm(f"{blk}/ln_self", d)
+            attention(f"{blk}/self_attn", d, cfg.decoder_heads)
+            norm(f"{blk}/ln_cross", d)
+            attention(f"{blk}/cross_attn", d, cfg.decoder_heads)
+            norm(f"{blk}/ln_ffn", d)
+            dense(f"{blk}/ffn_in", d, cfg.decoder_ffn_dim)
+            dense(f"{blk}/ffn_out", cfg.decoder_ffn_dim, d)
+        norm("vertex_decoder/out_ln", d)
+        dense("vertex_decoder/coord_head", d, 3)
+        dense("vertex_decoder/exist_head", d, 1)
+    else:
+        # models/vertex_head.py: widths 4096/2048/2048/1024 are fixed.
+        vp = "vertex_predictor"
+        dense(f"{vp}/point_pool_proj", 2 * c, c)
+        for name, i, o in (("mlp1", c, 4096), ("mlp2", 4096, 2048),
+                           ("mlp3", 2048, 2048), ("mlp4", 2048, 1024)):
+            dense(f"{vp}/{name}/Dense_0", i, o)
+            norm(f"{vp}/{name}/LayerNorm_0", o)
+        dense(f"{vp}/residual_proj1", c, 2048)
+        dense(f"{vp}/residual_proj2", c, 1024)
+        dense(f"{vp}/final_layer", 1024, v * cfg.vertex_dim)
 
     h = cfg.edge_hidden_dim
     e = "edge_predictor"
-    dense(f"{e}/Dense_0", 3 + (d if cfg.edge_use_slot_features else 0),
-          h // 2)
+    slot_dim = d if query and cfg.edge_use_slot_features else 0
+    dense(f"{e}/Dense_0", 3 + slot_dim, h // 2)
     norm(f"{e}/LayerNorm_0", h // 2)
     dense(f"{e}/Dense_1", h // 2, h)
     norm(f"{e}/LayerNorm_1", h)

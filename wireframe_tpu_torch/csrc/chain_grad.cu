@@ -1,5 +1,5 @@
-// K2 + K3: the differentiable point chain of the training step, stash
-// flavour, hand-written for Hopper (sm_90a).
+// K2 + K3 + K5: the differentiable point chain of the training step,
+// hand-written for Hopper (sm_90a).
 //
 // Replaces wireframe_tpu/ops/pallas_chain_grad.py:
 //   K2 _chain_forward_stash_pallas (forward, stashing the pre-LayerNorm
@@ -9,12 +9,18 @@
 //      cotangent scatter of _kv_pool_tile_bwd, LayerNorm statistics
 //      rebuilt from the bf16 z (_stages_from_z), then per stage the ReLU
 //      backward with jnp.maximum's tie rule, the LayerNorm backward,
-//      dW = h^T dz and dh = dz W^T; f32 parameter gradients).
+//      dW = h^T dz and dh = dz W^T; f32 parameter gradients);
+//   K5 _chain_forward_pallas (the same forward without the stash) and
+//      _chain_backward_pallas with zs=None (_recompute_stages: each
+//      stage's z recomputed by the forward's own GEMM and LayerNorm pass,
+//      so z and h are bit-identical to the forward's, the statistics taken
+//      from the f32 z; then K3's stage backward on the f32 z).
 //
 // What bounds it on this card: operations.  The forward is the same
-// 10.49 MFLOP per point as K1, the backward twice that (dW and dh), while
-// the stash is 2 B per activation (189 MB at B=8, N=2560): ~0.06 ms at
-// 3.35 TB/s against ~0.22 ms of bf16 tensor-core time for the forward.
+// 10.49 MFLOP per point as K1, K3 twice that (dW and dh) and K5's
+// backward three times (recompute, dW, dh), while the stash is 2 B per
+// activation (189 MB at B=8, N=2560): ~0.06 ms at 3.35 TB/s against
+// ~0.22 ms of bf16 tensor-core time for the forward.
 //
 // Design of this first version (right and simple first):
 //   - every product goes through the WMMA GEMM of wmma_gemm.cuh, in the
@@ -22,22 +28,25 @@
 //     transposed) and h^T dz (A read transposed, split over the 20,480
 //     rows with per-slice partials summed in a fixed order);
 //   - k2_ln_relu_stash: one warp per row, the forward's two-pass f32
-//     LayerNorm of z (f32), ReLU -> bf16 h, and the bf16 stash of z;
+//     LayerNorm of z (f32), ReLU -> bf16 h, and (K2 only; a null Zs
+//     skips it) the bf16 stash of z;
 //   - k2_window_pool: one thread per (window, channel): masked max with
 //     the lowest tied offset as argmax (0 for an all-invalid window, as
 //     jnp.argmax over all -inf gives 0) and the masked window sum;
 //   - k3_seed: the kv cotangent scatter (+ the feature cotangent when the
 //     flavour has one) -> bf16 cotangent and per-block column partials of
 //     d final_b;
-//   - k3_row_bwd: one 256-thread block per 32-row chunk, each thread
-//     owning up to 8 columns: LayerNorm statistics from the bf16 z,
-//     h = relu(ln) in bf16 (the next stage's GEMM input), the ReLU / LN
-//     backward, dz in bf16, and per-block column partials of d gamma,
-//     d beta, d b;
+//   - k3_row_bwd / k5_row_bwd: one 256-thread block per 32-row chunk,
+//     each thread owning up to 8 columns: LayerNorm statistics from the
+//     bf16 (K3) or f32 (K5) z, h = relu(ln) in bf16 (the next stage's
+//     GEMM input; K5 keeps the recomputed h and passes a null Hout), the
+//     ReLU / LN backward, dz in bf16, and per-block column partials of
+//     d gamma, d beta, d b;
 //   - k3_colsum: sums per-block (or per-K-slice) partials in block order.
 // No float atomics anywhere: gradients repeat bit for bit run to run.
 // Activations go through device memory; keeping them on chip is the work
-// of K1's planned redesign (ROADMAP.md K1+).
+// of K1's planned redesign (ROADMAP.md K1+).  K5's backward holds the
+// whole batch's recomputed f32 z and bf16 h for the length of the call.
 //
 // Interface: plain C, loaded with ctypes.  Every function launches on the
 // stream it is given, allocates nothing, and returns cudaGetLastError().
@@ -98,7 +107,8 @@ __global__ void row_valid_kernel(const float* __restrict__ X, int D,
 }
 
 // Forward LayerNorm of one stage, one warp a row:
-//   H = bf16(relu((Z - mean) * rstd * gamma + beta)),  Zs = bf16(Z).
+//   H = bf16(relu((Z - mean) * rstd * gamma + beta)),  Zs = bf16(Z)
+// (Zs null: no stash).
 __global__ void ln_relu_stash_kernel(const float* __restrict__ Z,
                                      const float* __restrict__ gamma,
                                      const float* __restrict__ beta,
@@ -118,12 +128,12 @@ __global__ void ln_relu_stash_kernel(const float* __restrict__ Z,
     }
     const float rstd = rsqrtf(warp_sum(q) / (float)W + 1e-6f);
     bf16* h = H + (size_t)row * W;
-    bf16* zs = Zs + (size_t)row * W;
+    bf16* zs = Zs == nullptr ? nullptr : Zs + (size_t)row * W;
     for (int c = lane; c < W; c += 32) {
         const float v = z[c];
         h[c] = __float2bfloat16(fmaxf((v - mean) * rstd * gamma[c] + beta[c],
                                       0.0f));
-        zs[c] = __float2bfloat16(v);
+        if (zs != nullptr) zs[c] = __float2bfloat16(v);
     }
 }
 
@@ -209,16 +219,21 @@ __global__ void seed_kernel(const float* __restrict__ dpool,
     }
 }
 
-// Backward of one stage from its bf16 pre-LN activations Zs (M, W):
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// Backward of one stage from its pre-LN activations Zs (M, W), bf16 (the
+// K3 stash) or f32 (K5's recompute):
 //   xhat = (z - mean) * rstd, ln = xhat * gamma + beta,
-//   Hout = bf16(max(ln, 0))                       (next stage's input),
+//   Hout = bf16(max(ln, 0))     (next stage's input; skipped when null),
 //   dln  = ln > 0 ? dh : (ln < 0 ? 0 : dh / 2)    (jnp.maximum's tie rule),
 //   dxhat = dln * gamma,
 //   dz = (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) * rstd -> bf16,
 // and per-block column partials part[blk] = [d gamma | d beta | d b]
 // (3 * W floats).  One block per ROW_CHUNK rows.
+template <typename ZT>
 __global__ void __launch_bounds__(ROW_THREADS)
-row_bwd_kernel(const bf16* __restrict__ Zs, const float* __restrict__ gamma,
+row_bwd_kernel(const ZT* __restrict__ Zs, const float* __restrict__ gamma,
                const float* __restrict__ beta, const float* __restrict__ dh,
                bf16* __restrict__ dz_out, bf16* __restrict__ Hout,
                float* __restrict__ part, int M, int W) {
@@ -242,7 +257,7 @@ row_bwd_kernel(const bf16* __restrict__ Zs, const float* __restrict__ gamma,
 #pragma unroll
         for (int j = 0; j < MAX_COLS_PER_THREAD; ++j) {
             const int c = threadIdx.x + j * ROW_THREADS;
-            z[j] = c < W ? __bfloat162float(Zs[(size_t)r * W + c]) : 0.0f;
+            z[j] = c < W ? to_f32(Zs[(size_t)r * W + c]) : 0.0f;
             g[j] = c < W ? dh[(size_t)r * W + c] : 0.0f;
             s += z[j];
         }
@@ -265,7 +280,8 @@ row_bwd_kernel(const bf16* __restrict__ Zs, const float* __restrict__ gamma,
             const float dln = ln > 0.0f ? g[j] : (ln < 0.0f ? 0.0f
                                                             : 0.5f * g[j]);
             if (c < W) {
-                Hout[(size_t)r * W + c] = __float2bfloat16(fmaxf(ln, 0.0f));
+                if (Hout != nullptr)
+                    Hout[(size_t)r * W + c] = __float2bfloat16(fmaxf(ln, 0.0f));
                 a_g[j] += dln * xhat;
                 a_b[j] += dln;
             }
@@ -383,13 +399,27 @@ int k3_seed(const float* dpool, const int* idx, const float* dsums,
     return (int)cudaGetLastError();
 }
 
+// Stage backward from the bf16 stash (K3).
 int k3_row_bwd(const void* Zs, const float* gamma, const float* beta,
                const float* dh, void* dz, void* Hout, float* part, int M,
                int W, cudaStream_t stream) {
     if (W > ROW_THREADS * MAX_COLS_PER_THREAD) return (int)cudaErrorInvalidValue;
-    row_bwd_kernel<<<(M + ROW_CHUNK - 1) / ROW_CHUNK, ROW_THREADS, 0, stream>>>(
+    row_bwd_kernel<bf16><<<(M + ROW_CHUNK - 1) / ROW_CHUNK, ROW_THREADS, 0,
+                           stream>>>(
         static_cast<const bf16*>(Zs), gamma, beta, dh, static_cast<bf16*>(dz),
         static_cast<bf16*>(Hout), part, M, W);
+    return (int)cudaGetLastError();
+}
+
+// Stage backward from the recomputed f32 z (K5); Hout may be null.
+int k5_row_bwd(const float* Z, const float* gamma, const float* beta,
+               const float* dh, void* dz, void* Hout, float* part, int M,
+               int W, cudaStream_t stream) {
+    if (W > ROW_THREADS * MAX_COLS_PER_THREAD) return (int)cudaErrorInvalidValue;
+    row_bwd_kernel<float><<<(M + ROW_CHUNK - 1) / ROW_CHUNK, ROW_THREADS, 0,
+                            stream>>>(
+        Z, gamma, beta, dh, static_cast<bf16*>(dz), static_cast<bf16*>(Hout),
+        part, M, W);
     return (int)cudaGetLastError();
 }
 

@@ -17,9 +17,10 @@ Port of `wireframe_tpu/losses/wireframe_loss.py`:
 
 total = vertex_weight * (1) + existence_weight * (2) + edge_weight * (3).
 
-matcher: "auto" and "pallas" take K4; "scipy" detaches the square cost
-and solves it on the host; "device" (the JAX package's XLA-loop solver)
-raises NotImplementedError.  No path syncs with the host except "scipy".
+matcher: "auto", "pallas" and "device" take K4 (the JAX package's
+XLA-loop "device" solver gives the same assignments, `ops/lsa.py`);
+"scipy" detaches the square cost and solves it on the host.  No path
+syncs with the host except "scipy".
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Dict
 import torch
 
 from wireframe_tpu_torch.ops.lockstep_lsa import max_safe_cost, solve_lsa_rows
-from wireframe_tpu_torch.ops.lsa import _DEVICE_MATCHER, solve_lsa_scipy_batch
+from wireframe_tpu_torch.ops.lsa import solve_lsa_scipy_batch
 from wireframe_tpu_torch.ops.pairs import triu_pairs_on
 
 
@@ -83,9 +84,7 @@ def _matched_cols(pred_v, pred_p, tgt_v, counts, matcher: str):
         # The detach mirrors the reference's .detach() before scipy.
         return solve_lsa_scipy_batch(
             matching_cost_matrix(pred_v, pred_p, tgt_v, counts))
-    if matcher == "device":
-        raise NotImplementedError(_DEVICE_MATCHER)
-    if matcher not in ("auto", "pallas"):
+    if matcher not in ("auto", "pallas", "device"):
         raise ValueError(f"unknown matcher {matcher!r}")
     with torch.no_grad():
         l1 = torch.sum(torch.abs(pred_v[:, :, None, :] - tgt_v[:, None, :, :]),

@@ -11,12 +11,12 @@ module routes them:
 - inference with `use_pallas` and N divisible by the tile: the fused
   kernel K1 (`ops.fused_encoder.fused_point_encoder`);
 - training (`train=True`) with `use_pallas` and N divisible by the chain
-  tile: the differentiable chain (`ops.chain_grad.differentiable_chain`,
-  forward K2, backward K3), which with an eligible kv_pool also emits the
-  decoder's pooled KV and the window sums;
+  tile: the differentiable chain (`ops.chain_grad.differentiable_chain`;
+  `chain_backward="remat"` runs K5, "stash" runs K2 + K3), which with an
+  eligible kv_pool also emits the decoder's pooled KV and the window sums;
+  without kv_pool the pools stay eager, so their gradients (ties split
+  evenly, as `jnp.max`'s) are autograd's;
 - otherwise the plain chain plus masked pools, differentiated by autograd.
-The chain's `chain_backward="remat"` flavour (K5) raises
-NotImplementedError (ROADMAP.md item A2).
 """
 
 from __future__ import annotations

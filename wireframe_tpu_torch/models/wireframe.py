@@ -1,12 +1,14 @@
 """End-to-end point-cloud -> wireframe model.
 
 Port of `wireframe_tpu/models/wireframe.py:PointCloudToWireframe`:
-encoder -> query vertex decoder -> edge head, as one batched,
-fixed-shape call, with the same output dict.  `train=True` takes the
-encoder's differentiable chain, turns dropout on (draws from the caller's
+encoder -> vertex head (the recipe's query decoder, or the parity MLP
+head) -> edge head, as one batched, fixed-shape call, with the same
+output dict.  As in the JAX module, the head decides the encoder's
+kv_pool, whether it keeps point features for the decoder's KV, and the
+in-graph z-sort (query head only).  `train=True` takes the encoder's
+differentiable chain, turns dropout on (draws from the caller's
 generator) and, in prefix slot-mask mode, lets the ground-truth vertex
-counts drive the edge head.  The parity MLP vertex head is not ported
-(ROADMAP.md item A3).
+counts drive the edge head.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 from wireframe_tpu_torch.config import ModelConfig
 from wireframe_tpu_torch.models.edge_head import EdgePredictor
 from wireframe_tpu_torch.models.encoder import PointNetEncoder
+from wireframe_tpu_torch.models.vertex_head import VertexPredictor
 from wireframe_tpu_torch.models.vertex_query_head import QueryVertexDecoder
 from wireframe_tpu_torch.ops.masked_pool import point_validity_mask
 
@@ -31,10 +34,9 @@ class PointCloudToWireframe(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         cfg = config
-        if cfg.vertex_head != "query":
-            raise NotImplementedError(
-                f"vertex_head={cfg.vertex_head!r}: only the query head is "
-                "ported; the parity MLP head waits for ROADMAP.md item A3")
+        if cfg.vertex_head not in ("query", "mlp"):
+            raise ValueError(f"unknown vertex_head {cfg.vertex_head!r}")
+        query = cfg.vertex_head == "query"
         if cfg.slot_mask_mode not in ("prefix", "existence"):
             raise ValueError(f"unknown slot_mask_mode {cfg.slot_mask_mode!r}")
         self.config = cfg
@@ -49,29 +51,36 @@ class PointCloudToWireframe(nn.Module):
             pallas_tile=cfg.pallas_tile,
             chain_tile=cfg.pallas_chain_tile,
             chain_backward=cfg.chain_backward,
-            kv_pool=cfg.decoder_kv_pool,
-            point_features_for_kv=True,
+            kv_pool=cfg.decoder_kv_pool if query else 0,
+            point_features_for_kv=query,
         )
-        self.vertex_decoder = QueryVertexDecoder(
-            point_dim=cfg.encoder_output_dim,
-            global_dim=cfg.encoder_output_dim,
-            max_vertices=cfg.max_vertices,
-            dim=cfg.decoder_dim,
-            num_layers=cfg.decoder_layers,
-            num_heads=cfg.decoder_heads,
-            ffn_dim=cfg.decoder_ffn_dim,
-            dropout=cfg.decoder_dropout,
-            dtype=dt,
-            kv_pool=cfg.decoder_kv_pool,
-            fused_cross_kv=cfg.decoder_fused_cross_kv,
-            scan=cfg.decoder_scan,
-        )
+        if not query:
+            self.vertex_predictor = VertexPredictor(
+                global_feature_dim=cfg.encoder_output_dim,
+                max_vertices=cfg.max_vertices, vertex_dim=cfg.vertex_dim,
+                dtype=dt)
+        else:
+            self.vertex_decoder = QueryVertexDecoder(
+                point_dim=cfg.encoder_output_dim,
+                global_dim=cfg.encoder_output_dim,
+                max_vertices=cfg.max_vertices,
+                dim=cfg.decoder_dim,
+                num_layers=cfg.decoder_layers,
+                num_heads=cfg.decoder_heads,
+                ffn_dim=cfg.decoder_ffn_dim,
+                dropout=cfg.decoder_dropout,
+                dtype=dt,
+                kv_pool=cfg.decoder_kv_pool,
+                fused_cross_kv=cfg.decoder_fused_cross_kv,
+                scan=cfg.decoder_scan,
+            )
         self.edge_predictor = EdgePredictor(
             vertex_dim=3,
             hidden_dim=cfg.edge_hidden_dim,
             num_heads=cfg.edge_num_heads,
             slot_feature_dim=(cfg.decoder_dim
-                              if cfg.edge_use_slot_features else 0),
+                              if query and cfg.edge_use_slot_features
+                              else 0),
             dtype=dt,
             attn_dropout=cfg.attn_dropout,
             mlp_dropout=cfg.edge_dropout,
@@ -87,7 +96,8 @@ class PointCloudToWireframe(nn.Module):
         train mode (prefix slot masks); train: training mode; generator:
         the dropout draws."""
         cfg = self.config
-        if cfg.decoder_kv_pool > 1 and not cfg.points_z_sorted:
+        query = cfg.vertex_head == "query"
+        if query and cfg.decoder_kv_pool > 1 and not cfg.points_z_sorted:
             # KV pooling maxes over windows of CONSECUTIVE rows: sort the
             # cloud by z first (invalid rows last, stable) so windows are
             # spatially coherent (models/wireframe.py:47-65).
@@ -101,15 +111,19 @@ class PointCloudToWireframe(nn.Module):
         global_features, pooled, point_features = self.encoder(
             point_cloud, train=train)
 
-        kv_feats = point_features
-        kv_mask = point_validity_mask(point_cloud)
-        kv_pre_pooled = "kv" in pooled
-        if kv_pre_pooled:
-            kv_feats = pooled["kv"]
-            kv_mask = pooled["kv_mask"]
-        vertex_out = self.vertex_decoder(kv_feats, kv_mask, global_features,
-                                         kv_pre_pooled=kv_pre_pooled,
-                                         train=train, generator=generator)
+        if query:
+            kv_feats = point_features
+            kv_mask = point_validity_mask(point_cloud)
+            kv_pre_pooled = "kv" in pooled
+            if kv_pre_pooled:
+                kv_feats = pooled["kv"]
+                kv_mask = pooled["kv_mask"]
+            vertex_out = self.vertex_decoder(
+                kv_feats, kv_mask, global_features,
+                kv_pre_pooled=kv_pre_pooled, train=train,
+                generator=generator)
+        else:
+            vertex_out = self.vertex_predictor(global_features, pooled)
 
         if cfg.slot_mask_mode == "existence":
             # Live slots from per-slot existence; the edge head attends
@@ -131,7 +145,8 @@ class PointCloudToWireframe(nn.Module):
             vertex_out["vertices"], slot_mask,
             attn_slot_mask=attn_slot_mask,
             slot_features=(vertex_out["slot_features"]
-                           if cfg.edge_use_slot_features else None),
+                           if query and cfg.edge_use_slot_features
+                           else None),
             train=train, generator=generator)
 
         out = {

@@ -1,8 +1,8 @@
-"""K2 + K3, the differentiable point chain of the training step (stash).
+"""K2 + K3 + K5, the differentiable point chain of the training step.
 
-Port of the stash flavours of `wireframe_tpu/ops/pallas_chain_grad.py`:
-the per-point MLP (Linear + LayerNorm + ReLU per stage, plain Linear
-projection) as a `torch.autograd.Function` whose
+Port of `wireframe_tpu/ops/pallas_chain_grad.py`: the per-point MLP
+(Linear + LayerNorm + ReLU per stage, plain Linear projection) as a
+`torch.autograd.Function`.  With `backward="stash"` its
 
 - forward is **K2** (`_chain_forward_stash_pallas`): the chain, with each
   stage's pre-LayerNorm activation z_k stored in the compute dtype and,
@@ -14,19 +14,27 @@ projection) as a `torch.autograd.Function` whose
   `jnp.maximum`'s tie rule (half the cotangent where ln == 0 exactly), the
   LayerNorm backward, dW = h^T dz and dh = dz W^T, in f32.
 
-Three flavours, as `make_differentiable_chain(backward="stash")`:
+With `backward="remat"` (the config default) it is **K5**: the forward
+(`_chain_forward_pallas`) is K2 without the stash, and the Function saves
+only x, the parameters and, with kv_pool, the argmax; the backward
+(`_chain_backward_pallas` with zs=None) recomputes every stage's z in f32
+and the LayerNorm statistics from that f32 z (`_recompute_stages`), then
+runs K3's stage backward.
+
+Three flavours, as `make_differentiable_chain`:
   kv_pool = 0                      -> features (B, N, C)
   kv_pool > 1, emit_features       -> (features, pooled, sums)
   kv_pool > 1, not emit_features   -> (pooled, sums)   [the recipe]
-`backward="remat"` is K5 and raises NotImplementedError (ROADMAP.md A2).
 
 Each kernel has its plain PyTorch version here (`chain_forward_plain`,
-`chain_backward_plain`, the arithmetic written out, not autograd); the
-wrappers `chain_forward` / `chain_backward` take it for CPU tensors and
-launch the CUDA kernels (`csrc/chain_grad.cu`) for CUDA tensors, counting
-kernel launches in `.launches`.  Products of `compute_dtype` operands with
-f32 accumulation are written as f32 products of rounded operands (exact
-products, f32 sums), as in `ops.fused_encoder`.
+`chain_backward_plain`, the arithmetic written out, not autograd; zs=None
+is the remat backward); the wrappers `chain_forward` / `chain_backward`
+(K2 / K3) and `remat_chain_forward` / `remat_chain_backward` (K5) take it
+for CPU tensors and launch the CUDA kernels (`csrc/chain_grad.cu`) for
+CUDA tensors, each counting its kernel launches in `.launches`.  Products
+of `compute_dtype` operands with f32 accumulation are written as f32
+products of rounded operands (exact products, f32 sums), as in
+`ops.fused_encoder`.
 """
 
 from __future__ import annotations
@@ -37,10 +45,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from wireframe_tpu_torch.ops.fused_encoder import _aligned, _dot, _ln
-
-_REMAT = ("chain_backward='remat' (the non-stash forward and the "
-          "recomputing backward, K5) is not ported yet: ROADMAP.md item A2")
-
 
 def _valid_rows(x: torch.Tensor) -> torch.Tensor:
     """(B, N, D) -> (B, N) bool, |sum of the raw row| > 1e-9."""
@@ -88,12 +92,12 @@ def kv_pool_backward_plain(x: torch.Tensor, dpool: torch.Tensor,
 def chain_forward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
                         final_w: torch.Tensor, final_b: torch.Tensor, *,
                         kv_pool: int = 0, emit_features: bool = True,
-                        compute_dtype=torch.bfloat16
+                        compute_dtype=torch.bfloat16, stash: bool = True
                         ) -> Dict[str, torch.Tensor]:
-    """K2's contract in plain PyTorch.  x (B, N, D) f32.  Returns zs (the
-    pre-LN activations of every stage in compute_dtype), features (B, N, C)
-    f32 when emit_features, and pooled, idx, sums (B, N/p, C) when kv_pool.
-    """
+    """K2's contract (K5's forward with stash=False) in plain PyTorch.
+    x (B, N, D) f32.  Returns zs (the pre-LN activations of every stage in
+    compute_dtype; only with stash), features (B, N, C) f32 when
+    emit_features, and pooled, idx, sums (B, N/p, C) when kv_pool."""
     cdt = compute_dtype
     h = x.float().to(cdt)
     zs = []
@@ -102,7 +106,7 @@ def chain_forward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
         zs.append(z.to(cdt))
         h = torch.clamp_min(_ln(z, g.float(), be.float()), 0.0).to(cdt)
     out = _dot(h, final_w, cdt) + final_b.float()
-    result = {"zs": tuple(zs)}
+    result = {"zs": tuple(zs)} if stash else {}
     if emit_features:
         result["features"] = out
     if kv_pool:
@@ -111,18 +115,36 @@ def chain_forward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
     return result
 
 
-def _stages_from_z(x, zs, stage_params, cdt, eps=1e-6):
+def _stage_stats(z, g, be, cdt, eps=1e-6):
+    """(h, xhat, rstd) of one stage from its f32 pre-LN activation z."""
+    mu = torch.mean(z, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(z - mu), dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (z - mu) * rstd
+    ln = xhat * g.float() + be.float()
+    return torch.clamp_min(ln, 0.0).to(cdt), xhat, rstd
+
+
+def _stages_from_z(x, zs, stage_params, cdt):
     """hs (the compute-dtype input of every product), xhats and rstds,
     rebuilt from the stored pre-LN activations (no products)."""
     hs, xhats, rstds = [x.to(cdt)], [], []
     for z_k, (_w, _b, g, be) in zip(zs, stage_params):
-        z = z_k.float()
-        mu = torch.mean(z, dim=-1, keepdim=True)
-        var = torch.mean(torch.square(z - mu), dim=-1, keepdim=True)
-        rstd = torch.rsqrt(var + eps)
-        xhat = (z - mu) * rstd
-        ln = xhat * g.float() + be.float()
-        hs.append(torch.clamp_min(ln, 0.0).to(cdt))
+        h, xhat, rstd = _stage_stats(z_k.float(), g, be, cdt)
+        hs.append(h)
+        xhats.append(xhat)
+        rstds.append(rstd)
+    return hs, xhats, rstds
+
+
+def _recompute_stages(x, stage_params, cdt):
+    """The same, recomputed (`_recompute_stages`): each stage's z is the
+    product in f32 and its statistics come from that f32 z."""
+    hs, xhats, rstds = [x.to(cdt)], [], []
+    for w, b, g, be in stage_params:
+        z = _dot(hs[-1], w, cdt) + b.float()
+        h, xhat, rstd = _stage_stats(z, g, be, cdt)
+        hs.append(h)
         xhats.append(xhat)
         rstds.append(rstd)
     return hs, xhats, rstds
@@ -130,23 +152,28 @@ def _stages_from_z(x, zs, stage_params, cdt, eps=1e-6):
 
 def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
                          final_w: torch.Tensor, final_b: torch.Tensor,
-                         zs: Sequence[torch.Tensor], *,
+                         zs: Optional[Sequence[torch.Tensor]], *,
                          g: Optional[torch.Tensor] = None, kv_pool: int = 0,
                          dpool: Optional[torch.Tensor] = None,
                          idx: Optional[torch.Tensor] = None,
                          dsums: Optional[torch.Tensor] = None,
                          compute_dtype=torch.bfloat16, need_dx: bool = True):
-    """K3's contract in plain PyTorch.  Cotangents: g (B, N, C) of the
-    features (None when the flavour has none), and with kv_pool dpool,
-    dsums (B, N/p, C) plus the forward's idx.  Returns (dx (B, N, D) f32 or
-    None, ((dw, db, dgamma, dbeta), ...) f32, dfinal_w, dfinal_b)."""
+    """K3's contract in plain PyTorch, K5's backward when zs is None.
+    Cotangents: g (B, N, C) of the features (None when the flavour has
+    none), and with kv_pool dpool, dsums (B, N/p, C) plus the forward's
+    idx.  Returns (dx (B, N, D) f32 or None, ((dw, db, dgamma, dbeta), ...)
+    f32, dfinal_w, dfinal_b)."""
     cdt = compute_dtype
     x = x.float()
     b, n, d = x.shape
     m = b * n
-    hs, xhats, rstds = _stages_from_z(x.reshape(m, d),
-                                      [z.reshape(m, -1) for z in zs],
-                                      stage_params, cdt)
+    if zs is None:
+        hs, xhats, rstds = _recompute_stages(x.reshape(m, d), stage_params,
+                                             cdt)
+    else:
+        hs, xhats, rstds = _stages_from_z(x.reshape(m, d),
+                                          [z.reshape(m, -1) for z in zs],
+                                          stage_params, cdt)
     if kv_pool:
         gout = kv_pool_backward_plain(x, dpool, idx, dsums, kv_pool)
         if g is not None:
@@ -200,10 +227,12 @@ def _lib() -> ctypes.CDLL:
         lib.k2_window_pool.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.k3_seed.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.k3_row_bwd.argtypes = [p, p, p, p, p, p, p, i, i, p]
+        lib.k5_row_bwd.argtypes = lib.k3_row_bwd.argtypes
         lib.k3_colsum.argtypes = [p, p, i, ctypes.c_longlong, p]
         lib.k23_row_chunk.argtypes = lib.k23_max_width.argtypes = []
         for fn in (lib.k23_gemm, lib.k23_row_valid, lib.k2_ln_relu_stash,
                    lib.k2_window_pool, lib.k3_seed, lib.k3_row_bwd,
+                   lib.k5_row_bwd,
                    lib.k3_colsum, lib.k23_row_chunk, lib.k23_max_width):
             fn.restype = ctypes.c_int
         lib._k23_typed = True
@@ -280,7 +309,8 @@ def _check_pool(n, kv_pool):
 
 
 def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
-                  emit_features, compute_dtype):
+                  emit_features, compute_dtype, stash=True):
+    """K2 (stash) or K5's forward (no stash)."""
     if compute_dtype != torch.bfloat16:
         raise ValueError("the chain kernels compute in bfloat16 only "
                          f"(compute_dtype={compute_dtype})")
@@ -298,39 +328,44 @@ def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
     a, a_f32, k = x, 1, d
     for w, bb, g, be in layers:
         width = w.shape[1]
-        zk = torch.empty((b, n, width), dtype=torch.bfloat16, device=dev)
+        zk = torch.empty((b, n, width), dtype=torch.bfloat16,
+                         device=dev) if stash else None
         _gemm(lib, a, a_f32, 0, w, 0, bb, z, m, width, k, stream,
-              "K2 stage GEMM")
+              "chain stage GEMM")
         _check(lib.k2_ln_relu_stash(_ptr(z), _ptr(g), _ptr(be), _ptr(h),
                                     _ptr(zk), m, width, stream),
-               "K2 LayerNorm")
+               "chain LayerNorm")
         zs.append(zk)
         a, a_f32, k = h, 0, width
     c = fw.shape[1]
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     _gemm(lib, a, a_f32, 0, fw, 0, fb, out, m, c, k, stream,
-          "K2 projection GEMM")
-    result = {"zs": tuple(zs)}
+          "chain projection GEMM")
+    result = {"zs": tuple(zs)} if stash else {}
     if emit_features:
         result["features"] = out
     if kv_pool:
         valid = torch.empty(m, dtype=torch.uint8, device=dev)
         _check(lib.k23_row_valid(_ptr(x), d, _ptr(valid), m, stream),
-               "K2 validity")
+               "chain validity")
         nw = n // kv_pool
         pooled = torch.empty((b, nw, c), dtype=torch.float32, device=dev)
         idx = torch.empty((b, nw, c), dtype=torch.int32, device=dev)
         sums = torch.empty((b, nw, c), dtype=torch.float32, device=dev)
         _check(lib.k2_window_pool(_ptr(out), _ptr(valid), _ptr(pooled),
                                   _ptr(idx), _ptr(sums), b * nw, c, kv_pool,
-                                  stream), "K2 window pool")
+                                  stream), "chain window pool")
         result.update(pooled=pooled, idx=idx, sums=sums)
-    chain_forward.launches += 1
+    if stash:
+        chain_forward.launches += 1
+    else:
+        remat_chain_forward.launches += 1
     return result
 
 
 def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
                    dpool, idx, dsums, compute_dtype, need_dx):
+    """K3 from the stash zs, or K5's backward when zs is None."""
     if compute_dtype != torch.bfloat16:
         raise ValueError("the chain kernels compute in bfloat16 only "
                          f"(compute_dtype={compute_dtype})")
@@ -343,13 +378,16 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     m = b * n
     c = fw.shape[1]
     widths = [w.shape[1] for w, *_ in layers]
+    remat = zs is None
+    kern = "K5" if remat else "K3"
     if max(widths + [c]) > lib.k23_max_width():
-        raise ValueError(f"K3 takes widths up to {lib.k23_max_width()}")
-    zs = [z.to(torch.bfloat16).contiguous() for z in zs]
-    for z, width in zip(zs, widths):
-        if z.shape != (b, n, width) or z.device != dev:
-            raise ValueError(f"stash {tuple(z.shape)} does not match "
-                             f"({b}, {n}, {width})")
+        raise ValueError(f"{kern} takes widths up to {lib.k23_max_width()}")
+    if not remat:
+        zs = [z.to(torch.bfloat16).contiguous() for z in zs]
+        for z, width in zip(zs, widths):
+            if z.shape != (b, n, width) or z.device != dev:
+                raise ValueError(f"stash {tuple(z.shape)} does not match "
+                                 f"({b}, {n}, {width})")
     cotangents = [("g", g, (b, n, c))]
     if kv_pool:
         cotangents += [(k, t, (b, n // kv_pool, c)) for k, t in
@@ -368,7 +406,7 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     if kv_pool:
         valid = torch.empty(m, dtype=torch.uint8, device=dev)
         _check(lib.k23_row_valid(_ptr(x), d, _ptr(valid), m, stream),
-               "K3 validity")
+               f"{kern} validity")
         dpool = dpool.float().contiguous()
         dsums = dsums.float().contiguous()
         idx = idx.to(torch.int32).contiguous()
@@ -381,20 +419,42 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
                        _ptr(idx) if kv_pool else None,
                        _ptr(dsums) if kv_pool else None, _ptr(valid),
                        _ptr(g), _ptr(gbf), _ptr(part), m, c, kv_pool, stream),
-           "K3 seed")
+           f"{kern} seed")
     dfb = torch.empty(c, dtype=torch.float32, device=dev)
     _check(lib.k3_colsum(_ptr(part), _ptr(dfb), nblk, c, stream),
-           "K3 d final_b")
+           f"{kern} d final_b")
+
+    hs = None
+    if remat:
+        # Every stage's f32 z and bf16 h, recomputed by the forward's own
+        # GEMM and LayerNorm pass, so both are bit-identical to the
+        # forward's; transient, freed stage by stage below.
+        zs, hs = [], []
+        a, a_f32, k_in = x, 1, d
+        for w, bb, gm, be in layers:
+            width = w.shape[1]
+            z = torch.empty((m, width), dtype=torch.float32, device=dev)
+            h = torch.empty((m, width), dtype=torch.bfloat16, device=dev)
+            _gemm(lib, a, a_f32, 0, w, 0, bb, z, m, width, k_in, stream,
+                  "K5 recompute GEMM")
+            _check(lib.k2_ln_relu_stash(_ptr(z), _ptr(gm), _ptr(be), _ptr(h),
+                                        None, m, width, stream),
+                   "K5 recompute LayerNorm")
+            zs.append(z)
+            hs.append(h)
+            a, a_f32, k_in = h, 0, width
 
     widest = max(widths)
     dh_bufs = [torch.empty(m * widest, dtype=torch.float32, device=dev)
                for _ in range(2)]
     dz_bufs = [torch.empty(m * widest, dtype=torch.bfloat16, device=dev)
                for _ in range(2)]
-    hout = torch.empty(m * widest, dtype=torch.bfloat16, device=dev)
+    hout = None if remat else torch.empty(m * widest, dtype=torch.bfloat16,
+                                          device=dev)
+    row_bwd = lib.k5_row_bwd if remat else lib.k3_row_bwd
     dh = dh_bufs[0]
     _gemm(lib, gbf, 0, 0, fw, 1, None, dh, m, widths[-1], c, stream,
-          "K3 dh = g fw^T")
+          f"{kern} dh = g fw^T")
     n_stages = len(layers)
     dstages: List[Tuple] = [None] * n_stages
     dfw = None
@@ -406,18 +466,22 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
         dz = dz_bufs[k % 2]
         part = torch.empty((nblk, 3 * width), dtype=torch.float32,
                            device=dev)
-        _check(lib.k3_row_bwd(_ptr(zs[k]), _ptr(gm), _ptr(be), _ptr(dh),
-                              _ptr(dz), _ptr(hout), _ptr(part), m, width,
-                              stream), "K3 stage backward")
+        _check(row_bwd(_ptr(zs[k]), _ptr(gm), _ptr(be), _ptr(dh), _ptr(dz),
+                       _ptr(hout), _ptr(part), m, width, stream),
+               f"{kern} stage backward")
         sums = torch.empty(3 * width, dtype=torch.float32, device=dev)
         _check(lib.k3_colsum(_ptr(part), _ptr(sums), nblk, 3 * width,
-                             stream), "K3 LayerNorm / bias gradients")
+                             stream), f"{kern} LayerNorm / bias gradients")
         dgamma, dbeta, db = sums[:width], sums[width:2 * width], \
             sums[2 * width:]
-        # The product above this stage: hout is its input h.
+        # The product above this stage: its input h is this stage's output
+        # (K3 rebuilds it from the stash, K5 recomputed it).
+        hin = hs[k] if remat else hout
         above_w = c if k == n_stages - 1 else widths[k + 1]
-        dw_above = _gemm_tn(lib, hout, 0, dz_above, m, width, above_w,
-                            stream, "K3 dW = h^T dz")
+        dw_above = _gemm_tn(lib, hin, 0, dz_above, m, width, above_w,
+                            stream, f"{kern} dW = h^T dz")
+        if remat:
+            zs[k] = hs[k] = hin = None
         if k == n_stages - 1:
             dfw = dw_above
         else:
@@ -426,16 +490,19 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
         if k > 0:
             dh = dh_bufs[(n_stages - k) % 2]
             _gemm(lib, dz, 0, 0, w, 1, None, dh, m, w.shape[0], width,
-                  stream, "K3 dh = dz W^T")
+                  stream, f"{kern} dh = dz W^T")
         elif need_dx:
             dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
             _gemm(lib, dz, 0, 0, w, 1, None, dx, m, d, width, stream,
-                  "K3 dx = dz W^T")
+                  f"{kern} dx = dz W^T")
         dz_above = dz
     dw0 = _gemm_tn(lib, x, 1, dz_above, m, d, widths[0], stream,
-                   "K3 dW0 = x^T dz")
+                   f"{kern} dW0 = x^T dz")
     dstages[0] = (dw0, *dstages[0][1:])
-    chain_backward.launches += 1
+    if remat:
+        remat_chain_backward.launches += 1
+    else:
+        chain_backward.launches += 1
     return dx, tuple(dstages), dfw, dfb
 
 
@@ -457,6 +524,9 @@ def chain_backward(x, stage_params, final_w, final_b, zs, *, g=None,
                    compute_dtype=torch.bfloat16, need_dx=True):
     """K3: the CUDA kernels for a CUDA cloud, the plain version for a CPU
     cloud.  Same arguments and result as `chain_backward_plain`."""
+    if zs is None:
+        raise ValueError("K3 needs the stash; remat_chain_backward "
+                         "recomputes it")
     kw = dict(g=g, kv_pool=kv_pool, dpool=dpool, idx=idx, dsums=dsums,
               compute_dtype=compute_dtype, need_dx=need_dx)
     if x.device.type == "cpu":
@@ -467,8 +537,38 @@ def chain_backward(x, stage_params, final_w, final_b, zs, *, g=None,
     return _backward_cuda(x, stage_params, final_w, final_b, zs, **kw)
 
 
+def remat_chain_forward(x, stage_params, final_w, final_b, *, kv_pool=0,
+                        emit_features=True, compute_dtype=torch.bfloat16):
+    """K5's forward: K2 without the stash.  Same arguments as
+    `chain_forward`; the result has no "zs"."""
+    kw = dict(kv_pool=kv_pool, emit_features=emit_features,
+              compute_dtype=compute_dtype, stash=False)
+    if x.device.type == "cpu":
+        return chain_forward_plain(x, stage_params, final_w, final_b, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"K5 runs on CUDA or CPU tensors, not {x.device}")
+    return _forward_cuda(x, stage_params, final_w, final_b, **kw)
+
+
+def remat_chain_backward(x, stage_params, final_w, final_b, *, g=None,
+                         kv_pool=0, dpool=None, idx=None, dsums=None,
+                         compute_dtype=torch.bfloat16, need_dx=True):
+    """K5's backward: recomputes the stage activations, then K3's stage
+    backward.  Same arguments and result as `chain_backward` without zs."""
+    kw = dict(g=g, kv_pool=kv_pool, dpool=dpool, idx=idx, dsums=dsums,
+              compute_dtype=compute_dtype, need_dx=need_dx)
+    if x.device.type == "cpu":
+        return chain_backward_plain(x, stage_params, final_w, final_b, None,
+                                    **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"K5 runs on CUDA or CPU tensors, not {x.device}")
+    return _backward_cuda(x, stage_params, final_w, final_b, None, **kw)
+
+
 chain_forward.launches = 0
 chain_backward.launches = 0
+remat_chain_forward.launches = 0
+remat_chain_backward.launches = 0
 
 
 def _unflatten(flat, n_stages):
@@ -476,20 +576,22 @@ def _unflatten(flat, n_stages):
     return stages, flat[4 * n_stages], flat[4 * n_stages + 1]
 
 
-class _StashChain(torch.autograd.Function):
-    """forward = K2 (saves x, the parameters, the stash and the argmax),
-    backward = K3 (dx only when x needs a gradient)."""
+class _Chain(torch.autograd.Function):
+    """stash: forward = K2 (saves x, the parameters, the stash and the
+    argmax), backward = K3.  remat: forward and backward = K5 (saves x,
+    the parameters and the argmax, never a z_k).  dx only when x needs a
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, n_stages, kv_pool, emit_features, compute_dtype,
-                *flat):
+                remat, *flat):
         stages, fw, fb = _unflatten(flat, n_stages)
-        res = chain_forward(x, stages, fw, fb, kv_pool=kv_pool,
-                            emit_features=emit_features,
-                            compute_dtype=compute_dtype)
+        fwd = remat_chain_forward if remat else chain_forward
+        res = fwd(x, stages, fw, fb, kv_pool=kv_pool,
+                  emit_features=emit_features, compute_dtype=compute_dtype)
         kept = [res["idx"]] if kv_pool else []
-        ctx.save_for_backward(x, *flat, *res["zs"], *kept)
-        ctx.meta = (n_stages, kv_pool, emit_features, compute_dtype)
+        ctx.save_for_backward(x, *flat, *res.get("zs", ()), *kept)
+        ctx.meta = (n_stages, kv_pool, emit_features, compute_dtype, remat)
         ctx.set_materialize_grads(False)
         outs = ([res["features"]] if emit_features else []) + (
             [res["pooled"], res["sums"]] if kv_pool else [])
@@ -497,48 +599,53 @@ class _StashChain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        n_stages, kv_pool, emit_features, compute_dtype = ctx.meta
+        n_stages, kv_pool, emit_features, compute_dtype, remat = ctx.meta
         saved = ctx.saved_tensors
         x = saved[0]
         flat = saved[1: 1 + 4 * n_stages + 2]
-        zs = saved[1 + 4 * n_stages + 2: 1 + 5 * n_stages + 2]
+        zs = None if remat else saved[1 + 4 * n_stages + 2:
+                                      1 + 5 * n_stages + 2]
         idx = saved[-1] if kv_pool else None
+        none = (None,) * (6 + len(flat))
         g = grads[0] if emit_features else None
         dpool = dsums = None
         if kv_pool:
             dpool, dsums = grads[-2], grads[-1]
             if dpool is None and dsums is None and g is None:
-                return (None,) * (5 + len(flat))
+                return none
             if dpool is None:
                 dpool = torch.zeros_like(idx, dtype=torch.float32)
             if dsums is None:
                 dsums = torch.zeros_like(idx, dtype=torch.float32)
         elif g is None:
-            return (None,) * (5 + len(flat))
+            return none
         stages, fw, fb = _unflatten(flat, n_stages)
-        dx, dstages, dfw, dfb = chain_backward(
-            x, stages, fw, fb, zs, g=g, kv_pool=kv_pool, dpool=dpool,
-            idx=idx, dsums=dsums, compute_dtype=compute_dtype,
-            need_dx=ctx.needs_input_grad[0])
+        kw = dict(g=g, kv_pool=kv_pool, dpool=dpool, idx=idx, dsums=dsums,
+                  compute_dtype=compute_dtype,
+                  need_dx=ctx.needs_input_grad[0])
+        if remat:
+            grads = remat_chain_backward(x, stages, fw, fb, **kw)
+        else:
+            grads = chain_backward(x, stages, fw, fb, zs, **kw)
+        dx, dstages, dfw, dfb = grads
         dflat = [t for st in dstages for t in st] + [dfw, dfb]
         dflat = [dt.to(p.dtype).reshape(p.shape)
                  for dt, p in zip(dflat, flat)]
-        return (dx, None, None, None, None, *dflat)
+        return (dx, None, None, None, None, None, *dflat)
 
 
 def differentiable_chain(x: torch.Tensor, stage_params: Sequence[Tuple],
                          final_w: torch.Tensor, final_b: torch.Tensor, *,
                          kv_pool: int = 0, emit_features: bool = True,
                          compute_dtype=torch.bfloat16,
-                         backward: str = "stash"):
+                         backward: str = "remat"):
     """The training chain x (B, N, D) -> features, (features, pooled, sums)
-    or (pooled, sums), differentiable in x and every parameter."""
-    if backward == "remat":
-        raise NotImplementedError(_REMAT)
-    if backward != "stash":
+    or (pooled, sums), differentiable in x and every parameter.  backward:
+    "remat" (K5) or "stash" (K2 + K3), as `make_differentiable_chain`."""
+    if backward not in ("remat", "stash"):
         raise ValueError(f"unknown chain backward {backward!r}")
     if not emit_features and kv_pool <= 1:
         raise ValueError("emit_features=False requires kv_pool > 1")
     flat = [t for st in stage_params for t in st] + [final_w, final_b]
-    return _StashChain.apply(x, len(stage_params), kv_pool, emit_features,
-                             compute_dtype, *flat)
+    return _Chain.apply(x, len(stage_params), kv_pool, emit_features,
+                        compute_dtype, backward == "remat", *flat)

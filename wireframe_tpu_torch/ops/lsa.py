@@ -1,11 +1,18 @@
 """Linear-sum-assignment helpers around K4.
 
-Port of the host parts of `wireframe_tpu/ops/lsa.py`: the scipy oracle
-(`solve_lsa_scipy`, the loss's `matcher="scipy"` path, as
-`solve_lsa_callback` does it in the JAX package) and `assignment_cost`.
-The JAX package's XLA-loop solver (`matcher="device"`) is not ported; its
-tie-breaking can differ from the lockstep solver's, so the port raises
-instead of mapping it to K4 (`solve_square`).
+Port of `wireframe_tpu/ops/lsa.py`: the scipy oracle (`solve_lsa_scipy`,
+the loss's `matcher="scipy"` path, as `solve_lsa_callback` does it in the
+JAX package), `assignment_cost`, and the `matcher="device"` solver.
+
+The JAX package's "device" solver (`solve_lsa_rows` / `solve_lsa_rows_batch`,
+an XLA while-loop per sample) and the lockstep kernel K4 run the same
+algorithm operation for operation: the same frontier-minimum tie rule
+(lowest unassigned column, else lowest index, lsa.py:65-78 against
+pallas_lsa.py:98-121), the same dual update and the same `k <= C` bound.
+They differ only in the NaN escape, and the loss clamps NaN before the
+solver.  So "device" runs K4; `tests/test_torch_lsa.py` holds the result
+`array_equal` to `solve_lsa_rows_batch` on random costs, forced ties,
+zero and full counts.
 """
 
 from __future__ import annotations
@@ -14,11 +21,6 @@ import numpy as np
 import torch
 
 from wireframe_tpu_torch.ops.lockstep_lsa import solve_lsa_rows
-
-_DEVICE_MATCHER = ("matcher='device' (the JAX package's XLA-loop JV "
-                   "solver) is not ported yet: ROADMAP.md item A9.  Use "
-                   "'auto' or 'pallas' (the lockstep kernel K4) or 'scipy'")
-
 
 def solve_lsa_scipy(cost) -> np.ndarray:
     """Host oracle: square cost (n, n) -> col4row (n,) int32."""
@@ -42,16 +44,14 @@ def solve_lsa_scipy_batch(cost: torch.Tensor) -> torch.Tensor:
 def solve_square(cost: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """Batched square assignment (B, n, n) -> (B, n) col4row.
 
-    backend "auto" / "pallas": the lockstep solver K4 with every row
-    active; "scipy": the host oracle; "device" raises (not ported)."""
-    if backend in ("auto", "pallas"):
+    backend "auto" / "pallas" / "device": the lockstep solver K4 with every
+    row active; "scipy": the host oracle."""
+    if backend in ("auto", "pallas", "device"):
         b, n, _ = cost.shape
         rows = torch.full((b,), n, dtype=torch.int32, device=cost.device)
         return solve_lsa_rows(cost.detach().float(), rows)
     if backend == "scipy":
         return solve_lsa_scipy_batch(cost)
-    if backend == "device":
-        raise NotImplementedError(_DEVICE_MATCHER)
     raise ValueError(f"unknown matcher backend {backend!r}")
 
 

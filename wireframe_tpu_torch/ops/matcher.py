@@ -21,9 +21,8 @@ class WireframeMatcher:
     cost(pred_i, real target j)   = |p_i - t_j|_1 + (1 - e_i)
     cost(pred_i, dummy column)    = e_i
 
-    backend: "auto" / "pallas" (the lockstep solver K4 on the square
-    problem), "scipy" (host oracle); "device" (the JAX package's XLA-loop
-    solver) raises NotImplementedError.
+    backend: "auto" / "pallas" / "device" (the lockstep solver K4 on the
+    square problem), "scipy" (host oracle).
     """
 
     backend: str = "auto"

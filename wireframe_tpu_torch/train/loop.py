@@ -10,10 +10,19 @@ step (the step's metrics come from them) and writes them as a port
 checkpoint under `<checkpoint_dir>/best`.  The logged learning rate is
 the one the logged step applied.
 
+Every `checkpoint_every` epochs (before the last) the loop writes a
+checkpoint (`train.checkpoint`: params, Adam state, EMA, step and epoch)
+under `checkpoint_dir`; `state=` + `start_epoch=` resume from one.  The
+augmentation / dropout generator is seeded from (train.seed,
+start_epoch), as the JAX loop folds start_epoch into its key, so two
+resumes from one checkpoint give the same run.  A fresh run with
+`train.init_from` warm-starts the params from that checkpoint directory
+with a fresh optimizer.
+
 `loader` is any iterable of numpy batch dicts holding `BATCH_KEYS` (a
-list of one batch will do in overfit mode).  Mesh placement (ROADMAP.md
-A7), periodic checkpoints and resume (A9) are not ported: the loop
-returns the final state.
+list of one batch will do in overfit mode); a loader with an `epoch`
+attribute is fast-forwarded to start_epoch.  Mesh placement (ROADMAP.md
+A7) is not ported.  The loop returns the final state.
 """
 
 from __future__ import annotations
@@ -32,6 +41,10 @@ from wireframe_tpu_torch.bridge import (
     state_dict_to_flax,
 )
 from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
+from wireframe_tpu_torch.train.checkpoint import (
+    save_checkpoint,
+    warm_start_params,
+)
 from wireframe_tpu_torch.train.state import TrainState, create_train_state
 from wireframe_tpu_torch.train.step import BATCH_KEYS, make_train_step
 from wireframe_tpu_torch.utils.platform import resolve_device
@@ -56,14 +69,24 @@ def init_model(cfg, device, seed: Optional[int] = None
     return model.to(device)
 
 
-def train_model(cfg, loader: Iterable, metric_writer=None,
-                state: Optional[TrainState] = None, device=None,
-                generator: Optional[torch.Generator] = None) -> TrainState:
-    """Train and return the final TrainState.
+def epoch_seed(seed: int, start_epoch: int) -> int:
+    """The generator seed of a run that starts at `start_epoch`."""
+    seq = np.random.SeedSequence([seed, start_epoch])
+    return int(seq.generate_state(1)[0])
 
+
+def train_model(cfg, loader: Iterable, metric_writer=None,
+                state: Optional[TrainState] = None, start_epoch: int = 0,
+                device=None,
+                generator: Optional[torch.Generator] = None) -> TrainState:
+    """Train epochs start_epoch .. num_epochs - 1 and return the final
+    TrainState.
+
+    state: a restored state to continue (`checkpoint.restore_train_state`)
+    on `device`; None starts fresh (from `train.init_from` when set).
     device: "cuda" (default; raises without a GPU) or "cpu".  generator:
-    the augmentation / dropout draws (default: seeded from
-    cfg.train.seed on the device).  metric_writer: anything with
+    the augmentation / dropout draws (default: seeded on the device from
+    `epoch_seed(train.seed, start_epoch)`).  metric_writer: anything with
     `.log(dict)`, called at the log points.
     """
     dev = resolve_device(device)
@@ -75,11 +98,14 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
         raise ValueError("loader yields no batches")
     if generator is None:
         generator = torch.Generator(device=dev)
-        generator.manual_seed(cfg.train.seed)
+        generator.manual_seed(epoch_seed(cfg.train.seed, start_epoch))
 
     t0 = time.time()
     if state is None:
         state = create_train_state(cfg, init_model(cfg, dev))
+        if cfg.train.init_from:
+            warm_start_params(state, cfg.train.init_from)
+            logger.info("Initialized params from %s", cfg.train.init_from)
     logger.info("Model parameters: %s",
                 f"{sum(p.numel() for p in state.model.parameters()):,}")
     state.model.train()
@@ -89,12 +115,15 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
     best_loss = float("inf")
     best_rmse = float("inf")
     best_params = None
+    if hasattr(loader, "epoch"):
+        loader.epoch = start_epoch      # deterministic data order on resume
     fixed = (device_batch(next(iter(loader)), dev)
              if cfg.train.overfit_one_batch else None)
 
     num_epochs = cfg.train.num_epochs
+    every = cfg.train.checkpoint_every
     metrics = None
-    for epoch in range(num_epochs):
+    for epoch in range(start_epoch, num_epochs):
         batches = [fixed] if fixed is not None else (
             device_batch(b, dev) for b in loader)
         is_log_epoch = (epoch % cfg.train.log_every == 0
@@ -133,6 +162,10 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
                     "best_loss": best_loss,
                     "best_vertex_rmse": best_rmse,
                 })
+        if every > 0 and (epoch + 1) % every == 0 and epoch + 1 < num_epochs:
+            path = save_checkpoint(cfg.train.checkpoint_dir, state, cfg,
+                                   epoch=epoch + 1)
+            logger.info("Checkpoint written: %s", path)
 
     logger.info("Training completed! Best loss: %.6f, Best RMSE: %.6f",
                 best_loss, best_rmse)

@@ -68,6 +68,16 @@ def _edge_prf(edge_probs, losses, thresh: float = 0.5
             "train_edge_f1": f1}
 
 
+def loss_config(cfg) -> WireframeLossConfig:
+    """The loss settings of `cfg.train`."""
+    t = cfg.train
+    return WireframeLossConfig(
+        vertex_weight=t.vertex_weight, edge_weight=t.edge_weight,
+        existence_weight=t.existence_weight, matcher=t.matcher,
+        matched_edge_labels=t.matched_edge_labels,
+        matched_existence_labels=t.matched_existence_labels)
+
+
 def make_train_step(cfg, steps_per_epoch: int = 1) -> Callable:
     """Returns train_step(state, batch, generator) -> (state, metrics).
 
@@ -75,14 +85,7 @@ def make_train_step(cfg, steps_per_epoch: int = 1) -> Callable:
     torch.Generator on that device (augmentation and dropout draws).  The
     state is updated in place and returned.
     """
-    loss_cfg = WireframeLossConfig(
-        vertex_weight=cfg.train.vertex_weight,
-        edge_weight=cfg.train.edge_weight,
-        existence_weight=cfg.train.existence_weight,
-        matcher=cfg.train.matcher,
-        matched_edge_labels=cfg.train.matched_edge_labels,
-        matched_existence_labels=cfg.train.matched_existence_labels,
-    )
+    loss_cfg = loss_config(cfg)
     do_augment = cfg.train.device_augment and cfg.data.augment
     optimizer = Optimizer(cfg, steps_per_epoch)
 
