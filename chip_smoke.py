@@ -10,20 +10,28 @@ Phases (any failure exits nonzero and prints no final `ok` line):
   3. K1       — against its plain PyTorch version at the recipe's full
                 width (bf16 weights, kv_pool 4, tile 512) on padded and
                 all-padding samples; K1, the plain version and K1's FLOP
-                bound per shape;
+                bound per shape; its largest error identical to PR 3's
+                (K1 is unchanged since);
   4. K4       — the lockstep JV kernel against its plain version, exactly,
                 at (8, 40, 40) with random counts and with forced ties and
                 at (64, 40, 128); assignment cost against scipy; times;
-  5. K2 / K3  — the stash chain forward and backward against their plain
+  5. GEMMs    — every product of the chain at (8, 2560) through the
+                wgmma + TMA GEMM of csrc/hopper_gemm.cuh, alone and with
+                its fused LayerNorm epilogue, against the f32 product of
+                its operands and timed beside torch.matmul's bf16 product
+                (a yardstick only this script calls);
+  6. K2 / K3  — the stash chain forward and backward against their plain
                 versions at the recipe's training shape (8, 2560), full
-                width, plus small ragged shapes in all three flavours;
-                times and bounds;
-  6. K5       — the remat chain (non-stash forward, recomputing backward)
+                width, plus small ragged shapes in all three flavours and
+                a ragged shape of multi-CTA clusters; times, bounds and a
+                profiler breakdown into fused GEMM + LayerNorm launches,
+                plain GEMMs and the rest;
+  7. K5       — the remat chain (non-stash forward, recomputing backward)
                 against its plain versions in all three flavours, at the
                 parity (3, 2560) features shape, the recipe's (8, 2560)
                 slim shape and small ragged shapes; its forward
                 array_equal to K2's; times and bounds;
-  7. training — the full-width recipe train step (train_model, overfit
+  8. training — the full-width recipe train step (train_model, overfit
                 one synthetic batch of 8 box buildings, 20 steps): finite
                 losses, K2 / K3 / K4 launched once per step each; the first
                 3 losses against the same steps with the plain versions on
@@ -33,7 +41,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 breakdown of one step and a step under CUDA sync debug
                 mode; the trained weights saved through the bridge and
                 served;
-  8. parity   — the reference-parity model (configs/default.yaml with the
+  9. parity   — the reference-parity model (configs/default.yaml with the
                 fused bf16 encoder: MLP vertex head, remat chain, matcher
                 "device") trained 20 steps at batch 3 x 2560: K5 forward,
                 K5 backward and K4 once per step, K2 / K3 never; the first
@@ -42,7 +50,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 the memory the forward leaves for the backward, remat
                 against stash; ms per step, profile, no host sync; the
                 trained checkpoint served over all four buckets with K1;
-  9. serving  — the full-width recipe WireframePredictor (random weights
+ 10. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
                 buckets; the K1 launch count must equal the batches
@@ -92,6 +100,8 @@ K1_RTOL, K1_ATOL, K1_MEAN_ATOL = 2e-2, 1e-2, 1e-3
 # one bf16 ulp is up to 2^-8 ~ 0.004; probabilities are in [0, 1].
 MODEL_ATOL = {"vertices": 5e-2, "existence_probabilities": 2e-2,
               "edge_probs": 2e-2}
+# K1's largest difference from its plain version in PR 3's runs.
+K1_MAX_ABS_PR3 = 0.009671509265899658
 RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "configs", "recommended.yaml")
 PARITY = os.path.join(os.path.dirname(RECIPE), "default.yaml")
@@ -578,7 +588,148 @@ CHAIN_SHAPES = (
     # (name, B, N, hidden widths, output width, kv_pool, emit features)
     ("recipe", 8, 2560, (512, 1024, 2048, 1024), 512, 4, False),
     ("ragged kv", 2, 200, (40, 72), 36, 4, True),
-    ("ragged features", 2, 256, (40, 72), 36, 0, True))
+    ("ragged features", 2, 256, (40, 72), 36, 0, True),
+    # Multi-CTA clusters with a partial last CTA (600 = 2.3 x 256, 1100 =
+    # 4.3 x 256), a projection of two partial tiles and M = 656, not a
+    # multiple of the 128-row tile.
+    ("ragged cluster", 2, 328, (600, 1100), 300, 4, True))
+
+CHAIN_FUSED = ("wgmma_chain_kernel<0, 1", "wgmma_chain_kernel<1, 2")
+
+
+def chain_breakdown(torch, card, label, fn):
+    """Device time of one call of fn by kernel (torch.profiler device
+    rows): the fused GEMM + LayerNorm launches, the plain GEMM launches
+    (projection, dx, dW) and the rest (input prep, seed, column sums,
+    window pool)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    total = sum(r[0] for r in rows)
+    fused = sum(r[0] for r in rows if any(k in r[2] for k in CHAIN_FUSED))
+    gemm = sum(r[0] for r in rows if "wgmma_chain_kernel" in r[2]) - fused
+    print(f"{label} breakdown (profiler, one call): device {total:.3f} ms = "
+          f"fused GEMM + LayerNorm {fused:.3f} ms + plain GEMMs {gemm:.3f} "
+          f"ms + rest {total - fused - gemm:.3f} ms [{card}]", flush=True)
+    for ms, count, name in sorted(rows, reverse=True):
+        print(f"  {ms:8.3f} ms  x{count:<3d} {name[:90]}", flush=True)
+    return {"device_ms": total, "fused_ms": fused, "gemm_ms": gemm,
+            "rest_ms": total - fused - gemm}
+
+
+def gemm_phase(torch, dev, card, b=8, n=2560, d=8, hidden=(512, 1024, 2048,
+                                                            1024), out=512):
+    """Every product of the chain at the recipe's training shape, timed
+    alone (CUDA events, 10 launches): the wgmma GEMM with a plain f32
+    store, the same GEMM with its fused LayerNorm epilogue where the chain
+    fuses one (so the difference is the epilogue's cost), and
+    torch.matmul's bf16 product of the same operands as a yardstick (only
+    this script calls it; the port never does).  Each plain GEMM is also
+    held to the f32 product of its bf16 operands (rel 1e-4: only the
+    summation order differs)."""
+    from wireframe_tpu_torch.ops import chain_grad as cg
+
+    lib = cg._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    bf = torch.bfloat16
+    m = b * n
+
+    def rows(r, c, dt=bf):
+        t = cg._rows(r, c, dt, dev)
+        t.normal_(generator=gen)
+        return t
+
+    def vec(c):
+        return torch.randn(c, device=dev, generator=gen)
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what}: cudaError_t {err}")
+
+    dims = [d, *hidden, out]
+    result = {"gemm_ms": 0.0, "matmul_ms": 0.0}
+    for k, (i, o) in enumerate(zip(dims[:-1], dims[1:])):
+        h, w, dz = rows(m, i), rows(i, o), rows(m, o)
+        bias = vec(o)
+        c_fwd = torch.empty(m, o, device=dev)
+        c_dh = torch.empty(m, i, device=dev)
+        slices = cg.split_k(m, i, o)
+
+        def fwd():
+            check(lib.k23_gemm(0, h.data_ptr(), h.stride(0), w.data_ptr(),
+                               w.stride(0), bias.data_ptr(),
+                               c_fwd.data_ptr(), o, m, o, i, 1, i, stream),
+                  "h W")
+
+        def dh():
+            check(lib.k23_gemm(1, dz.data_ptr(), dz.stride(0), w.data_ptr(),
+                               w.stride(0), None, c_dh.data_ptr(), i, m, i,
+                               o, 1, o, stream), "dz W^T")
+
+        def dw():
+            return cg._gemm_tn(lib, h, dz, slices, m, i, o, stream, "h^T dz")
+
+        cases = [("h W", fwd, lambda: torch.matmul(h, w), c_fwd,
+                  lambda: h.float() @ w.float() + bias),
+                 ("dz W^T", dh, lambda: torch.matmul(dz, w.t()), c_dh,
+                  lambda: dz.float() @ w.float().t()),
+                 ("h^T dz", dw, lambda: torch.matmul(h.t(), dz), None,
+                  lambda: h.float().t() @ dz.float())]
+        fused = {}
+        if k < len(hidden):       # stage k's forward LayerNorm
+            hk, zk = rows(m, o), rows(m, o)
+            g, be = vec(o), vec(o)
+            fused["h W"] = lambda: check(lib.k2_gemm_ln(
+                h.data_ptr(), h.stride(0), w.data_ptr(), w.stride(0),
+                bias.data_ptr(), g.data_ptr(), be.data_ptr(), hk.data_ptr(),
+                hk.stride(0), zk.data_ptr(), zk.stride(0), 0, m, o, i,
+                stream), "h W + LayerNorm")
+        if 0 < k:                 # stage k-1's backward LayerNorm
+            zi, dzi, hi = rows(m, i), rows(m, i), rows(m, i)
+            gi, bi = vec(i), vec(i)
+            part = torch.empty(-(-m // cg.BM), 3 * i, device=dev)
+            fused["dz W^T"] = lambda: check(lib.k3_gemm_ln_bwd(
+                dz.data_ptr(), dz.stride(0), w.data_ptr(), w.stride(0),
+                zi.data_ptr(), zi.stride(0), 0, gi.data_ptr(), bi.data_ptr(),
+                dzi.data_ptr(), dzi.stride(0), hi.data_ptr(), hi.stride(0),
+                part.data_ptr(), m, i, o, stream), "dz W^T + LN backward")
+        for kind, mine, yard, got, want in cases:
+            out_t = mine()
+            torch.cuda.synchronize()
+            got = out_t if got is None else got
+            ref = want()
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            if rel > 1e-4:
+                raise AssertionError(f"GEMM {kind} ({i}, {o}): rel err {rel}")
+            ms = cuda_ms(torch, mine, 10)
+            lib_ms = cuda_ms(torch, yard, 10)
+            shape = {"h W": (m, i, o), "dz W^T": (m, o, i),
+                     "h^T dz": (i, m, o)}[kind]
+            flops = 2.0 * m * i * o
+            line = (f"GEMM {kind:6s} M={shape[0]} K={shape[1]} N={shape[2]}: "
+                    f"wgmma {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s), "
+                    f"torch.matmul bf16 {lib_ms:.4f} ms "
+                    f"({flops / lib_ms / 1e9:.0f} TFLOP/s)")
+            if kind in fused:
+                f_ms = cuda_ms(torch, fused[kind], 10)
+                line += (f"; with the fused LayerNorm "
+                         f"{'forward' if kind == 'h W' else 'backward'} "
+                         f"{f_ms:.4f} ms (epilogue +{f_ms - ms:.4f} ms)")
+            print(f"{line}; rel err {rel:.1e} [{card}]", flush=True)
+            result["gemm_ms"] += ms
+            result["matmul_ms"] += lib_ms
+        del h, w, dz, c_fwd, c_dh
+    print(f"GEMM sum over the chain's products at ({b}, {n}): wgmma "
+          f"{result['gemm_ms']:.3f} ms, torch.matmul {result['matmul_ms']:.3f}"
+          f" ms [{card}]", flush=True)
+    return result
 
 
 def chain_phase(torch, dev, card, shapes=CHAIN_SHAPES):
@@ -697,6 +848,7 @@ def chain_phase(torch, dev, card, shapes=CHAIN_SHAPES):
                                  "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound, "bound_by": bound_by,
                                  "max_abs_err": 0.0}
+                chain_breakdown(torch, card, f"{label} ({b}, {n})", fn)
             result["K2"]["max_abs_err"] = max_abs
             result["K3"]["max_abs_err"] = bwd_abs
         del x, got, want, gk, gp
@@ -750,7 +902,8 @@ K5_SHAPES = (
     ("recipe-remat slim", 8, 2560, FULL, 512, 4, False),
     ("ragged kv", 2, 200, (40, 72), 36, 4, True),
     ("ragged features", 2, 256, (40, 72), 36, 0, True),
-    ("ragged slim", 2, 200, (40, 72), 36, 4, False))
+    ("ragged slim", 2, 200, (40, 72), 36, 4, False),
+    ("ragged cluster", 2, 328, (600, 1100), 300, 4, True))
 
 
 def k5_phase(torch, dev, card, shapes=K5_SHAPES):
@@ -918,14 +1071,16 @@ def plain_kernels():
          lockstep_lsa._launch) = saved
 
 
+# Device kernel names of each kernel's launches (csrc/hopper_gemm.cuh's
+# wgmma_chain_kernel<form, epilogue, f32 z>: form 0 h W, 1 dz W^T, 2 h^T dz;
+# epilogue 0 store, 1 LayerNorm forward, 2 LayerNorm backward).
 TRAIN_KERNELS = {
-    "K2": ("ln_relu_stash", "window_pool", "float, false, false>",
-           "__nv_bfloat16, false, false>"),
-    "K3": ("seed_kernel", "row_bwd", "colsum", "row_valid",
-           "false, true>", "true, false>"),
+    "K2": ("wgmma_chain_kernel<0, ", "window_pool"),
+    "K3": ("wgmma_chain_kernel<1, ", "wgmma_chain_kernel<2, ", "seed_kernel",
+           "colsum", "prep_x"),
     "K4": ("lsa_kernel",),
 }
-# The remat chain runs the same kernels as K2 + K3 (row_bwd on f32 z).
+# The remat chain runs the same kernels as K2 + K3 (LN backward on f32 z).
 PARITY_KERNELS = {"K5": TRAIN_KERNELS["K2"] + TRAIN_KERNELS["K3"],
                   "K4": TRAIN_KERNELS["K4"]}
 
@@ -1418,9 +1573,18 @@ def main() -> int:
         phase = "K1 kernel and times"
         k1_abs, timing = kernel_phase(
             torch, dev, card, ((3, 2048), (3, 16384), (64, 2560)))
+        # K1 is untouched since PR 3: same seeds, same kernel, no atomics.
+        print(f"K1 max_abs_err {k1_abs!r}, PR 3's {K1_MAX_ABS_PR3!r}: "
+              f"identical {k1_abs == K1_MAX_ABS_PR3}", flush=True)
+        if k1_abs != K1_MAX_ABS_PR3:
+            raise AssertionError("K1's error against its plain version "
+                                 "changed")
 
         phase = "K4 kernel and times"
         k4 = k4_phase(torch, dev, card)
+
+        phase = "chain GEMMs against torch.matmul"
+        gemm_phase(torch, dev, card)
 
         phase = "K2 / K3 kernels and times"
         chain = chain_phase(torch, dev, card)

@@ -21,17 +21,28 @@ def csrc_copy(tmp_path, monkeypatch):
     return dst
 
 
-def test_editing_an_included_header_changes_the_library(csrc_copy):
+@pytest.mark.parametrize("header, changed", [
+    ("wmma_gemm.cuh", {"fused_encoder"}),
+    ("hopper_gemm.cuh", {"chain_grad"})])
+def test_editing_an_included_header_changes_the_library(csrc_copy, header,
+                                                        changed):
     names = ("fused_encoder", "chain_grad", "lockstep_lsa")
     before = {n: _build.library_path(n) for n in names}
-    assert [p.name for p in _build._sources("chain_grad")] == [
-        "chain_grad.cu", "wmma_gemm.cuh"]
-    header = csrc_copy / "wmma_gemm.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
+    path = csrc_copy / header
+    path.write_text(path.read_text() + "\n// edited\n")
     after = {n: _build.library_path(n) for n in names}
-    assert after["fused_encoder"] != before["fused_encoder"]
-    assert after["chain_grad"] != before["chain_grad"]
-    assert after["lockstep_lsa"] == before["lockstep_lsa"]
+    assert {n for n in names if after[n] != before[n]} == changed
+
+
+@pytest.mark.parametrize("name, sources", [
+    ("chain_grad", ["chain_grad.cu", "hopper_gemm.cuh"]),
+    ("fused_encoder", ["fused_encoder.cu", "wmma_gemm.cuh"]),
+    ("lockstep_lsa", ["lockstep_lsa.cu"])])
+def test_sources_follow_the_includes(name, sources):
+    """The chain kernels (K2 / K3 / K5) build on the wgmma + TMA GEMM of
+    hopper_gemm.cuh and K1 keeps its WMMA GEMM: neither includes the
+    other's header."""
+    assert [p.name for p in _build._sources(name)] == sources
 
 
 def test_nested_and_missing_headers(csrc_copy):

@@ -189,10 +189,10 @@ int k1_gemm_bias(const void* A, int a_is_f32, const void* W, const float* bias,
                  float* C, int M, int N, int K, cudaStream_t stream) {
     const bf16* w = static_cast<const bf16*>(W);
     if (a_is_f32)
-        return wgemm::launch_gemm<float, false, false>(
-            static_cast<const float*>(A), w, bias, C, M, N, K, 1, K, stream);
-    return wgemm::launch_gemm<bf16, false, false>(
-        static_cast<const bf16*>(A), w, bias, C, M, N, K, 1, K, stream);
+        return wgemm::launch_gemm<float>(static_cast<const float*>(A), w,
+                                         bias, C, M, N, K, stream);
+    return wgemm::launch_gemm<bf16>(static_cast<const bf16*>(A), w, bias, C,
+                                    M, N, K, stream);
 }
 
 int k1_ln_relu(const float* Z, const float* gamma, const float* beta,

@@ -212,8 +212,64 @@ def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
 
 
 # ---------------------------------------------------------------------------
+# The launch plan (pure: shapes in, tiles / strides / slices out)
+# ---------------------------------------------------------------------------
+
+BM, BN, BK = 128, 256, 64   # the wgmma tile of csrc/hopper_gemm.cuh
+MAX_CLUSTER = 8             # CTAs of a LayerNorm cluster (portable limit)
+_SPLIT_ROWS = 512           # least rows per K-slice of a split h^T dz
+_SMS = 132                  # H100 SXM streaming multiprocessors
+
+
+def pad8(n: int) -> int:
+    """Row stride, in elements, of a buffer TMA reads: 16-byte rows for
+    bf16 (8 elements) and f32 alike."""
+    return -(-n // 8) * 8
+
+
+def ln_cluster(width: int) -> int:
+    """CTAs of one fused LayerNorm stage's cluster: ceil(width / BN)."""
+    cs = -(-width // BN)
+    if not 1 <= cs <= MAX_CLUSTER:
+        raise ValueError(f"a chain stage of width {width} needs {cs} CTAs "
+                         f"of {BN} columns; a cluster holds 1 to "
+                         f"{MAX_CLUSTER}")
+    return cs
+
+
+def split_k(rows: int, i: int, h: int, sms: int = _SMS
+            ) -> List[Tuple[int, int]]:
+    """K-slices [start, stop) of dW (i, h) = h^T dz, summed over `rows`:
+    enough slices to fill the card once, each a multiple of BK rows
+    (the last takes the rest), in order.  Their partials are summed in
+    this order."""
+    tiles = -(-i // BM) * -(-h // BN)
+    splits = max(1, min(sms // tiles, rows // _SPLIT_ROWS))
+    ksplit = -(-(-(-rows // splits)) // BK) * BK
+    return [(s, min(rows, s + ksplit)) for s in range(0, rows, ksplit)]
+
+
+def chain_plan(m: int, d: int, widths: Sequence[int], out: int) -> Dict:
+    """What one chain call launches, from its shapes alone: the row
+    tiles, the padded row strides of x (bf16), each stage's buffers and
+    the projection cotangent, each stage's cluster, and the K-slices of
+    every dW product (x^T dz0, h_k^T dz_k+1, ..., h_last^T g)."""
+    dims = [d, *widths, out]
+    return {"row_tiles": -(-m // BM),
+            "x_ld": pad8(d),
+            "stage_ld": [pad8(w) for w in widths],
+            "out_ld": pad8(out),
+            "clusters": [ln_cluster(w) for w in widths],
+            "dw_slices": [split_k(m, i, o)
+                          for i, o in zip(dims[:-1], dims[1:])]}
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
+
+_FWD, _DH, _DW = 0, 1, 2    # operand forms of k23_gemm
+
 
 def _lib() -> ctypes.CDLL:
     from wireframe_tpu_torch.ops import _build
@@ -221,20 +277,26 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("chain_grad")
     if not getattr(lib, "_k23_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.k23_gemm.argtypes = [p, i, i, p, i, p, p, i, i, i, i, i, p]
-        lib.k23_row_valid.argtypes = [p, i, p, i, p]
-        lib.k2_ln_relu_stash.argtypes = [p, p, p, p, p, i, i, p]
+        lib.k23_tile.argtypes = [i]
+        lib.k23_max_width.argtypes = lib.k23_row_chunk.argtypes = []
+        lib.k23_prep_x.argtypes = [p, i, p, i, p, i, p]
+        lib.k23_gemm.argtypes = [i, p, i, p, i, p, p, i, i, i, i, i, i, p]
+        lib.k2_gemm_ln.argtypes = [p, i, p, i, p, p, p, p, i, p, i, i, i, i,
+                                   i, p]
+        lib.k3_gemm_ln_bwd.argtypes = [p, i, p, i, p, i, i, p, p, p, i, p,
+                                       i, p, i, i, i, p]
         lib.k2_window_pool.argtypes = [p, p, p, p, p, i, i, i, p]
-        lib.k3_seed.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
-        lib.k3_row_bwd.argtypes = [p, p, p, p, p, p, p, i, i, p]
-        lib.k5_row_bwd.argtypes = lib.k3_row_bwd.argtypes
+        lib.k3_seed.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
         lib.k3_colsum.argtypes = [p, p, i, ctypes.c_longlong, p]
-        lib.k23_row_chunk.argtypes = lib.k23_max_width.argtypes = []
-        for fn in (lib.k23_gemm, lib.k23_row_valid, lib.k2_ln_relu_stash,
-                   lib.k2_window_pool, lib.k3_seed, lib.k3_row_bwd,
-                   lib.k5_row_bwd,
-                   lib.k3_colsum, lib.k23_row_chunk, lib.k23_max_width):
+        for fn in (lib.k23_tile, lib.k23_max_width, lib.k23_row_chunk,
+                   lib.k23_prep_x, lib.k23_gemm, lib.k2_gemm_ln,
+                   lib.k3_gemm_ln_bwd, lib.k2_window_pool, lib.k3_seed,
+                   lib.k3_colsum):
             fn.restype = ctypes.c_int
+        tile = tuple(lib.k23_tile(k) for k in range(3))
+        if tile != (BM, BN, BK) or lib.k23_max_width() != MAX_CLUSTER * BN:
+            raise RuntimeError(f"csrc/hopper_gemm.cuh's tile {tile} does "
+                               f"not match the plan's {(BM, BN, BK)}")
         lib._k23_typed = True
     return lib
 
@@ -248,34 +310,70 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-_SPLIT_ROWS = 512     # least rows per K-slice of a split h^T dz product
-_SMS = 132            # H100 SXM streaming multiprocessors
+def _rows(m: int, width: int, dtype, dev) -> torch.Tensor:
+    """An (m, width) buffer whose rows are pad8(width) apart."""
+    return torch.empty((m, pad8(width)), dtype=dtype, device=dev)[:, :width]
 
 
-def _gemm(lib, a, a_f32, a_col, b, b_col, bias, c, m, n, k, stream,
-          what):
-    _check(lib.k23_gemm(_ptr(a), a_f32, a_col, _ptr(b), b_col, _ptr(bias),
-                        _ptr(c), m, n, k, 1, k, stream), what)
+def _tma_rows(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t (rows, width) as `dtype` with rows a multiple of 8 elements apart
+    and a 16-byte aligned start, as TMA reads it; copies only when t is
+    not so already."""
+    t = t.to(dtype)
+    if (t.stride(-1) == 1 and t.stride(0) % 8 == 0
+            and t.stride(0) >= t.shape[1] and t.data_ptr() % 16 == 0):
+        return t
+    out = _rows(t.shape[0], t.shape[1], dtype, t.device)
+    out.copy_(t)
+    return out
 
 
-def _gemm_tn(lib, a, a_f32, b, rows, i, h, stream, what) -> torch.Tensor:
-    """(i, h) f32 = a^T b with a stored (rows, i), b (rows, h): the K=rows
-    sum is split into slices whose partials are summed in slice order."""
-    tiles = -(-i // 128) * -(-h // 128)
-    splits = max(1, min(-(-2 * _SMS // tiles), rows // _SPLIT_ROWS))
-    per_slice = -(-rows // splits)
-    ksplit = -(-per_slice // 32) * 32          # slices start on a K tile
-    splits = -(-rows // ksplit)
+def _prep_x(lib, x, plan, need_valid, stream, what):
+    """x (B, N, D) f32 -> bf16 (M, D) with padded rows, and the validity
+    of every row when kv pooling needs it."""
+    b, n, d = x.shape
+    m = b * n
+    xb = _rows(m, d, torch.bfloat16, x.device)
+    valid = torch.empty(m, dtype=torch.uint8,
+                        device=x.device) if need_valid else None
+    _check(lib.k23_prep_x(_ptr(x), d, _ptr(xb), plan["x_ld"], _ptr(valid), m,
+                          stream), what)
+    return xb, valid
+
+
+def _stage_forward(lib, a, k_in, layer, m, stream, *, z_dtype, what):
+    """One stage's fused GEMM + LayerNorm: (h, z) where z is the bf16
+    stash, the f32 z or None (z_dtype None).  K2, K5's forward and K5's
+    recompute all come through here, so their h and z agree bit for
+    bit."""
+    w, bb, g, be = layer
+    width = w.shape[1]
+    dev = a.device
+    h = _rows(m, width, torch.bfloat16, dev)
+    z = None if z_dtype is None else _rows(m, width, z_dtype, dev)
+    _check(lib.k2_gemm_ln(_ptr(a), a.stride(0), _ptr(w), w.stride(0),
+                          _ptr(bb), _ptr(g), _ptr(be), _ptr(h), h.stride(0),
+                          _ptr(z), 0 if z is None else z.stride(0),
+                          int(z_dtype == torch.float32), m, width, k_in,
+                          stream), what)
+    return h, z
+
+
+def _gemm_tn(lib, a, b, slices, rows, i, h, stream, what) -> torch.Tensor:
+    """(i, h) f32 = a^T b with a stored (rows, i), b (rows, h), both with
+    padded rows: the K=rows sum is split into `slices` whose partials
+    are summed in slice order."""
+    ksplit = slices[0][1] - slices[0][0]
+    splits = len(slices)
     out = torch.empty((i, h), dtype=torch.float32, device=b.device)
-    if splits == 1:
-        _check(lib.k23_gemm(_ptr(a), a_f32, 1, _ptr(b), 0, None, _ptr(out),
-                            i, h, rows, 1, rows, stream), what)
-        return out
-    part = torch.empty((splits, i, h), dtype=torch.float32, device=b.device)
-    _check(lib.k23_gemm(_ptr(a), a_f32, 1, _ptr(b), 0, None, _ptr(part),
-                        i, h, rows, splits, ksplit, stream), what)
-    _check(lib.k3_colsum(_ptr(part), _ptr(out), splits, i * h, stream),
-           what + " slice sum")
+    dst = out if splits == 1 else torch.empty(
+        (splits, i, h), dtype=torch.float32, device=b.device)
+    _check(lib.k23_gemm(_DW, _ptr(a), a.stride(0), _ptr(b), b.stride(0),
+                        None, _ptr(dst), h, i, h, rows, splits, ksplit,
+                        stream), what)
+    if splits > 1:
+        _check(lib.k3_colsum(_ptr(dst), _ptr(out), splits, i * h, stream),
+               what + " slice sum")
     return out
 
 
@@ -289,13 +387,14 @@ def _cuda_params(stage_params, final_w, final_b, x):
         if w.dim() != 2 or w.shape[0] != prev:
             raise ValueError(f"stage weight {tuple(w.shape)} does not follow "
                              f"width {prev}")
-        layers.append((_aligned(w, torch.bfloat16), _aligned(b, torch.float32),
+        layers.append((_tma_rows(w, torch.bfloat16),
+                       _aligned(b, torch.float32),
                        _aligned(g, torch.float32), _aligned(be, torch.float32)))
         prev = w.shape[1]
     if final_w.dim() != 2 or final_w.shape[0] != prev:
         raise ValueError(f"final weight {tuple(final_w.shape)} does not "
                          f"follow width {prev}")
-    fw = _aligned(final_w, torch.bfloat16)
+    fw = _tma_rows(final_w, torch.bfloat16)
     fb = _aligned(final_b, torch.float32)
     for t in (*[t for layer in layers for t in layer], fw, fb):
         if t.device != x.device:
@@ -317,37 +416,30 @@ def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
     layers, fw, fb = _cuda_params(stage_params, final_w, final_b, x)
     b, n, d = x.shape
     _check_pool(n, kv_pool)
+    m = b * n
+    c = fw.shape[1]
+    plan = chain_plan(m, d, [w.shape[1] for w, *_ in layers], c)
     dev = x.device
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    m = b * n
-    widest = max([w.shape[1] for w, *_ in layers], default=8)
-    z = torch.empty(m * widest, dtype=torch.float32, device=dev)
-    h = torch.empty(m * widest, dtype=torch.bfloat16, device=dev)
+    a, valid = _prep_x(lib, x, plan, bool(kv_pool), stream, "chain input")
+    k_in = d
     zs = []
-    a, a_f32, k = x, 1, d
-    for w, bb, g, be in layers:
-        width = w.shape[1]
-        zk = torch.empty((b, n, width), dtype=torch.bfloat16,
-                         device=dev) if stash else None
-        _gemm(lib, a, a_f32, 0, w, 0, bb, z, m, width, k, stream,
-              "chain stage GEMM")
-        _check(lib.k2_ln_relu_stash(_ptr(z), _ptr(g), _ptr(be), _ptr(h),
-                                    _ptr(zk), m, width, stream),
-               "chain LayerNorm")
-        zs.append(zk)
-        a, a_f32, k = h, 0, width
-    c = fw.shape[1]
+    for layer in layers:
+        a, z = _stage_forward(lib, a, k_in, layer, m, stream,
+                              z_dtype=torch.bfloat16 if stash else None,
+                              what="chain stage GEMM + LayerNorm")
+        if stash:
+            zs.append(z.unflatten(0, (b, n)))
+        k_in = layer[0].shape[1]
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
-    _gemm(lib, a, a_f32, 0, fw, 0, fb, out, m, c, k, stream,
-          "chain projection GEMM")
+    _check(lib.k23_gemm(_FWD, _ptr(a), a.stride(0), _ptr(fw), fw.stride(0),
+                        _ptr(fb), _ptr(out), c, m, c, k_in, 1, k_in, stream),
+           "chain projection GEMM")
     result = {"zs": tuple(zs)} if stash else {}
     if emit_features:
         result["features"] = out
     if kv_pool:
-        valid = torch.empty(m, dtype=torch.uint8, device=dev)
-        _check(lib.k23_row_valid(_ptr(x), d, _ptr(valid), m, stream),
-               "chain validity")
         nw = n // kv_pool
         pooled = torch.empty((b, nw, c), dtype=torch.float32, device=dev)
         idx = torch.empty((b, nw, c), dtype=torch.int32, device=dev)
@@ -373,21 +465,23 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     b, n, d = x.shape
     _check_pool(n, kv_pool)
     dev = x.device
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     m = b * n
     c = fw.shape[1]
     widths = [w.shape[1] for w, *_ in layers]
     remat = zs is None
     kern = "K5" if remat else "K3"
+    lib = _lib()
     if max(widths + [c]) > lib.k23_max_width():
         raise ValueError(f"{kern} takes widths up to {lib.k23_max_width()}")
+    plan = chain_plan(m, d, widths, c)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if not remat:
-        zs = [z.to(torch.bfloat16).contiguous() for z in zs]
         for z, width in zip(zs, widths):
             if z.shape != (b, n, width) or z.device != dev:
                 raise ValueError(f"stash {tuple(z.shape)} does not match "
                                  f"({b}, {n}, {width})")
+        zs = [_tma_rows(z.reshape(m, width), torch.bfloat16)
+              for z, width in zip(zs, widths)]
     cotangents = [("g", g, (b, n, c))]
     if kv_pool:
         cotangents += [(k, t, (b, n // kv_pool, c)) for k, t in
@@ -398,28 +492,25 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
                              f"expected {shape} on {dev}")
     if g is not None:
         g = g.float().contiguous()
-    chunk = lib.k23_row_chunk()
-    nblk = -(-m // chunk)
-
-    # Seed: the projection's cotangent, in bf16, and d final_b.
-    valid = None
     if kv_pool:
-        valid = torch.empty(m, dtype=torch.uint8, device=dev)
-        _check(lib.k23_row_valid(_ptr(x), d, _ptr(valid), m, stream),
-               f"{kern} validity")
         dpool = dpool.float().contiguous()
         dsums = dsums.float().contiguous()
         idx = idx.to(torch.int32).contiguous()
     elif g is None:
         raise ValueError("the chain without kv_pool needs the features' "
                          "cotangent")
-    gbf = torch.empty((m, c), dtype=torch.bfloat16, device=dev)
+    xb, valid = _prep_x(lib, x, plan, bool(kv_pool), stream,
+                        f"{kern} input")
+
+    # Seed: the projection's cotangent, in bf16, and d final_b.
+    nblk = -(-m // lib.k23_row_chunk())
+    gbf = _rows(m, c, torch.bfloat16, dev)
     part = torch.empty((nblk, c), dtype=torch.float32, device=dev)
     _check(lib.k3_seed(_ptr(dpool) if kv_pool else None,
                        _ptr(idx) if kv_pool else None,
                        _ptr(dsums) if kv_pool else None, _ptr(valid),
-                       _ptr(g), _ptr(gbf), _ptr(part), m, c, kv_pool, stream),
-           f"{kern} seed")
+                       _ptr(g), _ptr(gbf), gbf.stride(0), _ptr(part), m, c,
+                       kv_pool, stream), f"{kern} seed")
     dfb = torch.empty(c, dtype=torch.float32, device=dev)
     _check(lib.k3_colsum(_ptr(part), _ptr(dfb), nblk, c, stream),
            f"{kern} d final_b")
@@ -427,59 +518,49 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     hs = None
     if remat:
         # Every stage's f32 z and bf16 h, recomputed by the forward's own
-        # GEMM and LayerNorm pass, so both are bit-identical to the
-        # forward's; transient, freed stage by stage below.
+        # kernel, so both are bit-identical to the forward's; transient,
+        # freed stage by stage below.
         zs, hs = [], []
-        a, a_f32, k_in = x, 1, d
-        for w, bb, gm, be in layers:
-            width = w.shape[1]
-            z = torch.empty((m, width), dtype=torch.float32, device=dev)
-            h = torch.empty((m, width), dtype=torch.bfloat16, device=dev)
-            _gemm(lib, a, a_f32, 0, w, 0, bb, z, m, width, k_in, stream,
-                  "K5 recompute GEMM")
-            _check(lib.k2_ln_relu_stash(_ptr(z), _ptr(gm), _ptr(be), _ptr(h),
-                                        None, m, width, stream),
-                   "K5 recompute LayerNorm")
+        a, k_in = xb, d
+        for layer in layers:
+            a, z = _stage_forward(lib, a, k_in, layer, m, stream,
+                                  z_dtype=torch.float32,
+                                  what="K5 recompute GEMM + LayerNorm")
             zs.append(z)
-            hs.append(h)
-            a, a_f32, k_in = h, 0, width
+            hs.append(a)
+            k_in = layer[0].shape[1]
 
-    widest = max(widths)
-    dh_bufs = [torch.empty(m * widest, dtype=torch.float32, device=dev)
-               for _ in range(2)]
-    dz_bufs = [torch.empty(m * widest, dtype=torch.bfloat16, device=dev)
-               for _ in range(2)]
-    hout = None if remat else torch.empty(m * widest, dtype=torch.bfloat16,
-                                          device=dev)
-    row_bwd = lib.k5_row_bwd if remat else lib.k3_row_bwd
-    dh = dh_bufs[0]
-    _gemm(lib, gbf, 0, 0, fw, 1, None, dh, m, widths[-1], c, stream,
-          f"{kern} dh = g fw^T")
     n_stages = len(layers)
     dstages: List[Tuple] = [None] * n_stages
     dfw = None
-    dz_above = gbf
+    dz_above, w_above, above_w = gbf, fw, c
     dx = None
     for k in reversed(range(n_stages)):
         w, _bb, gm, be = layers[k]
         width = widths[k]
-        dz = dz_bufs[k % 2]
-        part = torch.empty((nblk, 3 * width), dtype=torch.float32,
-                           device=dev)
-        _check(row_bwd(_ptr(zs[k]), _ptr(gm), _ptr(be), _ptr(dh), _ptr(dz),
-                       _ptr(hout), _ptr(part), m, width, stream),
-               f"{kern} stage backward")
+        # dh = dz_above W_above^T stays in registers: the epilogue turns
+        # it into this stage's dz (and, for K3, its rebuilt h).
+        dz = _rows(m, width, torch.bfloat16, dev)
+        hout = None if remat else _rows(m, width, torch.bfloat16, dev)
+        part = torch.empty((plan["row_tiles"], 3 * width),
+                           dtype=torch.float32, device=dev)
+        _check(lib.k3_gemm_ln_bwd(
+            _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
+            w_above.stride(0), _ptr(zs[k]), zs[k].stride(0), int(remat),
+            _ptr(gm), _ptr(be), _ptr(dz), dz.stride(0), _ptr(hout),
+            0 if hout is None else hout.stride(0), _ptr(part), m, width,
+            above_w, stream), f"{kern} dh GEMM + stage backward")
         sums = torch.empty(3 * width, dtype=torch.float32, device=dev)
-        _check(lib.k3_colsum(_ptr(part), _ptr(sums), nblk, 3 * width,
-                             stream), f"{kern} LayerNorm / bias gradients")
+        _check(lib.k3_colsum(_ptr(part), _ptr(sums), plan["row_tiles"],
+                             3 * width, stream),
+               f"{kern} LayerNorm / bias gradients")
         dgamma, dbeta, db = sums[:width], sums[width:2 * width], \
             sums[2 * width:]
         # The product above this stage: its input h is this stage's output
         # (K3 rebuilds it from the stash, K5 recomputed it).
         hin = hs[k] if remat else hout
-        above_w = c if k == n_stages - 1 else widths[k + 1]
-        dw_above = _gemm_tn(lib, hin, 0, dz_above, m, width, above_w,
-                            stream, f"{kern} dW = h^T dz")
+        dw_above = _gemm_tn(lib, hin, dz_above, plan["dw_slices"][k + 1], m,
+                            width, above_w, stream, f"{kern} dW = h^T dz")
         if remat:
             zs[k] = hs[k] = hin = None
         if k == n_stages - 1:
@@ -487,17 +568,15 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
         else:
             dstages[k + 1] = (dw_above, *dstages[k + 1][1:])
         dstages[k] = (None, db, dgamma, dbeta)
-        if k > 0:
-            dh = dh_bufs[(n_stages - k) % 2]
-            _gemm(lib, dz, 0, 0, w, 1, None, dh, m, w.shape[0], width,
-                  stream, f"{kern} dh = dz W^T")
-        elif need_dx:
-            dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
-            _gemm(lib, dz, 0, 0, w, 1, None, dx, m, d, width, stream,
-                  f"{kern} dx = dz W^T")
-        dz_above = dz
-    dw0 = _gemm_tn(lib, x, 1, dz_above, m, d, widths[0], stream,
-                   f"{kern} dW0 = x^T dz")
+        dz_above, w_above, above_w = dz, w, width
+    if need_dx:
+        dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
+        _check(lib.k23_gemm(_DH, _ptr(dz_above), dz_above.stride(0),
+                            _ptr(w_above), w_above.stride(0), None, _ptr(dx),
+                            d, m, d, above_w, 1, above_w, stream),
+               f"{kern} dx = dz W^T")
+    dw0 = _gemm_tn(lib, xb, dz_above, plan["dw_slices"][0], m, d, widths[0],
+                   stream, f"{kern} dW0 = x^T dz")
     dstages[0] = (dw0, *dstages[0][1:])
     if remat:
         remat_chain_backward.launches += 1
