@@ -9,12 +9,16 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 nvcc per source, all started together; ptxas lines;
   3. K1       — against its plain PyTorch version at the recipe's full
                 width (bf16 weights, kv_pool 4, tile 512) on padded and
-                all-padding samples; K1, the plain version and K1's FLOP
-                bound per shape; its largest error identical to PR 3's
-                (K1 is unchanged since);
+                all-padding samples, and at a ragged shape with kv windows
+                that cross the kernel's row tiles; its point features and
+                kv tokens array_equal to K5's forward; K1, the plain
+                version and K1's FLOP bound per shape; a profiler
+                breakdown and the peak memory of one call at (3, 16384);
   4. K4       — the lockstep JV kernel against its plain version, exactly,
-                at (8, 40, 40) with random counts and with forced ties and
-                at (64, 40, 128); assignment cost against scipy; times;
+                at (8, 40, 40), (6, 40, 64) and (64, 40, 128): random
+                costs, forced ties, -0.0 entries, an unclamped NaN row,
+                counts 0 and R; assignment cost against scipy where the
+                costs are finite; times and ns per scan step;
   5. GEMMs    — every product of the chain at (8, 2560) through the
                 wgmma + TMA GEMM of csrc/hopper_gemm.cuh, alone and with
                 its fused LayerNorm epilogue, against the f32 product of
@@ -100,8 +104,16 @@ K1_RTOL, K1_ATOL, K1_MEAN_ATOL = 2e-2, 1e-2, 1e-3
 # one bf16 ulp is up to 2^-8 ~ 0.004; probabilities are in [0, 1].
 MODEL_ATOL = {"vertices": 5e-2, "existence_probabilities": 2e-2,
               "edge_probs": 2e-2}
-# K1's largest difference from its plain version in PR 3's runs.
-K1_MAX_ABS_PR3 = 0.009671509265899658
+# The largest differences of K2, K3 and K5 from their plain versions as
+# PERF.md records them for the chain kernels' current code: same seeds, no
+# atomics, so a run that changes one has changed a chain kernel.
+CHAIN_MAX_ABS = {"K2": 0.009540557861328125, "K3": 0.18243789672851562,
+                     "K5 forward": 0.0073601603507995605,
+                     "K5 backward": 0.8877887725830078}
+# K1's peak device memory for one call at (3, 16384), beyond what was
+# allocated before it: the two widest bf16 activations (302 MB) and the
+# kv tokens, with no f32 z and no f32 features.
+K1_PEAK_BYTES = 0.35e9
 RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "configs", "recommended.yaml")
 PARITY = os.path.join(os.path.dirname(RECIPE), "default.yaml")
@@ -188,6 +200,54 @@ def synthetic_building(rng, n, offset):
     return pc
 
 
+def k1_equal_to_k5(torch, label, x, stages, fw, fb, p, tile):
+    """K1's point features and kv tokens against K5's forward on the same
+    cloud and bf16 weights: the same stage kernel and the same f32 bias
+    add after the same products, so array_equal."""
+    from wireframe_tpu_torch.ops.chain_grad import remat_chain_forward
+    from wireframe_tpu_torch.ops.fused_encoder import fused_point_encoder
+
+    got = fused_point_encoder(x, stages, fw, fb, tile=tile, kv_pool=p,
+                              return_point_features=True,
+                              compute_dtype=torch.bfloat16)
+    k5 = remat_chain_forward(x, stages, fw, fb, kv_pool=p,
+                             emit_features=True, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    pairs = [("point_features", "features")] + (
+        [("kv_features", "pooled")] if p else [])
+    same = {mine: torch.equal(got[mine], k5[theirs]) for mine, theirs in pairs}
+    print(f"K1 {label} kv_pool {p}: array_equal to K5's forward {same}",
+          flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"K1 {label} differs from K5's forward: {same}")
+
+
+K1_PARTS = (("fused stage GEMM + LayerNorm", "wgmma_chain_kernel<0, 1"),
+            ("projection GEMM + pools", "wgmma_chain_kernel<0, 3"),
+            ("pool finalize", "k1_finalize"), ("input prep", "prep_x"))
+
+
+def k1_breakdown(torch, card, label, fn):
+    """Device time of one K1 call by part (torch.profiler device rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    total = sum(r[0] for r in rows)
+    parts = {name: (sum(r[0] for r in rows if key in r[2]),
+                    sum(r[1] for r in rows if key in r[2]))
+             for name, key in K1_PARTS}
+    other = total - sum(ms for ms, _ in parts.values())
+    print(f"K1 {label} breakdown (profiler, one call): device {total:.3f} ms "
+          f"= " + " + ".join(f"{name} {ms:.3f} ms ({n} launches)"
+                             for name, (ms, n) in parts.items())
+          + f" + other {other:.3f} ms [{card}]", flush=True)
+
+
 def kernel_phase(torch, dev, card, shapes):
     """K1 against its plain version, then both timed, per (B, N) shape.
     Returns (max abs error, {(B, N): (ms, plain_ms, bound_ms, bound_by)})."""
@@ -232,8 +292,26 @@ def kernel_phase(torch, dev, card, shapes):
             for key in ("masked_mean", "masked_max", "kv_features"):
                 if got[key][-1].abs().max().item() != 0.0:
                     raise AssertionError(f"all-padding sample {key} != 0")
-        ms = cuda_ms(torch, lambda: fused_point_encoder(x, stages, fw, fb,
-                                                        **kw), 10)
+        del got, want, f32
+        if (b, n) == (3, 2048):
+            k1_equal_to_k5(torch, f"B={b} N={n}", x, stages, fw, fb, 4, 512)
+        call = lambda: fused_point_encoder(x, stages, fw, fb, **kw)  # noqa
+        if (b, n) == (3, 16384):
+            k1_breakdown(torch, card, f"B={b} N={n}", call)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del out
+            print(f"K1 B={b} N={n} peak device memory of one call: "
+                  f"{peak / 1e9:.4f} GB beyond the {base / 1e9:.4f} GB "
+                  f"allocated before it (limit {K1_PEAK_BYTES / 1e9} GB) "
+                  f"[{card}]", flush=True)
+            if peak > K1_PEAK_BYTES:
+                raise AssertionError(f"K1 holds {peak} bytes")
+        ms = cuda_ms(torch, call, 10)
         plain_ms = cuda_ms(torch, lambda: fused_point_encoder_plain(
             x, stages, fw, fb, **kw), 3)
         bound, bound_by = k1_bound_ms(b, n, 8, hidden, fw.shape[1], 4)
@@ -241,15 +319,16 @@ def kernel_phase(torch, dev, card, shapes):
         print(f"K1 time B={b} N={n}: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}), "
               f"{bound / ms * 100:.1f}% of bound [{card}]", flush=True)
-        del x, got, want, f32
+        del x
     # Ragged edges the recipe never hits: M = B*N, widths and the output
-    # not multiples of the 128-wide GEMM tiles, K not a multiple of 32,
-    # an output width off the 8-wide vector path, a last pooling chunk
-    # of 72 rows, and the call without kv tokens.
+    # not multiples of the GEMM tiles, K not a multiple of 64, a second
+    # row tile of 72 rows a cloud, the call without kv tokens, and kv
+    # windows of 5 and 200 rows that cross the 128-row tiles (merged from
+    # edge partials; the encoder routes both at tile 200).
     small_stages, small_fw, small_fb = recipe_encoder_params(
         torch, rng, dev, hidden=(40, 72), out=36)
     x = torch.tensor(padded_clouds(rng, 2, 200), device=dev)
-    for kv_pool in (4, 0):
+    for kv_pool in (4, 0, 5, 200):
         kw = dict(tile=200, compute_dtype=torch.bfloat16, kv_pool=kv_pool)
         got = fused_point_encoder(x, small_stages, small_fw, small_fb, **kw)
         want = fused_point_encoder_plain(x, small_stages, small_fw,
@@ -264,6 +343,12 @@ def kernel_phase(torch, dev, card, shapes):
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"K1 ragged {key} disagrees")
+        for key in ("masked_mean", "masked_max") + (
+                ("kv_features",) if kv_pool else ()):
+            if got[key][-1].abs().max().item() != 0.0:
+                raise AssertionError(f"all-padding sample {key} != 0")
+        k1_equal_to_k5(torch, "ragged B=2 N=200", x, small_stages, small_fw,
+                       small_fb, kv_pool, 200)
     return max_abs, timing
 
 
@@ -400,8 +485,9 @@ def device_rows(prof):
     return rows
 
 
-K1_KERNELS = ("gemm_kernel", "ln_relu_kernel", "pool_partials_kernel",
-              "pool_finalize_kernel")
+# K1's device kernels in a served batch (the chain kernels do not run
+# there): the wgmma GEMM's stages and projection, the prep and finalize.
+K1_KERNELS = ("wgmma_chain_kernel", "prep_x_kernel", "k1_finalize_kernel")
 
 
 def profile_batch(torch, predictor, chunk, bucket, card):
@@ -424,15 +510,48 @@ def profile_batch(torch, predictor, chunk, bucket, card):
           f"{sum(r[1] for r in rows)} device ops [{card}]", flush=True)
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         print(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}", flush=True)
+    if not k1_ms > 0:
+        raise AssertionError(f"the profile of bucket {bucket} shows no K1 "
+                             f"kernel among {[r[2] for r in rows]}")
 
 
 # ---------------------------------------------------------------------------
 # K4: the lockstep JV matcher
 # ---------------------------------------------------------------------------
 
+def k4_cases(rng):
+    """(name, cost, counts, finite) cases of K4's phase: random costs and
+    forced ties at the recipe's C = 40, the parity model's 64 and 128;
+    -0.0 among exact zeros; an unclamped NaN row in every sample (the
+    one-hot reads of the TPU body spread it over the row's columns);
+    counts 0 and R."""
+    cases = []
+    for b, r, c in ((8, 40, 40), (6, 40, 64), (64, 40, 128)):
+        counts = rng.integers(4, 39, size=b).astype(np.int32)
+        cases.append((f"random ({b}, {r}, {c})",
+                      (rng.random((b, r, c)) * 10).astype(np.float32),
+                      counts, True))
+        cases.append((f"ties ({b}, {r}, {c})",
+                      (rng.integers(0, 4, (b, r, c)) * 0.5).astype(
+                          np.float32), counts, True))
+    zeros = (rng.integers(0, 3, (8, 40, 40)) * 0.5).astype(np.float32)
+    zeros[(zeros == 0) & (rng.random(zeros.shape) < 0.5)] = -0.0
+    cases.append(("-0.0 entries (8, 40, 40)", zeros,
+                  rng.integers(4, 39, size=8).astype(np.int32), True))
+    nan = (rng.random((8, 40, 40)) * 10).astype(np.float32)
+    nan[np.arange(8), rng.integers(0, 40, size=8)] = np.nan
+    cases.append(("NaN row (8, 40, 40)", nan,
+                  rng.integers(4, 39, size=8).astype(np.int32), False))
+    cases.append(("counts 0 and R (8, 40, 64)",
+                  (rng.random((8, 40, 64)) * 10).astype(np.float32),
+                  np.array([0, 40, 0, 40, 40, 0, 40, 40], np.int32), True))
+    return cases
+
+
 def k4_phase(torch, dev, card):
-    """K4 against its plain version (exact) and scipy (cost within 1e-5);
-    times at the recipe's (8, 40, 40).  Returns the JSON fields."""
+    """K4 against its plain version (exact) and, where the costs are
+    finite, scipy (cost within 1e-5); times at the recipe's (8, 40, 40).
+    Returns the JSON fields."""
     from scipy.optimize import linear_sum_assignment
 
     from wireframe_tpu_torch.ops.lockstep_lsa import (
@@ -440,17 +559,8 @@ def k4_phase(torch, dev, card):
         solve_lsa_rows_lockstep_plain,
     )
 
-    rng = np.random.default_rng(4)
-    cases = []
-    for b, r, c in ((8, 40, 40), (64, 40, 128)):
-        counts = rng.integers(4, 39, size=b).astype(np.int32)
-        cases.append((f"random ({b}, {r}, {c})",
-                      (rng.random((b, r, c)) * 10).astype(np.float32),
-                      counts))
-        cases.append((f"ties ({b}, {r}, {c})",
-                      (rng.integers(0, 4, (b, r, c)) * 0.5).astype(
-                          np.float32), counts))
-    for name, cost, counts in cases:
+    cases = k4_cases(np.random.default_rng(4))
+    for name, cost, counts, finite in cases:
         ct = torch.tensor(cost, device=dev)
         nt = torch.tensor(counts, device=dev)
         got = solve_lsa_rows(ct, nt)
@@ -459,7 +569,7 @@ def k4_phase(torch, dev, card):
         equal = torch.equal(got, want)
         g = got.cpu().numpy()
         worst = 0.0
-        for i, k in enumerate(counts):
+        for i, k in enumerate(counts if finite else ()):
             rows, cols = linear_sum_assignment(cost[i, :k])
             best = cost[i, rows, cols].sum()
             have = cost[i, np.arange(k), g[i, :k]].sum()
@@ -468,7 +578,9 @@ def k4_phase(torch, dev, card):
                                      "assignment")
             worst = max(worst, abs(have - best) / max(abs(best), 1e-12))
         print(f"K4 {name}: array_equal to plain {equal}; worst relative "
-              f"cost gap to scipy {worst:.2e} (limit 1e-5)", flush=True)
+              f"cost gap to scipy "
+              f"{f'{worst:.2e} (limit 1e-5)' if finite else 'not checked'}",
+              flush=True)
         if not equal or worst > 1e-5:
             raise AssertionError(f"K4 {name} disagrees")
 
@@ -485,21 +597,23 @@ def k4_phase(torch, dev, card):
     # compare, select, min) and scans them again for the argmin (compare,
     # 2 min): ~9 f32 operations per column per step.
     total_steps = int(steps.sum())
+    longest = int(steps.max())
     ops = total_steps * 40 * 9
     nbytes = cost.nbytes + counts.nbytes + 8 * 40 * 4
     t_ops = ops / H100_F32_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
     print(f"K4 time (8, 40, 40): kernel {ms:.4f} ms, plain {plain_ms:.2f} "
-          f"ms, {total_steps} scan steps (longest sample "
-          f"{int(steps.max())}), bound {bound:.2e} ms "
+          f"ms, {total_steps} scan steps (longest sample {longest}): "
+          f"{ms * 1e6 / longest:.1f} ns per scan step of the longest "
+          f"sample; bound {bound:.2e} ms "
           f"({'operations' if t_ops >= t_bytes else 'bytes'}); the "
           f"kernel is latency-bound by its sequential scan [{card}]",
           flush=True)
     return {"shape": "B=8 R=40 C=40", "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "max_abs_err": 0.0}
+            "max_abs_err": 0.0, "ns_per_scan_step": ms * 1e6 / longest}
 
 
 # ---------------------------------------------------------------------------
@@ -1235,8 +1349,12 @@ STASH_BYTES = 2 * 3 * 2560 * sum(FULL)   # bf16 z_k of the stash at (3, 2560)
 
 
 def held_after_loss(torch, cfg, dev, dbatch):
-    """Device bytes that one train-mode forward + loss leaves allocated
-    for the backward (the model's weights excluded)."""
+    """What one train-mode forward + loss leaves for the backward, the
+    model's weights and the batch excluded: (bytes allocated, bytes of the
+    tensors autograd saved).  The allocator's count includes its rounding
+    of blocks and has moved between runs of unchanged chain code, so the
+    saving is held on the second, which counts each saved storage once at
+    its size."""
     from wireframe_tpu_torch.losses.wireframe_loss import wireframe_loss
     from wireframe_tpu_torch.train.loop import init_model
     from wireframe_tpu_torch.train.step import loss_config
@@ -1244,19 +1362,30 @@ def held_after_loss(torch, cfg, dev, dbatch):
     model = init_model(cfg, dev).train()
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
+    kept = {t.untyped_storage().data_ptr() for t in [
+        *model.parameters(), *dbatch.values()] if torch.is_tensor(t)}
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in kept:
+            saved[st.data_ptr()] = st.nbytes()
+        return t
+
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    preds = model(dbatch["point_clouds"], dbatch["vertex_counts"],
-                  train=True, generator=gen)
-    losses = wireframe_loss(preds, {
-        "vertices": dbatch["target_vertices"],
-        "vertex_existence": dbatch["vertex_existence"],
-        "edge_labels": dbatch["edge_labels"],
-        "vertex_counts": dbatch["vertex_counts"]}, loss_config(cfg))
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        preds = model(dbatch["point_clouds"], dbatch["vertex_counts"],
+                      train=True, generator=gen)
+        losses = wireframe_loss(preds, {
+            "vertices": dbatch["target_vertices"],
+            "vertex_existence": dbatch["vertex_existence"],
+            "edge_labels": dbatch["edge_labels"],
+            "vertex_counts": dbatch["vertex_counts"]}, loss_config(cfg))
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - base
     del preds, losses, model
-    return held
+    return held, sum(saved.values())
 
 
 def parity_phase(torch, dev, card, work):
@@ -1387,11 +1516,16 @@ def parity_phase(torch, dev, card, work):
     held = {mode: held_after_loss(torch, load_config(PARITY, base + [
         f"model.chain_backward={mode}"]), dev, dbatch)
         for mode in ("remat", "stash")}
-    saved = held["stash"] - held["remat"]
-    print(f"parity memory held between forward and backward: remat "
-          f"{held['remat'] / 1e6:.1f} MB, stash {held['stash'] / 1e6:.1f} "
-          f"MB; remat saves {saved / 1e6:.2f} MB (the stash is "
-          f"{STASH_BYTES / 1e6:.2f} MB) [{card}]", flush=True)
+    alloc = held["stash"][0] - held["remat"][0]
+    saved = held["stash"][1] - held["remat"][1]
+    print(f"parity memory held between forward and backward: allocated "
+          f"remat {held['remat'][0] / 1e6:.1f} MB, stash "
+          f"{held['stash'][0] / 1e6:.1f} MB (remat {alloc / 1e6:.2f} MB "
+          f"less); saved for the backward remat "
+          f"{held['remat'][1] / 1e6:.2f} MB, stash "
+          f"{held['stash'][1] / 1e6:.2f} MB: remat saves "
+          f"{saved / 1e6:.2f} MB (the stash is {STASH_BYTES / 1e6:.2f} MB) "
+          f"[{card}]", flush=True)
     if saved < STASH_BYTES:
         raise AssertionError("remat does not save the stash's memory")
 
@@ -1573,12 +1707,6 @@ def main() -> int:
         phase = "K1 kernel and times"
         k1_abs, timing = kernel_phase(
             torch, dev, card, ((3, 2048), (3, 16384), (64, 2560)))
-        # K1 is untouched since PR 3: same seeds, same kernel, no atomics.
-        print(f"K1 max_abs_err {k1_abs!r}, PR 3's {K1_MAX_ABS_PR3!r}: "
-              f"identical {k1_abs == K1_MAX_ABS_PR3}", flush=True)
-        if k1_abs != K1_MAX_ABS_PR3:
-            raise AssertionError("K1's error against its plain version "
-                                 "changed")
 
         phase = "K4 kernel and times"
         k4 = k4_phase(torch, dev, card)
@@ -1591,6 +1719,15 @@ def main() -> int:
 
         phase = "K5 kernels and times"
         k5 = k5_phase(torch, dev, card)
+        errs = {"K2": chain["K2"]["max_abs_err"],
+                "K3": chain["K3"]["max_abs_err"],
+                "K5 forward": k5["forward"]["max_abs_err"],
+                "K5 backward": k5["backward"]["max_abs_err"]}
+        print(f"chain max_abs_err {errs}; identical to the recorded ones: "
+              f"{errs == CHAIN_MAX_ABS}", flush=True)
+        if errs != CHAIN_MAX_ABS:
+            raise AssertionError(f"a chain kernel's error changed: recorded "
+                                 f"{CHAIN_MAX_ABS}")
 
         phase = "training"
         train_launches, _ = training_phase(torch, dev, card, work)
@@ -1609,7 +1746,7 @@ def main() -> int:
         src = "wireframe_tpu_torch/csrc/"
         kernels = [{
             "name": "fused_point_encoder (K1)", "route": "cuda",
-            "source": src + "fused_encoder.cu",
+            "source": f"{src}fused_encoder.cu + {src}hopper_gemm.cuh",
             "replaces": "wireframe_tpu/ops/pallas_encoder.py:71",
             "launches": launches, "max_abs_err": k1_abs,
             "shape": f"B={b} N={n} kv_pool=4", "ms": ms,

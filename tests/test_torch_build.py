@@ -22,10 +22,12 @@ def csrc_copy(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("header, changed", [
-    ("wmma_gemm.cuh", {"fused_encoder"}),
-    ("hopper_gemm.cuh", {"chain_grad"})])
+    ("lockstep_lsa.cu", {"lockstep_lsa"}),
+    ("hopper_gemm.cuh", {"chain_grad", "fused_encoder"})])
 def test_editing_an_included_header_changes_the_library(csrc_copy, header,
                                                         changed):
+    """An edited source rebuilds only its own library; an edited header,
+    every library that includes it."""
     names = ("fused_encoder", "chain_grad", "lockstep_lsa")
     before = {n: _build.library_path(n) for n in names}
     path = csrc_copy / header
@@ -36,12 +38,11 @@ def test_editing_an_included_header_changes_the_library(csrc_copy, header,
 
 @pytest.mark.parametrize("name, sources", [
     ("chain_grad", ["chain_grad.cu", "hopper_gemm.cuh"]),
-    ("fused_encoder", ["fused_encoder.cu", "wmma_gemm.cuh"]),
+    ("fused_encoder", ["fused_encoder.cu", "hopper_gemm.cuh"]),
     ("lockstep_lsa", ["lockstep_lsa.cu"])])
 def test_sources_follow_the_includes(name, sources):
-    """The chain kernels (K2 / K3 / K5) build on the wgmma + TMA GEMM of
-    hopper_gemm.cuh and K1 keeps its WMMA GEMM: neither includes the
-    other's header."""
+    """The chain kernels (K2 / K3 / K5) and K1 build on the wgmma + TMA
+    GEMM of hopper_gemm.cuh; K4 stands alone."""
     assert [p.name for p in _build._sources(name)] == sources
 
 

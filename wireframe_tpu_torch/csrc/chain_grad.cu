@@ -37,7 +37,7 @@
 //   - k23_gemm: the plain products: the projection (+ bias), dx = dz W0^T
 //     and dW = h^T dz (split over the rows, per-slice partials);
 //   - k23_prep_x: x in bf16 (as x.astype(bf16)) with a padded row stride,
-//     and the rows' validity;
+//     and the rows' validity (hgemm::prep_x, shared with K1);
 //   - k2_window_pool: one thread per (window, channel): masked max with
 //     the lowest tied offset as argmax (0 for an all-invalid window, as
 //     jnp.argmax over all -inf gives 0) and the masked window sum;
@@ -66,23 +66,6 @@ constexpr int ROW_THREADS = 256;
 constexpr int ROW_CHUNK = 32;          // rows per k3_seed block
 constexpr int MAX_COLS_PER_THREAD = 8; // widths up to 2048
 constexpr int POOL_THREADS = 128;
-
-// xb[r, :ldx] = bf16(X[r, :D]) then zeros; valid[r] = |sum_d X[r, d]| >
-// 1e-9 (the encoder's validity mask, from the RAW f32 row; null: skip).
-__global__ void prep_x_kernel(const float* __restrict__ X, int D,
-                              bf16* __restrict__ xb, int ldx,
-                              uint8_t* __restrict__ valid, int M) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= M) return;
-    const float* xr = X + (size_t)r * D;
-    float s = 0.0f;
-    for (int d = 0; d < D; ++d) {
-        s += xr[d];
-        xb[(size_t)r * ldx + d] = __float2bfloat16(xr[d]);
-    }
-    for (int d = D; d < ldx; ++d) xb[(size_t)r * ldx + d] = __float2bfloat16(0.0f);
-    if (valid != nullptr) valid[r] = fabsf(s) > 1e-9f ? 1 : 0;
-}
 
 // Masked window pool of the features F (B*N, C) over windows of p
 // consecutive rows (windows never straddle clouds: N % p == 0).
@@ -191,10 +174,7 @@ int k23_row_chunk() { return ROW_CHUNK; }
 
 int k23_prep_x(const float* X, int D, void* xb, int ldx, uint8_t* valid,
                int M, cudaStream_t stream) {
-    if (ldx < D || ldx % 8) return (int)cudaErrorInvalidValue;
-    prep_x_kernel<<<(M + 255) / 256, 256, 0, stream>>>(
-        X, D, static_cast<bf16*>(xb), ldx, valid, M);
-    return (int)cudaGetLastError();
+    return hgemm::prep_x(X, D, static_cast<bf16*>(xb), ldx, valid, M, stream);
 }
 
 // C = op(A) @ op(B) (+ bias); form 0: A B (B stored (K, N)), 1: A B^T

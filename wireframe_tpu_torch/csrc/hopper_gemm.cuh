@@ -24,7 +24,11 @@
 //           (two cluster sums); h rebuilt (K3); jnp.maximum's tie rule
 //           (half the cotangent at ln == 0) and the LayerNorm backward (a
 //           third cluster sum, of dxhat and dxhat * xhat); bf16 dz; and
-//           per-CTA column partials of d gamma, d beta and d b.
+//           per-CTA column partials of d gamma, d beta and d b;
+//   POOL    the point encoder's projection (K1): f = acc + b, as STORE
+//           adds it, then per column over the tile's rows the masked and
+//           unmasked sums and maxima, the valid count and the kv window
+//           masked max over p consecutive rows; optionally f itself.
 // f32 z (forward) and f32 dh (backward) never reach device memory.
 //
 // Design: a 128 x 256 output tile per CTA and three warpgroups: two
@@ -40,6 +44,20 @@
 // The LayerNorm epilogues put the accumulator into an f32 tile in the
 // (then free) ring and work on it by rows, so they hold few registers
 // beside it and store 16 contiguous bytes a lane.
+//
+// POOL runs its row tiles per cloud (blockIdx.y = cloud * tiles + tile), so
+// no tile holds rows of two clouds: TMA loads a whole 128-row box from the
+// 2-D map of all rows and the epilogue drops the rows past the cloud's end.
+// One thread takes one tile column and walks its rows in order (the f32
+// tile in the freed ring, conflict-free), so every statistic is a fixed
+// function of the inputs.  A kv window that lies in the tile is written
+// whole; one that crosses a tile boundary (p not dividing 128) leaves a
+// partial max in an edge slot of each tile it touches, for the caller to
+// merge: slot 0 holds the window that began in an earlier tile, slot 1 the
+// one that begins in this tile and ends in a later one.
+//
+// Everything here has internal linkage: each kernel library that includes
+// the header gets its own copies of the launch flags and tensor-map cache.
 //
 // Tensor maps: cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint (no libcuda link), cached by address, shape,
@@ -60,6 +78,7 @@
 #include <type_traits>
 
 namespace hgemm {
+namespace {
 
 using bf16 = __nv_bfloat16;
 
@@ -86,7 +105,9 @@ static_assert(3 * 8 * BN * 4 <= ZTILE, "column partials");
 static_assert(SMEM_BYTES <= 232448, "shared memory");
 
 enum { FWD = 0, DH = 1, DW = 2 };
-enum { STORE = 0, LN_FWD = 1, LN_BWD = 2 };
+enum { STORE = 0, LN_FWD = 1, LN_BWD = 2, POOL = 3 };
+
+constexpr float NEG_SENTINEL = -1e30f;   // POOL's empty max
 
 struct Params {
     CUtensorMap ta, tb;
@@ -104,6 +125,14 @@ struct Params {
     bf16* DZ;              // LN_BWD
     int lddz;
     float* part;           // LN_BWD: [row tile][3 N]
+    // POOL: clouds of `rows` rows, `tiles` row tiles each.  C (ldc) takes
+    // the features when not null.
+    const uint8_t* valid;  // (M,) row validity
+    float* pool;           // [cloud][tile][5][N]: masked sum, masked max,
+                           // sum, max, valid count
+    float* kv;             // [cloud][rows / kvp][N] (null: no kv pooling)
+    float* edge;           // [cloud][tile][2][N] crossing windows' partials
+    int rows, tiles, kvp;
 };
 
 // ---------------------------------------------------------------------------
@@ -422,7 +451,9 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
     constexpr int SYNCS = EPI == LN_FWD ? 3 : (EPI == LN_BWD ? 4 : 0);
 
     const int wg = threadIdx.x / 128;
-    const int m0 = blockIdx.y * BM;
+    const int m0 = EPI == POOL ? (blockIdx.y / p.tiles) * p.rows +
+                                     (blockIdx.y % p.tiles) * BM
+                               : blockIdx.y * BM;
     const int n0 = blockIdx.x * BN;
     const int kbeg = FORM == DW ? blockIdx.z * p.ksplit : 0;
     const int kend = FORM == DW ? min(p.K, kbeg + p.ksplit) : p.K;
@@ -527,6 +558,65 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
                                 acc[4 * j + 2 * h] + b0,
                                 acc[4 * j + 2 * h + 1] + b1, pair, aligned);
         }
+        return;
+    }
+
+    if (EPI == POOL) {
+        float* tile = reinterpret_cast<float*>(ring);
+        const int r0 = (blockIdx.y % p.tiles) * BM;    // cloud row of row 0
+        const int nrows = min(BM, p.rows - r0);
+        consumer_bar();             // both warpgroups are done with the ring
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+            const int c = n0 + 8 * j + 2 * q;
+            const float b0 = c < N ? p.bias[c] : 0.0f;
+            const float b1 = c + 1 < N ? p.bias[c + 1] : 0.0f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                *reinterpret_cast<float2*>(tile + (r + 8 * h) * TILE_LD +
+                                           8 * j + 2 * q) =
+                    make_float2(acc[4 * j + 2 * h] + b0,
+                                acc[4 * j + 2 * h + 1] + b1);
+        }
+        const int t = threadIdx.x;                      // tile column t
+        if (t < BM) red[t] = t < nrows && p.valid[m0 + t] ? 1.0f : 0.0f;
+        consumer_bar();
+        const int c = n0 + t;
+        if (c >= N) return;
+        const int kvp = p.kv != nullptr ? p.kvp : 0;
+        int wend = kvp ? (r0 / kvp + 1) * kvp : 0;      // past this window
+        float msum = 0.0f, mmax = NEG_SENTINEL, usum = 0.0f;
+        float umax = NEG_SENTINEL, cnt = 0.0f, wmax = NEG_SENTINEL;
+        for (int i = 0; i < nrows; ++i) {
+            const float f = tile[i * TILE_LD + t];
+            usum += f;
+            umax = fmaxf(umax, f);
+            if (red[i] != 0.0f) {
+                msum += f;
+                mmax = fmaxf(mmax, f);
+                cnt += 1.0f;
+                wmax = fmaxf(wmax, f);
+            }
+            if (p.C != nullptr) p.C[(size_t)(m0 + i) * p.ldc + c] = f;
+            if (kvp && (r0 + i + 1 == wend || i + 1 == nrows)) {
+                const int wstart = wend - kvp;
+                if (wstart >= r0 && wend <= r0 + nrows)
+                    p.kv[((size_t)(blockIdx.y / p.tiles) * (p.rows / kvp) +
+                          wstart / kvp) * N + c] =
+                        wmax > NEG_SENTINEL / 2 ? wmax : 0.0f;
+                else
+                    p.edge[((size_t)blockIdx.y * 2 + (wstart < r0 ? 0 : 1)) *
+                               N + c] = wmax;
+                wmax = NEG_SENTINEL;
+                wend += kvp;
+            }
+        }
+        float* out = p.pool + (size_t)blockIdx.y * 5 * N + c;
+        out[0] = msum;
+        out[N] = mmax;
+        out[2 * N] = usum;
+        out[3 * N] = umax;
+        out[4 * N] = cnt;
         return;
     }
 
@@ -776,9 +866,36 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
     cluster_sync_last();
 }
 
+// The chain's first operand: xb[r, :ldx] = bf16(X[r, :D]) (as
+// x.astype(bf16)) then zeros, rows padded for TMA; valid[r] = |sum_d
+// X[r, d]| > 1e-9, the encoder's validity mask from the RAW f32 row (null:
+// skip).
+__global__ void prep_x_kernel(const float* __restrict__ X, int D,
+                              bf16* __restrict__ xb, int ldx,
+                              uint8_t* __restrict__ valid, int M) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= M) return;
+    const float* xr = X + (size_t)r * D;
+    float s = 0.0f;
+    for (int d = 0; d < D; ++d) {
+        s += xr[d];
+        xb[(size_t)r * ldx + d] = __float2bfloat16(xr[d]);
+    }
+    for (int d = D; d < ldx; ++d) xb[(size_t)r * ldx + d] = __float2bfloat16(0.0f);
+    if (valid != nullptr) valid[r] = fabsf(s) > 1e-9f ? 1 : 0;
+}
+
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and launches
 // ---------------------------------------------------------------------------
+
+inline int prep_x(const float* X, int D, bf16* xb, int ldx, uint8_t* valid,
+                  int M, cudaStream_t stream) {
+    if (ldx < D || ldx % 8) return (int)cudaErrorInvalidValue;
+    prep_x_kernel<<<(M + 255) / 256, 256, 0, stream>>>(X, D, xb, ldx, valid,
+                                                      M);
+    return (int)cudaGetLastError();
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
@@ -884,13 +1001,16 @@ inline int launch(const Params& p, int splits, cudaStream_t stream) {
     const int ntiles = (p.N + BN - 1) / BN;
     cudaLaunchConfig_t cfg;
     memset(&cfg, 0, sizeof cfg);
-    cfg.gridDim = dim3(ntiles, (p.M + BM - 1) / BM, splits);
+    cfg.gridDim = dim3(ntiles,
+                       EPI == POOL ? p.M / p.rows * p.tiles
+                                   : (p.M + BM - 1) / BM,
+                       splits);
     cfg.blockDim = dim3(THREADS);
     cfg.dynamicSmemBytes = SMEM_BYTES;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = EPI == STORE ? 1 : ntiles;
+    attr[0].val.clusterDim.x = EPI == STORE || EPI == POOL ? 1 : ntiles;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
@@ -994,4 +1114,44 @@ inline int gemm_ln_bwd(const void* A, int lda, const void* W, int ldw,
                  : launch<DH, LN_BWD, 0>(p, 1, stream);
 }
 
+// The point encoder's projection: f = A W + b for `clouds` clouds of
+// `rows` rows (A (clouds * rows, K) bf16, W (K, N) bf16), pooled per
+// (cloud, 128-row tile) into pool; kv window maxima over kvp rows (kv
+// null: none), with the partials of windows that cross a tile boundary in
+// edge (needed when kvp does not divide 128 and a cloud has two tiles or
+// more); F (f32, row stride ldf) the features when not null.
+inline int gemm_pool(const void* A, int lda, const void* W, int ldw,
+                     const float* bias, const uint8_t* valid, float* F,
+                     int ldf, float* pool, float* kv, float* edge, int kvp,
+                     int clouds, int rows, int N, int K,
+                     cudaStream_t stream) {
+    const int tiles = (rows + BM - 1) / BM;
+    if (clouds < 1 || rows < 1 || N < 1 || K < 1 || bias == nullptr ||
+        valid == nullptr || pool == nullptr || (F != nullptr && ldf < N) ||
+        (kv != nullptr &&
+         (kvp < 1 || rows % kvp ||
+          (edge == nullptr && tiles > 1 && BM % kvp != 0))))
+        return (int)cudaErrorInvalidValue;
+    Params p;
+    memset(&p, 0, sizeof p);
+    p.M = clouds * rows;
+    p.N = N;
+    p.K = K;
+    p.ksplit = K;
+    p.bias = bias;
+    p.C = F;
+    p.ldc = ldf;
+    p.valid = valid;
+    p.pool = pool;
+    p.kv = kv;
+    p.edge = edge;
+    p.rows = rows;
+    p.tiles = tiles;
+    p.kvp = kvp;
+    const int err = operand_maps(p, FWD, A, lda, W, ldw);
+    if (err) return err;
+    return launch<FWD, POOL, 0>(p, 1, stream);
+}
+
+}  // namespace
 }  // namespace hgemm

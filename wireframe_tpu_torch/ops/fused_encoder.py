@@ -13,9 +13,11 @@ Three functions over one parameter layout:
 - `fused_point_encoder_plain`: the plain PyTorch version of K1's whole
   contract, used for CPU tensors and as the kernel's oracle on the card;
 - `fused_point_encoder`: launches the hand-written CUDA kernel
-  (`csrc/fused_encoder.cu`) for CUDA tensors, and takes the plain version
+  (`csrc/fused_encoder.cu` on the wgmma + TMA GEMM of
+  `csrc/hopper_gemm.cuh`) for CUDA tensors, and takes the plain version
   only for CPU tensors.  `fused_point_encoder.launches` counts kernel
-  launches.
+  launches.  `k1_plan` is its launch plan, pure, so the CPU tests reach
+  everything around the kernel.
 
 bf16 matmuls with f32 accumulation are written as f32 matmuls of
 bf16-rounded operands: every bf16 x bf16 product is exact in f32, so this
@@ -26,12 +28,12 @@ card keeps TF32 off (PyTorch's default), so these run in full f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
 
 _NEG_INF = -1e30
-_POOL_CHUNK = 128   # rows per pooling partial on the card
 
 
 def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -118,17 +120,89 @@ def fused_point_encoder_plain(x: torch.Tensor,
     return result
 
 
+# ---------------------------------------------------------------------------
+# The launch plan (pure: shapes in, tiles / windows / strides out)
+# ---------------------------------------------------------------------------
+
+K1_ROW_TILE = 128   # rows of a projection tile (csrc/hopper_gemm.cuh's BM)
+
+
+@functools.lru_cache(maxsize=64)
+def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
+            kv_pool: int) -> Dict:
+    """What one K1 call on the card launches, from its shapes alone.
+
+    The projection runs its 128-row tiles per cloud, so no tile holds rows
+    of two clouds: "tile_rows" are the [start, stop) cloud rows of each
+    tile (the same for every cloud), "partials" the shape of the per-tile
+    pools.  With kv_pool = p, "windows" gives per tile (the range of
+    windows that lie in it whole, the window of its edge slot 0 or None,
+    that of slot 1 or None): slot 0 holds the part of a window that began
+    in an earlier tile, slot 1 the part of one that begins here and ends in
+    a later tile.  "merges" lists, as the finalize kernel walks them, every
+    window that crosses a tile boundary with the (tile, slot) partials it
+    takes the max of; "edges" says whether the edge slots exist at all.
+    Row strides are padded for TMA and each stage's LayerNorm cluster
+    (<= 8 CTAs, so a stage wider than 2048 raises)."""
+    from wireframe_tpu_torch.ops.chain_grad import ln_cluster, pad8
+
+    bm = K1_ROW_TILE
+    tiles = -(-n // bm)
+    spans = [(t * bm, min(n, (t + 1) * bm)) for t in range(tiles)]
+    windows, merges = None, []
+    p = kv_pool
+    if p:
+        if n % p:
+            raise ValueError(f"N={n} is not a multiple of kv_pool={p}")
+        windows = []
+        for r0, r1 in spans:
+            last = (r1 - 1) // p
+            windows.append((range(-(-r0 // p), r1 // p),
+                            r0 // p if r0 % p else None,
+                            last if r0 <= last * p and (last + 1) * p > r1
+                            else None))
+        for k in range(1, tiles):       # k1_finalize_kernel's walk
+            w = k * bm // p
+            if k * bm % p == 0 or w * p < (k - 1) * bm:
+                continue
+            parts = [(k - 1, 1)] + [(j, 0) for j in range(k, tiles)
+                                    if j * bm < (w + 1) * p]
+            merges.append((w, parts))
+    return {"tiles_per_cloud": tiles,
+            "row_tiles": b * tiles,
+            "tile_rows": spans,
+            "partials": (b, tiles, 5, out),
+            "windows": windows,
+            "merges": merges,
+            "edges": bool(merges),
+            "x_ld": pad8(d),
+            "stage_ld": [pad8(w) for w in widths],
+            "clusters": [ln_cluster(w) for w in widths]}
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+# ---------------------------------------------------------------------------
+
 def _lib() -> ctypes.CDLL:
     from wireframe_tpu_torch.ops import _build
 
     lib = _build.load("fused_encoder")
     if not getattr(lib, "_k1_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.k1_gemm_bias.argtypes = [p, i, p, p, p, i, i, i, p]
-        lib.k1_ln_relu.argtypes = [p, p, p, p, i, i, p]
-        lib.k1_pool.argtypes = [p, i, p, p, p, p, i, i, i, i, i, p]
-        for fn in (lib.k1_gemm_bias, lib.k1_ln_relu, lib.k1_pool):
+        lib.k1_row_tile.argtypes = []
+        lib.k1_prep.argtypes = [p, i, p, i, p, i, p]
+        lib.k1_stage.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
+        lib.k1_project.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, i, i,
+                                   i, i, p]
+        lib.k1_finalize.argtypes = [p, p, p, p, i, i, i, i, p]
+        for fn in (lib.k1_row_tile, lib.k1_prep,
+                   lib.k1_stage, lib.k1_project, lib.k1_finalize):
             fn.restype = ctypes.c_int
+        if lib.k1_row_tile() != K1_ROW_TILE:
+            raise RuntimeError(f"csrc/hopper_gemm.cuh's row tile "
+                               f"{lib.k1_row_tile()} does not match the "
+                               f"plan's {K1_ROW_TILE}")
         lib._k1_typed = True
     return lib
 
@@ -147,67 +221,71 @@ def _aligned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _launch(x, stage_params, final_w, final_b, *, tile,
             return_point_features, compute_dtype, kv_pool):
+    from wireframe_tpu_torch.ops.chain_grad import _ptr, _rows, _tma_rows
+
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("K1 takes a contiguous (B, N, D) float32 cloud, got "
                          f"{x.dtype} {tuple(x.shape)}")
     if compute_dtype != torch.bfloat16:
         raise ValueError("the K1 kernel computes in bfloat16 only "
                          f"(compute_dtype={compute_dtype})")
-    if x.data_ptr() % 16:
-        raise ValueError("K1 needs a 16-byte aligned cloud")
     b, n, d = x.shape
     _check_tiling(n, tile, kv_pool)
     dev = x.device
     layers = []
     prev = d
     for w, bb, g, be in stage_params:
-        if w.dim() != 2 or w.shape[0] != prev or w.shape[1] % 4:
+        if w.dim() != 2 or w.shape[0] != prev:
             raise ValueError(f"stage weight {tuple(w.shape)} does not follow "
-                             f"width {prev} (widths must be multiples of 4)")
-        layers.append(tuple(_aligned(t, dt) for t, dt in (
-            (w, torch.bfloat16), (bb, torch.float32), (g, torch.float32),
-            (be, torch.float32))))
+                             f"width {prev}")
+        layers.append((_tma_rows(w, torch.bfloat16),
+                       *(_aligned(t, torch.float32) for t in (bb, g, be))))
         prev = w.shape[1]
     if final_w.dim() != 2 or final_w.shape[0] != prev:
         raise ValueError(f"final weight {tuple(final_w.shape)} does not "
                          f"follow width {prev}")
-    fw = _aligned(final_w, torch.bfloat16)
+    fw = _tma_rows(final_w, torch.bfloat16)
     fb = _aligned(final_b, torch.float32)
     c = fw.shape[1]
     for t in (*[t for layer in layers for t in layer], fw, fb):
         if t.device != dev:
             raise ValueError("K1 parameters must lie on the cloud's device")
+    plan = k1_plan(b, n, d, tuple(w.shape[1] for w, *_ in layers), c,
+                   kv_pool)
 
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     m = b * n
-    widest = max([w.shape[1] for w, *_ in layers], default=0)
-    z = torch.empty(m * widest, dtype=torch.float32, device=dev)
-    h = torch.empty(m * widest, dtype=torch.bfloat16, device=dev)
-    a, a_is_f32, k = x, 1, d
+    a = _rows(m, d, torch.bfloat16, dev)
+    valid = torch.empty(m, dtype=torch.uint8, device=dev)
+    _check(lib.k1_prep(_ptr(x), d, _ptr(a), plan["x_ld"], _ptr(valid), m,
+                       stream), "input prep")
+    k_in = d
     for w, bb, g, be in layers:
+        # Each stage's bf16 h is the only activation in device memory; the
+        # one before it is freed as soon as this launch is queued.
         width = w.shape[1]
-        _check(lib.k1_gemm_bias(a.data_ptr(), a_is_f32, w.data_ptr(),
-                                bb.data_ptr(), z.data_ptr(), m, width, k,
-                                stream), "stage GEMM")
-        _check(lib.k1_ln_relu(z.data_ptr(), g.data_ptr(), be.data_ptr(),
-                              h.data_ptr(), m, width, stream), "LayerNorm")
-        a, a_is_f32, k = h, 0, width
-    feats = torch.empty((b, n, c), dtype=torch.float32, device=dev)
-    _check(lib.k1_gemm_bias(a.data_ptr(), a_is_f32, fw.data_ptr(),
-                            fb.data_ptr(), feats.data_ptr(), m, c, k, stream),
-           "projection GEMM")
-
+        h = _rows(m, width, torch.bfloat16, dev)
+        _check(lib.k1_stage(_ptr(a), a.stride(0), _ptr(w), w.stride(0),
+                            _ptr(bb), _ptr(g), _ptr(be), _ptr(h), h.stride(0),
+                            m, width, k_in, stream), "stage GEMM + LayerNorm")
+        a, k_in = h, width
     p = kv_pool
-    chunk = _POOL_CHUNK if not p else p * -(-_POOL_CHUNK // p)
-    nchunks = -(-n // chunk)
-    kv = (torch.empty((b, n // p, c), dtype=torch.float32, device=dev)
-          if p else None)
-    part = torch.empty((b, nchunks, 5, c), dtype=torch.float32, device=dev)
+    feats = (torch.empty((b, n, c), dtype=torch.float32, device=dev)
+             if return_point_features else None)
+    kv = torch.empty((b, n // p, c), dtype=torch.float32, device=dev) \
+        if p else None
+    part = torch.empty(plan["partials"], dtype=torch.float32, device=dev)
+    edge = torch.empty((b, plan["tiles_per_cloud"], 2, c),
+                       dtype=torch.float32, device=dev) \
+        if plan["edges"] else None
     pools = torch.empty((b, 4, c), dtype=torch.float32, device=dev)
-    _check(lib.k1_pool(x.data_ptr(), d, feats.data_ptr(),
-                       kv.data_ptr() if p else None, part.data_ptr(),
-                       pools.data_ptr(), b, n, c, p, chunk, stream), "pooling")
+    _check(lib.k1_project(_ptr(a), a.stride(0), _ptr(fw), fw.stride(0),
+                          _ptr(fb), _ptr(valid), _ptr(feats), c, _ptr(part),
+                          _ptr(kv), _ptr(edge), p, b, n, c, k_in, stream),
+           "projection GEMM + pools")
+    _check(lib.k1_finalize(_ptr(part), _ptr(edge), _ptr(kv), _ptr(pools), b,
+                           n, p, c, stream), "pool finalize")
     fused_point_encoder.launches += 1
     result = {"masked_mean": pools[:, 0], "masked_max": pools[:, 1],
               "mean": pools[:, 2], "max": pools[:, 3]}

@@ -3,8 +3,8 @@
 Port of `wireframe_tpu/ops/pallas_lsa.py`.  The wireframe loss solves one
 assignment of real targets to prediction slots per sample per train step;
 on the card the whole batch is one launch of the hand-written CUDA kernel
-(`csrc/lockstep_lsa.cu`, one warp per sample), so the train step needs no
-host round trip.
+(`csrc/lockstep_lsa.cu`, one warp per sample, up to 128 columns held in
+its registers), so the train step needs no host round trip.
 
 - `solve_lsa_rows_lockstep_plain`: a line-for-line PyTorch copy of the
   JAX body `_lockstep_solve`: the batch advances in lockstep under masks
@@ -167,6 +167,8 @@ def _lib() -> ctypes.CDLL:
         lib.k4_lsa.restype = ctypes.c_int
         lib.k4_smem_bytes.argtypes = [i, i]
         lib.k4_smem_bytes.restype = ctypes.c_size_t
+        lib.k4_max_cols.argtypes = []
+        lib.k4_max_cols.restype = ctypes.c_int
         lib._k4_typed = True
     return lib
 
@@ -181,6 +183,9 @@ def _launch(cost, num_rows, steps_out):
         raise ValueError("num_rows must lie on the cost's device")
     b, r, c = cost.shape
     lib = _lib()
+    if c > lib.k4_max_cols():
+        raise ValueError(f"K4 keeps a warp's columns in registers, up to "
+                         f"{lib.k4_max_cols()}; got C={c}")
     if lib.k4_smem_bytes(r, c) > _MAX_SMEM:
         raise ValueError(f"K4 keeps a ({r}, {c}) problem in shared memory; "
                          f"it needs {lib.k4_smem_bytes(r, c)} bytes")
