@@ -14,6 +14,8 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 kv tokens array_equal to K5's forward; K1, the plain
                 version and K1's FLOP bound per shape; a profiler
                 breakdown and the peak memory of one call at (3, 16384);
+                the element behind K1's largest error, with the plain
+                bf16 and the f32 chain's values;
   4. K4       — the lockstep JV kernel against its plain version, exactly,
                 at (8, 40, 40), (6, 40, 64) and (64, 40, 128): random
                 costs, forced ties, -0.0 entries, an unclamped NaN row,
@@ -61,8 +63,22 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 served; .obj files must load back; one batch is compared
                 between the kernel and the plain encoder chain; serving
                 time per bucket, and a torch.profiler breakdown of one
-                batch per bucket (device busy share, K1 against the rest).
-Then a `kernels` JSON line and, last, the `ok` JSON line.
+                batch per bucket (device busy share, K1 against the rest);
+ 11. corpus   — the recipe at full width from a generated Building3D
+                corpus (24 train / 8 test buildings) through the CLIs:
+                `main` trains 2 epochs (K2, K3, K4 once per optimizer
+                step, finite losses, step_6 and ema/step_6), `--resume` of
+                the finished run leaves every file byte-identical, two
+                resumes from step_3 give the same losses bit for bit with
+                the restored EMA equal to the restored params; `evaluate`
+                of ema/ over the plain, device-Hausdorff, pipelined and
+                raw-points paths (K1 once per forward batch, pipelined
+                counters equal to device Hausdorff's, finite metrics; the
+                pipelined step's kept pairs in pair-table order); `test`
+                writes 8 world-frame .obj files; ms per step, clouds/s per
+                path and the host share of a pipelined chunk.
+Then a `kernels` JSON line (launches on the main paths and on the corpus
+path) and, last, the `ok` JSON line.
 
 Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
 """
@@ -261,6 +277,7 @@ def kernel_phase(torch, dev, card, shapes):
     hidden = tuple(w.shape[1] for w, *_ in stages)
     kw = dict(tile=512, compute_dtype=torch.bfloat16, kv_pool=4)
     max_abs = 0.0
+    worst = None        # the element behind K1's largest error
     timing = {}
     for b, n in shapes:
         x = torch.tensor(padded_clouds(rng, b, n), device=dev)
@@ -279,6 +296,10 @@ def kernel_phase(torch, dev, card, shapes):
             mean_err = err.mean().item()
             ok = bool((err <= K1_ATOL + K1_RTOL * w.abs()).all()) and (
                 mean_err <= K1_MEAN_ATOL)
+            if err.max().item() > max_abs:
+                at = np.unravel_index(int(err.argmax()), tuple(err.shape))
+                worst = (f"B={b} N={n} {key}", at, g[at].item(),
+                         w[at].item(), f32[key][at].item())
             max_abs = max(max_abs, err.max().item())
             yard = (w - f32[key]).abs().max().item()
             print(f"K1 B={b} N={n} {key:12s} max_abs {err.max().item():.3e}"
@@ -320,6 +341,13 @@ def kernel_phase(torch, dev, card, shapes):
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}), "
               f"{bound / ms * 100:.1f}% of bound [{card}]", flush=True)
         del x
+    # Which side moves at K1's largest error: the kernel, or the plain
+    # bf16 chain, each against the f32 chain on the same element.
+    where, at, kv, pv, fv = worst
+    print(f"K1 largest error {max_abs!r} at {where} index "
+          f"{tuple(int(i) for i in at)}: K1 {kv!r}, plain bf16 {pv!r}, "
+          f"f32 chain {fv!r}; |K1 - f32| {abs(kv - fv):.6e}, |plain - f32| "
+          f"{abs(pv - fv):.6e}", flush=True)
     # Ragged edges the recipe never hits: M = B*N, widths and the output
     # not multiples of the GEMM tiles, K not a multiple of 64, a second
     # row tile of 72 rows a cloud, the call without kv tokens, and kv
@@ -1670,6 +1698,314 @@ def profile_train_step(torch, step, state, batch, gen, card, kernels,
         print(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Corpus: train and evaluate from a Building3D corpus through the CLIs
+# ---------------------------------------------------------------------------
+
+CORPUS = ["--train", "24", "--test", "8", "--seed", "0", "--mix", "real"]
+CORPUS_EPOCHS = 2
+CORPUS_STEPS = CORPUS_EPOCHS * (24 // 8)      # batch 8, drop_last
+
+
+def _sets(overrides):
+    return [a for o in overrides for a in ("--set", o)]
+
+
+def _tree_digest(root):
+    """{relative path: bytes} of every file under root."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def _losses(ckdir):
+    with open(os.path.join(ckdir, "train_metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _eval_thresholds(torch, cfg, params, dataset, dev):
+    """Vertex and edge thresholds at which the decode of this barely
+    trained model keeps work for every stage of the eval paths: the
+    median existence probability (about half the slots live) and the
+    90th percentile of the live pairs' edge probabilities; each rounded
+    to float32, so the host's and the card's comparisons agree."""
+    from wireframe_tpu_torch.data.building3d import collate_fixed
+    from wireframe_tpu_torch.eval.evaluator import make_forward_fn
+    from wireframe_tpu_torch.ops.pairs import triu_pairs_np
+
+    samples = [dataset.get_sample(i, rng=np.random.default_rng(
+        (cfg.data.seed, i)), augment_on_host=False)
+        for i in range(len(dataset))]
+    out = make_forward_fn(cfg, params, dev)(
+        collate_fixed(samples, cfg.model.max_vertices)["point_clouds"])
+    exist = out["existence_probabilities"]
+    vthresh = float(np.float32(np.median(exist)))
+    live = exist > vthresh
+    pairs = triu_pairs_np(cfg.model.max_vertices)
+    both = live[:, pairs[:, 0]] & live[:, pairs[:, 1]]
+    ethresh = float(np.float32(np.quantile(out["edge_probs"][both], 0.9)))
+    return vthresh, ethresh
+
+
+def corpus_phase(torch, dev, card, work):
+    """The recipe at full width from a generated corpus through the CLIs:
+    train (main), resume, evaluate over four paths, write .obj (test).
+    Returns {kernel: launches on this path}."""
+    import dataclasses
+    import io
+
+    from wireframe_tpu_torch import evaluate as evaluate_cli
+    from wireframe_tpu_torch import main as main_cli
+    from wireframe_tpu_torch import test as test_cli
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.data.bucketing import choose_bucket
+    from wireframe_tpu_torch.data.building3d import Building3DDataset
+    from wireframe_tpu_torch.eval.pipeline import (
+        _build_chunk,
+        evaluate_corpus_pipelined,
+        make_eval_step,
+    )
+    from wireframe_tpu_torch.eval.evaluator import build_model
+    from wireframe_tpu_torch.io.obj import load_wireframe
+    from wireframe_tpu_torch.metrics.ap_calculator import _COUNTER_KEYS
+    from wireframe_tpu_torch.ops.pairs import triu_pairs_np
+    from wireframe_tpu_torch.tools.gen_demo_data import main as gen_main
+    from wireframe_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        restore_train_state,
+    )
+    from wireframe_tpu_torch.train.loop import init_model
+    from wireframe_tpu_torch.train.state import create_train_state
+
+    root = os.path.join(work, "corpus")
+    t0 = time.perf_counter()
+    gen_main(["--out", root, *CORPUS])
+    print(f"corpus: generated {' '.join(CORPUS)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # Train seed 1: the serving phase's seed, whose random decoder keeps
+    # the slots live (existence ~0.89 > the model's 0.5), so that the edge
+    # head, the decode and the Hausdorff passes carry data; after 6 steps
+    # of warmup from lr 0 the weights are still close to their init.
+    overrides = [f"train.num_epochs={CORPUS_EPOCHS}",
+                 "train.checkpoint_every=1", "train.log_every=1",
+                 "train.seed=1", f"data.root_dir={root}"]
+    ck = os.path.join(work, "corpus_ckpt")
+
+    def train_argv(ckdir):
+        return (["--config", RECIPE, "--data-root", root, "--checkpoint-dir",
+                 ckdir, "--device", str(dev)] + _sets(overrides))
+
+    # The main path: counts to 0, the training CLI, counts read.
+    reset_launches()
+    t0 = time.perf_counter()
+    main_cli.main(train_argv(ck))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    train_counts = launch_counts()
+    rows = _losses(ck)
+    losses = [r["total_loss"] for r in rows]
+    print(f"corpus train CLI: {CORPUS_STEPS} optimizer steps in {secs:.2f} s "
+          f"(corpus parse, model init, checkpoints included); losses "
+          f"{losses}; launches {train_counts}", flush=True)
+    if len(losses) != CORPUS_EPOCHS or not all(map(math.isfinite, losses)):
+        raise AssertionError("corpus training losses missing or not finite")
+    want = {"K1": 0, "K2": CORPUS_STEPS, "K3": CORPUS_STEPS,
+            "K4": CORPUS_STEPS, "K5 fwd": 0, "K5 bwd": 0}
+    if train_counts != want:
+        raise AssertionError(f"corpus launches {train_counts}, expected "
+                             f"{want}")
+    for name in (f"step_{CORPUS_STEPS}", f"ema/step_{CORPUS_STEPS}",
+                 "step_3"):
+        if not os.path.isdir(os.path.join(ck, name)):
+            raise AssertionError(f"{name} missing under {sorted(os.listdir(ck))}")
+    # The second epoch: host clock between the two log points (each reads
+    # the metrics back), which also holds the step_3 checkpoint write.
+    epoch_ms = (rows[1]["elapsed_time"] - rows[0]["elapsed_time"]) / (
+        CORPUS_STEPS // CORPUS_EPOCHS) * 1e3
+    print(f"corpus train CLI: {epoch_ms:.2f} ms per step over epoch 2 "
+          f"(batch 8 x 2560 points, loader prefetch and the step_3 "
+          f"checkpoint write included), {secs / CORPUS_STEPS * 1e3:.1f} ms "
+          f"per step over the whole CLI run [{card}]", flush=True)
+
+    # --resume on the finished run changes nothing.
+    before = _tree_digest(ck)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_cli.main(train_argv(ck) + ["--resume"])
+    said = buf.getvalue()
+    print(said.rstrip(), flush=True)
+    same = _tree_digest(ck) == before
+    print(f"corpus resume of the finished run: files byte-identical {same}",
+          flush=True)
+    if "training already complete at epoch 2" not in said or not same:
+        raise AssertionError("--resume of a finished run touched files")
+
+    # Two resumes from the epoch-1 checkpoint into fresh directories.
+    cfg = load_config(RECIPE, overrides)
+    resumed = []
+    for r in range(2):
+        d = os.path.join(work, f"corpus_resume{r}")
+        os.makedirs(d)
+        shutil.copytree(os.path.join(ck, "step_3"), os.path.join(d, "step_3"))
+        shutil.copy(os.path.join(ck, "step_3.meta.json"), d)
+        if r == 0:
+            fresh = create_train_state(cfg, init_model(cfg, dev, seed=7))
+            fresh, start = restore_train_state(fresh, d)
+            ema_eq = all(torch.equal(fresh.ema_params[k], p)
+                         for k, p in fresh.params.items())
+            print(f"corpus restore of step_3: epoch {start}, step "
+                  f"{fresh.step}, EMA equal to the restored params "
+                  f"{ema_eq}", flush=True)
+            if not ema_eq or (start, fresh.step) != (1, 3):
+                raise AssertionError("the restored EMA is not the params")
+            del fresh
+        main_cli.main(train_argv(d) + ["--resume"])
+        rows_r = _losses(d)
+        resumed.append([row["total_loss"] for row in rows_r])
+        # No checkpoint inside a resumed epoch 2: train_model's host clock
+        # from its start to the log point over the epoch's 3 steps.
+        step_ms = rows_r[-1]["elapsed_time"] / (
+            CORPUS_STEPS // CORPUS_EPOCHS) * 1e3
+        print(f"corpus resumed epoch 2: {step_ms:.2f} ms per step (batch 8 "
+              f"x 2560 points, loader prefetch and the first step's "
+              f"allocations included, no checkpoint write) [{card}]",
+              flush=True)
+    print(f"corpus resumes from step_3, twice: epoch-2 losses {resumed}, "
+          f"bit-identical {resumed[0] == resumed[1]}; uninterrupted run "
+          f"{losses[1:]} (the draws are seeded from (seed, start_epoch))",
+          flush=True)
+    if resumed[0] != resumed[1] or len(resumed[0]) != 1:
+        raise AssertionError("two resumes from one checkpoint differ")
+
+    # Evaluation of <ckpt>/ema over the test split, four paths.  One
+    # forward batch of 8 everywhere, so the pipelined and device-Hausdorff
+    # counters come from the same forward.
+    ema = os.path.join(ck, "ema")
+    payload, meta = load_checkpoint(ema)
+    test_ds = Building3DDataset(cfg.data, "test")
+    vthresh, ethresh = _eval_thresholds(torch, cfg, payload["params"],
+                                        test_ds, dev)
+    eval_sets = [f"eval.vertex_existence_thresh={vthresh!r}",
+                 f"eval.edge_confidence_thresh={ethresh!r}"]
+    print(f"corpus eval thresholds: vertex {vthresh!r}, edge {ethresh!r}",
+          flush=True)
+    base = ["--config", RECIPE, "--data-root", root, "--checkpoint-dir", ema,
+            "--device", str(dev)]
+    raw_ds = Building3DDataset(dataclasses.replace(cfg.data, num_points=0),
+                               "test")
+    raw_sizes = [raw_ds.get_sample(i, augment_on_host=False)[
+        "point_clouds"].shape[0] for i in range(len(raw_ds))]
+    raw_batches = len({choose_bucket(n, cfg.data.point_buckets)
+                       for n in raw_sizes})
+    paths = {"plain": ([], 1), "device Hausdorff": (["--device-hausdorff"], 1),
+             "pipelined": (["--pipelined", "--eval-batch", "8"], 1),
+             "raw points": (["--raw-points"], raw_batches)}
+    aps, k1 = {}, 0
+    for label, (extra, batches) in paths.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        aps[label] = evaluate_cli.run(
+            base + _sets(eval_sets + ["eval.batch_size=8"]) + extra)
+        secs = time.perf_counter() - t0
+        n = launch_counts()["K1"]
+        k1 += n
+        m = aps[label].summarize()
+        print(f"corpus evaluate {label}: K1 launches {n} for {batches} "
+              f"forward batches; {len(test_ds) / secs:.2f} clouds/s (CLI "
+              f"wall {secs:.2f} s over {len(test_ds)} clouds: checkpoint, "
+              f"parse, forward, metrics) [{card}]; counters "
+              f"{ {k: aps[label].ap_dict[k] for k in _COUNTER_KEYS} }",
+              flush=True)
+        if n != batches:
+            raise AssertionError(f"evaluate {label}: {n} K1 launches")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"evaluate {label}: non-finite metrics {m}")
+    counters = {label: [float(ap.ap_dict[k]) for k in _COUNTER_KEYS]
+                + [ap.num_samples] for label, ap in aps.items()}
+    print(f"corpus pipelined counters equal to device Hausdorff's: "
+          f"{counters['pipelined'] == counters['device Hausdorff']}; plain "
+          f"(f64 host Hausdorff) minus device: "
+          f"{np.subtract(counters['plain'], counters['device Hausdorff']).tolist()}",
+          flush=True)
+    if counters["pipelined"] != counters["device Hausdorff"]:
+        raise AssertionError("pipelined counters differ from device "
+                             "Hausdorff's")
+    if aps["pipelined"].ap_dict["tp_fp_edges"] == 0:
+        raise AssertionError("the eval kept no predicted edge")
+    # Not asserted: the forward at another batch (eval.batch_size 3).
+    ap3 = evaluate_cli.run(base + _sets(eval_sets) + ["--device-hausdorff"])
+    print(f"corpus device Hausdorff at eval.batch_size 3 equal to batch 8: "
+          f"{[float(ap3.ap_dict[k]) for k in _COUNTER_KEYS] == counters['device Hausdorff'][:-1]}",
+          flush=True)
+
+    # The pipelined step on the card: the stable sort keeps the kept
+    # pairs in pair-table order; the host share of a chunk.
+    cfg_e = load_config(RECIPE, overrides + eval_sets)
+    model = build_model(cfg_e, payload["params"], dev)
+    step = make_eval_step(cfg_e, 128, 64, 8)
+    _, clouds, gt_ev, _, _ = _build_chunk(cfg_e, test_ds, list(range(8)), 8,
+                                          64)
+    out = step(model, torch.from_numpy(clouds).to(dev),
+               torch.from_numpy(gt_ev).to(dev))
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    pairs = triu_pairs_np(cfg_e.model.max_vertices)
+    ordered = 0
+    for j in range(8):
+        live = out["existence"][j] > vthresh
+        keep = (live[pairs[:, 0]] & live[pairs[:, 1]]
+                & (out["edge_probs"][j] > ethresh))
+        want_sel = np.flatnonzero(keep)[:128]
+        if not np.array_equal(out["sel"][j][:len(want_sel)], want_sel):
+            raise AssertionError(f"sample {j}: kept pairs out of order")
+        ordered += len(want_sel)
+    print(f"corpus pipelined step: the {ordered} kept pairs of the chunk in "
+          f"pair-table order (stable sort on the card)", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    evaluate_corpus_pipelined(cfg_e, payload["params"], test_ds, batch=8,
+                              device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluate_corpus_pipelined(cfg_e, payload["params"], test_ds,
+                                  batch=8, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(r[0] for r in device_rows(prof))
+    print(f"corpus pipelined chunk of 8 (parsed corpus, model build "
+          f"included): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+          f"host share {(1 - busy / wall_ms) * 100:.1f}% [{card}]",
+          flush=True)
+
+    # Inference .obj files in world coordinates.
+    out_dir = os.path.join(work, "corpus_pred")
+    reset_launches()
+    test_cli.main(base + _sets(eval_sets + ["eval.batch_size=8"])
+                  + ["--out-dir", out_dir])
+    n = launch_counts()["K1"]
+    k1 += n
+    objs = sorted(os.listdir(out_dir))
+    verts_total = 0
+    for name in objs:
+        v, e = load_wireframe(os.path.join(out_dir, name))
+        if not np.isfinite(v).all() or (len(v) and np.abs(v[:, :2]).min()
+                                        <= 1e5) or (len(e) and e.max()
+                                                    >= len(v)):
+            raise AssertionError(f"{name}: not a world-frame wireframe")
+        verts_total += len(v)
+    print(f"corpus test CLI: {len(objs)} .obj files, {verts_total} "
+          f"vertices, all |x|, |y| > 1e5 (UTM frame); K1 launches {n}",
+          flush=True)
+    if len(objs) != 8 or n != 1 or not verts_total:
+        raise AssertionError(f"test wrote {objs} with {n} K1 launches")
+    return {"K1": k1, "K2": train_counts["K2"], "K3": train_counts["K3"],
+            "K4": train_counts["K4"], "K5 fwd": 0, "K5 bwd": 0}
+
+
 def main() -> int:
     import torch
 
@@ -1741,6 +2077,9 @@ def main() -> int:
             raise AssertionError(f"K1 launched {launches} times for "
                                  f"{batches} batches")
 
+        phase = "corpus"
+        corpus = corpus_phase(torch, dev, card, work)
+
         b, n = 3, 16384
         ms, plain_ms, bound, bound_by = timing[(b, n)]
         src = "wireframe_tpu_torch/csrc/"
@@ -1748,7 +2087,8 @@ def main() -> int:
             "name": "fused_point_encoder (K1)", "route": "cuda",
             "source": f"{src}fused_encoder.cu + {src}hopper_gemm.cuh",
             "replaces": "wireframe_tpu/ops/pallas_encoder.py:71",
-            "launches": launches, "max_abs_err": k1_abs,
+            "launches": launches, "corpus_launches": corpus["K1"],
+            "max_abs_err": k1_abs,
             "shape": f"B={b} N={n} kv_pool=4", "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None}]
@@ -1761,7 +2101,8 @@ def main() -> int:
                  "wireframe_tpu/ops/pallas_lsa.py:203", k4)):
             kernels.append({"name": name, "route": "cuda",
                             "source": src + source, "replaces": replaces,
-                            "launches": train_launches[key], **fields,
+                            "launches": train_launches[key],
+                            "corpus_launches": corpus[key], **fields,
                             "library_ms": None})
         for key, count, name, replaces in (
                 ("forward", "K5 fwd", "chain forward, remat (K5)",
@@ -1772,6 +2113,7 @@ def main() -> int:
                             "source": src + "chain_grad.cu",
                             "replaces": replaces,
                             "launches": parity_launches[count],
+                            "corpus_launches": corpus[count],
                             **k5[key], "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:

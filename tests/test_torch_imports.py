@@ -1,7 +1,9 @@
 """The port stands alone and never runs quietly on the CPU.
 
 - No module of wireframe_tpu_torch/, and not chip_smoke.py, imports jax,
-  flax, optax, orbax or the JAX package wireframe_tpu.
+  flax, optax, orbax, the JAX package wireframe_tpu or the repository's
+  JAX scripts (main, evaluate, test, bench, visualize, tools,
+  __graft_entry__): the port's CLIs keep their own copies.
 - With no GPU, the entry points raise unless the caller passes
   device="cpu"; chip_smoke.py exits nonzero and prints no `ok` line.
 """
@@ -15,7 +17,9 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "wireframe_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "wireframe_tpu",
+             "main", "evaluate", "test", "bench", "visualize", "tools",
+             "__graft_entry__"}
 
 
 def _port_sources():

@@ -212,7 +212,8 @@ def test_checkpoint_resume_is_deterministic(tmp_path):
         "vertex_head"] == "mlp"
     assert set(payload["params"]) == set(payload["mu"]) == set(
         flax_param_shapes(cfg.model))
-    assert payload["ema"] is None
+    assert "ema" not in payload and not os.path.exists(
+        tmp_path / "step_3" / "ema.npz")
     served = apply_checkpoint_model_config(load_config(None), meta)
     assert served.model.vertex_head == "mlp"
     assert served.model.encoder_hidden_dims == (32, 64)
@@ -235,7 +236,9 @@ def test_checkpoint_resume_is_deterministic(tmp_path):
 
 def test_epoch_mode_names_checkpoints_by_step_and_keeps_ema(tmp_path):
     """Two batches an epoch: the checkpoint after epoch 2 is step_4 with
-    epoch 2 in its metadata; the EMA is saved and restored."""
+    epoch 2 in its metadata.  As in the JAX package, it holds no EMA, and
+    a restore restarts the EMA from the restored params (the trained
+    run's EMA had moved away from them)."""
     cfg = _train_cfg(tmp_path, "train.num_epochs=3",
                      "train.checkpoint_every=2",
                      "train.overfit_one_batch=false", "train.ema_decay=0.9")
@@ -244,14 +247,18 @@ def test_epoch_mode_names_checkpoints_by_step_and_keeps_ema(tmp_path):
     assert state.step == 6 and latest_step(str(tmp_path)) == 4
     payload, meta = load_checkpoint(str(tmp_path))
     assert (meta["step"], meta["epoch"]) == (4, 2)
+    assert sorted(os.listdir(tmp_path / "step_4")) == [
+        "config.json", "opt_state.npz", "params.npz"]
     fresh = create_train_state(cfg, init_model(cfg, "cpu"))
     fresh, start = restore_train_state(fresh, str(tmp_path))
     assert (start, fresh.step) == (2, 4)
     ema = state_dict_to_flax(fresh.ema_params, cfg.model)
-    for k, v in payload["ema"].items():
+    for k, v in payload["params"].items():
         np.testing.assert_array_equal(ema[k], v, err_msg=k)
-    assert any(not np.array_equal(payload["ema"][k], payload["params"][k])
-               for k in payload["ema"])
+    trained_ema = state_dict_to_flax(state.ema_params, cfg.model)
+    assert any(not np.array_equal(trained_ema[k], v)
+               for k, v in state_dict_to_flax(state.params,
+                                              cfg.model).items())
 
 
 def test_init_from_warm_starts_params_only(tmp_path):
@@ -318,3 +325,65 @@ def test_mlp_checkpoint_serves(tmp_path):
         b = trained.model.eval()(torch.from_numpy(x))
     for key in ("vertices", "existence_probabilities", "edge_probs"):
         np.testing.assert_array_equal(a[key].numpy(), b[key].numpy())
+
+
+def test_resume_restarts_the_ema_as_the_jax_package_does(tmp_path):
+    """A 2-epoch run (checkpoint after epoch 1), resumed by each package's
+    rule from the same checkpoint: the JAX `main.py --resume` restores
+    params and Adam state and re-seeds the EMA from the restored params
+    (main.py:155-159); the port's `restore_train_state` does the same.
+    After the first resumed step both EMAs are d * restored + (1 - d) *
+    updated params, and they agree within the train tests' bound of
+    2 * lr (tests/test_torch_train.py)."""
+    from wireframe_tpu.train.state import create_train_state as jax_state
+    from wireframe_tpu.train.step import make_train_step as jax_step
+    from wireframe_tpu_torch.train.step import make_train_step
+
+    extra = ["train.num_epochs=2", "train.checkpoint_every=1",
+             "train.ema_decay=0.9", "train.batch_size=2",
+             "model.attn_dropout=0", "model.edge_dropout=0",
+             "train.device_augment=false"]
+    cfg = _train_cfg(tmp_path, *extra)
+    batch = make_box_building_batch(cfg, 2, seed=0)
+    train_model(cfg, [batch], device="cpu")
+    payload, _ = load_checkpoint(str(tmp_path), step=1)
+    d, lr = cfg.train.ema_decay, cfg.train.learning_rate
+
+    state = create_train_state(cfg, init_model(cfg, "cpu", seed=5))
+    state, start = restore_train_state(state, str(tmp_path), step=1)
+    assert (start, state.step) == (1, 1)
+    restored = state_dict_to_flax(state.params, cfg.model)
+    for k, v in state_dict_to_flax(state.ema_params, cfg.model).items():
+        np.testing.assert_array_equal(v, restored[k], err_msg=k)
+    state, _ = make_train_step(cfg)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()},
+        torch.Generator().manual_seed(0))
+    got_p = state_dict_to_flax(state.params, cfg.model)
+    got_e = state_dict_to_flax(state.ema_params, cfg.model)
+
+    jcfg = jax_load_config(PARITY, list(SMALL) + [
+        "model.compute_dtype=float32", f"train.checkpoint_dir={tmp_path}",
+        *extra])
+    jstate = jax_state(jcfg, jax.random.PRNGKey(0), (2, 64, 8))
+    opt = list(jstate.opt_state)
+    opt[2] = opt[2]._replace(count=jnp.asarray(payload["count"], jnp.int32),
+                             mu=_nested(payload["mu"]),
+                             nu=_nested(payload["nu"]))
+    params = _nested(payload["params"])
+    jstate = jstate.replace(step=jnp.asarray(payload["count"]),
+                            params=params, opt_state=tuple(opt),
+                            ema_params=jax.tree_util.tree_map(jnp.array,
+                                                              params))
+    jstate, _ = jax.jit(jax_step(jcfg))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(0))
+    want_p = flatten_params(jax.tree_util.tree_map(np.asarray,
+                                                   jstate.params))
+    want_e = flatten_params(jax.tree_util.tree_map(np.asarray,
+                                                   jstate.ema_params))
+    for k, v in payload["params"].items():
+        for p, e in ((got_p[k], got_e[k]), (want_p[k], want_e[k])):
+            np.testing.assert_allclose(e, d * v + (1 - d) * p, rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(got_e[k], want_e[k], rtol=0,
+                                   atol=2 * lr + 1e-6, err_msg=k)

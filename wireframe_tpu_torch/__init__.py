@@ -2,7 +2,9 @@
 
 A second package beside the JAX reference `wireframe_tpu/`, with the same
 module layout and names.  It imports torch and numpy, never jax, flax or
-the JAX package.  This slice serves the shipped recipe
-(`configs/recommended.yaml`) end to end; the encoder's fused kernel K1 is
-a hand-written CUDA kernel (`csrc/fused_encoder.cu`).
+the JAX package.  It trains, evaluates and serves the shipped recipe
+(`configs/recommended.yaml`) and the reference-parity model
+(`configs/default.yaml`) from a Building3D corpus (`main.py`,
+`evaluate.py`, `test.py`, `serve.py`), with the JAX package's five
+Pallas kernels as hand-written CUDA kernels for Hopper (`csrc/`).
 """

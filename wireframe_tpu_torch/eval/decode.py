@@ -1,7 +1,7 @@
 """Host-side decode of one sample's raw model outputs into a wireframe.
 
-Port of `decode_predictions` (wireframe_tpu/eval/evaluator.py:39-62) and
-`edge_endpoint_array` (wireframe_tpu/data/building3d.py:47-57).
+Port of `decode_predictions` (wireframe_tpu/eval/evaluator.py:39-62), and
+`decode_wireframe`, the emitted wireframe of `test.py` / `serve.py`.
 """
 
 from __future__ import annotations
@@ -10,20 +10,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from wireframe_tpu_torch.data.building3d import edge_endpoint_array
 from wireframe_tpu_torch.ops.pairs import pairs_from_mask, pairs_from_slot_mask
-
-
-def edge_endpoint_array(vertices: np.ndarray,
-                        edges: np.ndarray) -> np.ndarray:
-    """(n_edges, 2, 3) endpoint coords, per-edge sorted by DESCENDING z.
-
-    Matches datasets/building3d.py:149-152 / evaluate.py:89-99.
-    """
-    if len(edges) == 0:
-        return np.empty((0, 2, 3), dtype=np.float64)
-    ev = np.stack((vertices[edges[:, 0]], vertices[edges[:, 1]]), axis=1)
-    order = np.argsort(-ev[:, :, 2], axis=1)
-    return np.take_along_axis(ev, order[:, :, None], axis=1)
 
 
 def decode_predictions(pred_vertices: np.ndarray, edge_probs: np.ndarray,
@@ -50,3 +38,26 @@ def decode_predictions(pred_vertices: np.ndarray, edge_probs: np.ndarray,
         "edges": pd_edges,
         "edges_vertices": pd_edges_vertices,
     }
+
+
+def decode_wireframe(cfg, verts: np.ndarray, probs: np.ndarray, count: int,
+                     existence: np.ndarray):
+    """The wireframe a sample's raw predictions emit, in the model's
+    normalized frame: (vertices (C, 3), edges (K, 2) into them).  In the
+    existence slot-mask mode the live slots, compacted, with the edges
+    re-indexed into them; in the prefix mode the first `count` slots and
+    the edges among them."""
+    v = cfg.model.max_vertices
+    if cfg.model.slot_mask_mode == "existence":
+        live = existence > cfg.eval.vertex_existence_thresh
+        dec = decode_predictions(verts, probs, count, v,
+                                 cfg.eval.edge_confidence_thresh,
+                                 live_mask=live)
+        live_idx = np.nonzero(live)[0]
+        remap = -np.ones(v, dtype=np.int64)
+        remap[live_idx] = np.arange(len(live_idx))
+        return dec["vertices"][live_idx], remap[dec["edges"]]
+    dec = decode_predictions(verts, probs, count, v,
+                             cfg.eval.edge_confidence_thresh)
+    return (dec["vertices"][:count],
+            dec["edges"][(dec["edges"] < count).all(axis=1)])

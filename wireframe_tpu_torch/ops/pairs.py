@@ -16,6 +16,10 @@ import numpy as np
 import torch
 
 
+def num_pairs(v: int) -> int:
+    return v * (v - 1) // 2
+
+
 @functools.lru_cache(maxsize=None)
 def triu_pairs_np(v: int) -> np.ndarray:
     """(E, 2) int32 pairs (i, j), i<j, lexicographic. E = v*(v-1)/2."""
@@ -44,6 +48,25 @@ def pair_slot(i, j, v: int):
     i = np.asarray(i, np.int32)
     j = np.asarray(j, np.int32)
     return i * v - (i * (i + 1)) // 2 + (j - i - 1)
+
+
+def edge_labels_from_edges(edges: np.ndarray, v: int) -> np.ndarray:
+    """(E,) float32 binary labels on the global pair axis from GT edges.
+
+    `edges` is (n, 2) int with 0-based vertex ids (any order per row);
+    self-loops and ids outside [0, v) are dropped.
+    """
+    labels = np.zeros(num_pairs(v), dtype=np.float32)
+    if len(edges) == 0:
+        return labels
+    e = np.asarray(edges, dtype=np.int64)
+    lo = np.minimum(e[:, 0], e[:, 1])
+    hi = np.maximum(e[:, 0], e[:, 1])
+    keep = (lo >= 0) & (hi < v) & (lo != hi)
+    lo, hi = lo[keep], hi[keep]
+    slots = lo * v - (lo * (lo + 1)) // 2 + (hi - lo - 1)
+    labels[slots] = 1.0
+    return labels
 
 
 def pairs_from_mask(probs: np.ndarray, counts: int, v: int,

@@ -30,17 +30,17 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from wireframe_tpu_torch.bridge import load_port_checkpoint, params_from_flax
+from wireframe_tpu_torch.bridge import load_port_checkpoint
 from wireframe_tpu_torch.config import apply_saved_model_config, load_config
 from wireframe_tpu_torch.data.bucketing import (
     choose_bucket,
     pad_or_sample,
     z_sort_rows,
 )
-from wireframe_tpu_torch.eval.decode import decode_predictions
+from wireframe_tpu_torch.eval.decode import decode_wireframe
+from wireframe_tpu_torch.eval.evaluator import build_model
 from wireframe_tpu_torch.io import save_wireframe
 from wireframe_tpu_torch.io.xyz import read_xyz, select_features
-from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
 from wireframe_tpu_torch.utils.platform import resolve_device
 
 
@@ -68,9 +68,7 @@ class WireframePredictor:
         self.cfg = cfg
         self.batch_size = int(serve_batch_size or cfg.eval.batch_size)
         self.buckets = tuple(sorted(cfg.data.point_buckets))
-        model = PointCloudToWireframe(cfg.model)
-        model.load_state_dict(params_from_flax(params), strict=True)
-        self.model = model.to(self.device).eval()
+        self.model = build_model(cfg, params, self.device)
 
     def _forward(self, x: np.ndarray) -> Dict[str, np.ndarray]:
         with torch.inference_mode():
@@ -153,7 +151,6 @@ class WireframePredictor:
         Returns per-cloud dicts: vertices (C, 3) float64 world coords,
         edges (E, 2) int64 into vertices, num_vertices, num_edges.
         """
-        v = self.cfg.model.max_vertices
         prep = [self._preprocess(c) for c in clouds]
         results: List[Optional[Dict]] = [None] * len(prep)
         plan = self.batch_plan([p["pc"].shape[0] for p in prep])
@@ -165,7 +162,7 @@ class WireframePredictor:
                     results[i] = self._decode_one(
                         preds["vertices"][j], preds["edge_probs"][j],
                         int(preds["actual_vertex_counts"][j]),
-                        preds["existence_probabilities"][j], prep[i], v)
+                        preds["existence_probabilities"][j], prep[i])
         return results  # type: ignore[return-value]
 
     def _cloud_rng(self, pc: np.ndarray) -> np.random.Generator:
@@ -175,24 +172,9 @@ class WireframePredictor:
         return np.random.default_rng(
             np.random.SeedSequence([self.cfg.data.seed, digest]))
 
-    def _decode_one(self, verts, probs, count, existence, prep, v) -> Dict:
-        cfg = self.cfg
-        if cfg.model.slot_mask_mode == "existence":
-            live = existence > cfg.eval.vertex_existence_thresh
-            dec = decode_predictions(verts, probs, count, v,
-                                     cfg.eval.edge_confidence_thresh,
-                                     live_mask=live)
-            live_idx = np.nonzero(live)[0]
-            remap = -np.ones(v, dtype=np.int64)
-            remap[live_idx] = np.arange(len(live_idx))
-            out_verts = dec["vertices"][live_idx]
-            edges = remap[dec["edges"]]
-        else:
-            dec = decode_predictions(verts, probs, count, v,
-                                     cfg.eval.edge_confidence_thresh)
-            out_verts = dec["vertices"][:count]
-            edges = dec["edges"][(dec["edges"] < count).all(axis=1)] \
-                if len(dec["edges"]) else dec["edges"]
+    def _decode_one(self, verts, probs, count, existence, prep) -> Dict:
+        out_verts, edges = decode_wireframe(self.cfg, verts, probs, count,
+                                            existence)
         out_verts = (np.asarray(out_verts, np.float64)
                      * prep["max_distance"] + prep["centroid"])
         return {

@@ -9,13 +9,17 @@ D, `save_checkpoint` writes
                                that `serve.WireframePredictor` serves;
     D/step_<N>/opt_state.npz   Adam's moments (mu/<path>, nu/<path>, in
                                the params' layout) and its count;
-    D/step_<N>/ema.npz         the EMA params, when the run keeps one;
     D/step_<N>.meta.json       step, epoch, max_vertices, input_dim and
                                the config, as the JAX package writes it.
 
 N is the OPTIMIZER step (monotonic across mid-run and final saves, so
 `latest_step` orders them); `epoch`, the completed-epoch count, is the
 resume point and differs from N whenever an epoch has several batches.
+
+A checkpoint holds what the JAX package's holds: no EMA.  A restore
+re-seeds the EMA from the restored params, as the JAX `main.py --resume`
+does; the EMA weights of a finished run are kept as a params-only
+checkpoint (`save_params_checkpoint`, no opt_state.npz) under `D/ema`.
 """
 
 from __future__ import annotations
@@ -55,28 +59,46 @@ def _load_npz(path: str) -> Optional[Dict[str, np.ndarray]]:
         return {k: z[k] for k in z.files}
 
 
-def save_checkpoint(directory: str, state: TrainState, cfg: Config,
-                    epoch: Optional[int] = None) -> str:
-    """Write `directory/step_<state.step>`; returns its path."""
+def _write_checkpoint(directory: str, step: int,
+                      params: Dict[str, torch.Tensor], cfg: Config,
+                      epoch: Optional[int],
+                      opt: Optional[Dict[str, np.ndarray]] = None) -> str:
     directory = os.path.abspath(directory)
-    path = os.path.join(directory, f"step_{state.step}")
+    path = os.path.join(directory, f"step_{step}")
     m = cfg.model
-    save_port_checkpoint(path, state_dict_to_flax(state.params, m), cfg)
-    opt = {"count": np.asarray(state.step, np.int64)}
-    for name, moments in (("mu", state.mu), ("nu", state.nu)):
-        for k, v in state_dict_to_flax(moments, m).items():
-            opt[f"{name}/{k}"] = v
-    _save_npz(os.path.join(path, "opt_state.npz"), opt)
-    if state.ema_params is not None:
-        _save_npz(os.path.join(path, "ema.npz"),
-                  state_dict_to_flax(state.ema_params, m))
-    meta = {"step": int(state.step), "max_vertices": m.max_vertices,
+    save_port_checkpoint(path, state_dict_to_flax(params, m), cfg)
+    if opt is not None:
+        _save_npz(os.path.join(path, "opt_state.npz"), opt)
+    meta = {"step": int(step), "max_vertices": m.max_vertices,
             "input_dim": m.input_dim, "config": config_to_dict(cfg)}
     if epoch is not None:
         meta["epoch"] = int(epoch)
+    # The metadata last: a step directory without it is incomplete.
     with open(path + ".meta.json", "w") as f:
         json.dump(meta, f, indent=2)
     return path
+
+
+def save_checkpoint(directory: str, state: TrainState, cfg: Config,
+                    epoch: Optional[int] = None) -> str:
+    """Write `directory/step_<state.step>` (params and Adam state); returns
+    its path."""
+    opt = {"count": np.asarray(state.step, np.int64)}
+    for name, moments in (("mu", state.mu), ("nu", state.nu)):
+        for k, v in state_dict_to_flax(moments, cfg.model).items():
+            opt[f"{name}/{k}"] = v
+    return _write_checkpoint(directory, state.step, state.params, cfg, epoch,
+                             opt)
+
+
+def save_params_checkpoint(directory: str, step: int,
+                           params: Dict[str, torch.Tensor], cfg: Config,
+                           epoch: Optional[int] = None) -> str:
+    """Write `params` (by parameter name) as a params-only checkpoint
+    `directory/step_<step>`, without optimizer state: what the JAX
+    package's `save_checkpoint(..., opt_state=None)` writes, and what
+    `evaluate` reads unchanged.  Returns its path."""
+    return _write_checkpoint(directory, step, params, cfg, epoch)
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -96,8 +118,8 @@ def latest_step(directory: str) -> Optional[int]:
 def load_checkpoint(directory: str, step: Optional[int] = None
                     ) -> Tuple[dict, dict]:
     """Returns (payload, metadata) of `step` (default: the latest).
-    payload: params (flat flax paths), mu / nu (the same, or None), count
-    (int or None), ema (flat flax paths or None)."""
+    payload: params (flat flax paths), mu / nu (the same, or None) and
+    count (int or None); None for a params-only checkpoint."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -105,8 +127,7 @@ def load_checkpoint(directory: str, step: Optional[int] = None
     path = os.path.join(os.path.abspath(directory), f"step_{step}")
     params, _ = load_port_checkpoint(path)
     opt = _load_npz(os.path.join(path, "opt_state.npz"))
-    payload = {"params": params, "mu": None, "nu": None, "count": None,
-               "ema": _load_npz(os.path.join(path, "ema.npz"))}
+    payload = {"params": params, "mu": None, "nu": None, "count": None}
     if opt is not None:
         payload["count"] = int(opt.pop("count"))
         for name in ("mu", "nu"):
@@ -138,10 +159,12 @@ def _named(flat: Dict[str, np.ndarray], like: Dict[str, torch.Tensor],
 
 def restore_train_state(state: TrainState, directory: str,
                         step: Optional[int] = None) -> Tuple[TrainState, int]:
-    """Load a checkpoint's params, Adam moments and count, and EMA into
-    `state` (a fresh state of the same architecture, on its device), in
-    place.  Returns (state, start_epoch): the completed epochs, or the
-    step for a checkpoint without an epoch (the overfit regime)."""
+    """Load a checkpoint's params, Adam moments and count into `state` (a
+    fresh state of the same architecture, on its device), in place; the
+    EMA, when the run keeps one, restarts from the restored params (the
+    JAX package does not checkpoint the EMA trajectory).  Returns (state,
+    start_epoch): the completed epochs, or the step for a checkpoint
+    without an epoch (the overfit regime)."""
     payload, meta = load_checkpoint(directory, step)
     params = state.params
     with torch.no_grad():
@@ -154,9 +177,7 @@ def restore_train_state(state: TrainState, directory: str,
     else:
         state.step = int(meta.get("step", 0))
     if state.ema_params is not None:
-        # A checkpoint without an EMA re-seeds it from the params.
-        ema = payload["ema"] or payload["params"]
-        state.ema_params = _named(ema, params, "EMA")
+        state.ema_params = {k: p.detach().clone() for k, p in params.items()}
     return state, int(meta.get("epoch", meta.get("step", 0)))
 
 

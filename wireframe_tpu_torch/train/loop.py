@@ -11,7 +11,7 @@ checkpoint under `<checkpoint_dir>/best`.  The logged learning rate is
 the one the logged step applied.
 
 Every `checkpoint_every` epochs (before the last) the loop writes a
-checkpoint (`train.checkpoint`: params, Adam state, EMA, step and epoch)
+checkpoint (`train.checkpoint`: params, Adam state, step and epoch)
 under `checkpoint_dir`; `state=` + `start_epoch=` resume from one.  The
 augmentation / dropout generator is seeded from (train.seed,
 start_epoch), as the JAX loop folds start_epoch into its key, so two
@@ -91,11 +91,13 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
     """
     dev = resolve_device(device)
     try:
-        steps_per_epoch = 1 if cfg.train.overfit_one_batch else len(loader)
+        n_batches = len(loader)
     except TypeError:        # a loader without a length
-        steps_per_epoch = 1
-    if steps_per_epoch == 0:
+        n_batches = None
+    if n_batches == 0:
         raise ValueError("loader yields no batches")
+    steps_per_epoch = (1 if cfg.train.overfit_one_batch or n_batches is None
+                       else n_batches)
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(epoch_seed(cfg.train.seed, start_epoch))

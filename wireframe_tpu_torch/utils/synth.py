@@ -19,11 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from wireframe_tpu_torch.data.bucketing import z_sort_rows
-from wireframe_tpu_torch.ops.pairs import pair_slot
-
-
-def num_pairs(v: int) -> int:
-    return v * (v - 1) // 2
+from wireframe_tpu_torch.ops.pairs import num_pairs, pair_slot
 
 
 def make_random_batch(cfg, batch_size: int, *,
