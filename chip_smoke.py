@@ -17,7 +17,8 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 the element behind K1's largest error, with the plain
                 bf16 and the f32 chain's values;
   4. K4       — the lockstep JV kernel against its plain version, exactly,
-                at (8, 40, 40), (6, 40, 64) and (64, 40, 128): random
+                at (8, 40, 40), (6, 40, 64), (64, 40, 128) and the
+                bench's (128, 40, 40) and (128, 64, 64): random
                 costs, forced ties, -0.0 entries, an unclamped NaN row,
                 counts 0 and R; assignment cost against scipy where the
                 costs are finite; times and ns per scan step;
@@ -28,14 +29,15 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 (a yardstick only this script calls);
   6. K2 / K3  — the stash chain forward and backward against their plain
                 versions at the recipe's training shape (8, 2560), full
-                width, plus small ragged shapes in all three flavours and
-                a ragged shape of multi-CTA clusters; times, bounds and a
+                width, and the bench's (128, 2560), plus small ragged
+                shapes in all three flavours and a ragged shape of
+                multi-CTA clusters; times, bounds and a
                 profiler breakdown into fused GEMM + LayerNorm launches,
                 plain GEMMs and the rest;
   7. K5       — the remat chain (non-stash forward, recomputing backward)
                 against its plain versions in all three flavours, at the
-                parity (3, 2560) features shape, the recipe's (8, 2560)
-                slim shape and small ragged shapes; its forward
+                parity (3, 2560) features shape, the bench's (128, 2560),
+                the recipe's (8, 2560) slim shape and small ragged shapes; its forward
                 array_equal to K2's; times and bounds;
   8. training — the full-width recipe train step (train_model, overfit
                 one synthetic batch of 8 box buildings, 20 steps): finite
@@ -76,9 +78,24 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 counters equal to device Hausdorff's, finite metrics; the
                 pipelined step's kept pairs in pair-table order); `test`
                 writes 8 world-frame .obj files; ms per step, clouds/s per
-                path and the host share of a pipelined chunk.
-Then a `kernels` JSON line (launches on the main paths and on the corpus
-path) and, last, the `ok` JSON line.
+                path and the host share of a pipelined chunk;
+ 12. bench    — `wireframe_tpu_torch.bench` in this process at its default
+                shapes (B=128 x 2560, bf16) with 10 iterations: the recipe
+                forward with the parity pass, buckets 2048-16384 and the
+                sweep 2048-8192 (K1 once per forward call, 0 < mfu < 1, no
+                failed sweep point), the recipe throughput alone at 30
+                iterations before and after it (the spread, beside the
+                card's clocks and power), one profiled window (the device
+                busy share),
+                float32 refused, train mode for the recipe (K2, K3, K4
+                once per step) and the parity model (K5 forward and
+                backward, K4); then the tools: the latency grid, the step
+                profiler, the op trace (its groups sum to the profiler's
+                device total within 0.1%) and the cold-start report in a
+                process of its own with a fresh build directory, removed
+                when it ends.
+Then a `kernels` JSON line (launches on the main paths, on the corpus
+path and on the bench path) and, last, the `ok` JSON line.
 
 Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
 """
@@ -135,14 +152,6 @@ RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PARITY = os.path.join(os.path.dirname(RECIPE), "default.yaml")
 # The reference-parity model as QUALITY.md's bf16 ablation runs it.
 PARITY_SET = ["model.use_pallas_encoder=true", "model.compute_dtype=bfloat16"]
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def recipe_encoder_params(torch, rng, device, input_dim=8,
@@ -246,6 +255,8 @@ K1_PARTS = (("fused stage GEMM + LayerNorm", "wgmma_chain_kernel<0, 1"),
 def k1_breakdown(torch, card, label, fn):
     """Device time of one K1 call by part (torch.profiler device rows)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from wireframe_tpu_torch.utils.profiling import device_rows
 
     fn()
     torch.cuda.synchronize()
@@ -498,21 +509,6 @@ def serving_phase(torch, dev, card, work, overrides=(),
     return launches, batches
 
 
-def device_rows(prof):
-    """(ms, count, name) of every kernel the profile saw.  Only the
-    device-side events: an operator's row also carries the device time of
-    the kernels it launched, so summing both would count them twice."""
-    from torch.autograd import DeviceType
-
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0 and e.device_type == DeviceType.CUDA:
-            rows.append((us / 1e3, e.count, e.key))
-    return rows
-
-
 # K1's device kernels in a served batch (the chain kernels do not run
 # there): the wgmma GEMM's stages and projection, the prep and finalize.
 K1_KERNELS = ("wgmma_chain_kernel", "prep_x_kernel", "k1_finalize_kernel")
@@ -522,6 +518,8 @@ def profile_batch(torch, predictor, chunk, bucket, card):
     """Where one served batch's time goes: device time by kernel from
     torch.profiler, against the host wall clock of the same predict()."""
     from torch.profiler import ProfilerActivity, profile
+
+    from wireframe_tpu_torch.utils.profiling import device_rows
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -554,7 +552,8 @@ def k4_cases(rng):
     one-hot reads of the TPU body spread it over the row's columns);
     counts 0 and R."""
     cases = []
-    for b, r, c in ((8, 40, 40), (6, 40, 64), (64, 40, 128)):
+    for b, r, c in ((8, 40, 40), (6, 40, 64), (64, 40, 128), (128, 40, 40),
+                    (128, 64, 64)):
         counts = rng.integers(4, 39, size=b).astype(np.int32)
         cases.append((f"random ({b}, {r}, {c})",
                       (rng.random((b, r, c)) * 10).astype(np.float32),
@@ -734,7 +733,10 @@ CHAIN_SHAPES = (
     # Multi-CTA clusters with a partial last CTA (600 = 2.3 x 256, 1100 =
     # 4.3 x 256), a projection of two partial tiles and M = 656, not a
     # multiple of the 128-row tile.
-    ("ragged cluster", 2, 328, (600, 1100), 300, 4, True))
+    ("ragged cluster", 2, 328, (600, 1100), 300, 4, True),
+    # The bench's train step: 81920 kv windows, more than a grid's y
+    # dimension holds (the window pool puts them on x).
+    ("bench train", 128, 2560, (512, 1024, 2048, 1024), 512, 4, False))
 
 CHAIN_FUSED = ("wgmma_chain_kernel<0, 1", "wgmma_chain_kernel<1, 2")
 
@@ -745,6 +747,8 @@ def chain_breakdown(torch, card, label, fn):
     (projection, dx, dW) and the rest (input prep, seed, column sums,
     window pool)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from wireframe_tpu_torch.utils.profiling import device_rows
 
     fn()
     torch.cuda.synchronize()
@@ -1045,7 +1049,8 @@ K5_SHAPES = (
     ("ragged kv", 2, 200, (40, 72), 36, 4, True),
     ("ragged features", 2, 256, (40, 72), 36, 0, True),
     ("ragged slim", 2, 200, (40, 72), 36, 4, False),
-    ("ragged cluster", 2, 328, (600, 1100), 300, 4, True))
+    ("ragged cluster", 2, 328, (600, 1100), 300, 4, True),
+    ("bench parity features", 128, 2560, FULL, 512, 0, True))
 
 
 def k5_phase(torch, dev, card, shapes=K5_SHAPES):
@@ -1678,6 +1683,8 @@ def profile_train_step(torch, step, state, batch, gen, card, kernels,
     torch.profiler against the host wall clock of the same step."""
     from torch.profiler import ProfilerActivity, profile
 
+    from wireframe_tpu_torch.utils.profiling import device_rows
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1966,6 +1973,8 @@ def corpus_phase(torch, dev, card, work):
           f"pair-table order (stable sort on the card)", flush=True)
     from torch.profiler import ProfilerActivity, profile
 
+    from wireframe_tpu_torch.utils.profiling import device_rows
+
     evaluate_corpus_pipelined(cfg_e, payload["params"], test_ds, batch=8,
                               device=dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2006,6 +2015,218 @@ def corpus_phase(torch, dev, card, work):
             "K4": train_counts["K4"], "K5 fwd": 0, "K5 bwd": 0}
 
 
+# ---------------------------------------------------------------------------
+# Bench: the port's measuring instruments at the bench's default shapes
+# ---------------------------------------------------------------------------
+
+# The bench's defaults (B=128 x 2560, bf16, the recipe) with fewer
+# iterations than its 30 / 20.
+BENCH_ENV = {"BENCH_ITERS": "10", "BENCH_LAT_ITERS": "10"}
+BENCH_BUCKETS = "2048,4096,8192,16384"
+BENCH_SWEEP = "2048,4096,8192"
+# trace_ops' groups against the profiler's own device total.
+TRACE_SUM_RTOL = 1e-3
+
+
+def _tool(main_fn, argv):
+    """Run a tool's main(argv) in this process; echo its stdout and
+    return its last line, the tool's JSON result."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    out = buf.getvalue().rstrip()
+    print(out, flush=True)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__} {argv} returned {rc}")
+    return json.loads(out.splitlines()[-1])
+
+
+def _bench(torch, dev, card, env, want):
+    """One bench run with counts set to 0 just before it and read just
+    after; every launch count must equal want(result)."""
+    from wireframe_tpu_torch import bench
+
+    reset_launches()
+    t0 = time.perf_counter()
+    result = bench.run(env, device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(json.dumps(result), flush=True)
+    expected = want(result)
+    print(f"bench {env}: {time.perf_counter() - t0:.1f} s; launches "
+          f"{counts}, expected {expected} [{card}]", flush=True)
+    if counts != expected:
+        raise AssertionError(f"bench launches {counts} != {expected}")
+    return result, counts
+
+
+def bench_phase(torch, dev, card, work):
+    """The bench (`python -m wireframe_tpu_torch.bench`) in this process:
+    the recipe forward with the parity pass, buckets and sweep, between
+    two readings of the recipe's throughput alone for the spread; one
+    profiled window; train mode for the recipe and
+    the parity model; then the latency grid, the step profiler, the op
+    trace and the cold-start report.  Returns {kernel: launches}."""
+    from wireframe_tpu_torch import bench
+    from wireframe_tpu_torch.tools import (
+        bench_latency,
+        profile_train_step,
+        trace_ops,
+    )
+
+    none = {k: 0 for k in _counters()}
+
+    def forward_launches(r):
+        return {**none, "K1": r["forward_calls"]}
+
+    # The spread: the recipe's throughput alone at the bench's 30
+    # iterations, before and after the full forward run, each with the
+    # card's clocks and power over its window; the three readings tell a
+    # change that follows position from one that follows warm-up.
+    spread_env = {**BENCH_ENV, "BENCH_ITERS": "30",
+                  "BENCH_PARITY_SECONDARY": "0"}
+    before, counts = _bench(torch, dev, card, spread_env, forward_launches)
+    launches = dict(counts)
+
+    # The recipe forward at B=128 x 2560, with the parity pass, the point
+    # buckets and the sweep: K1 once per forward call.
+    fwd, counts = _bench(torch, dev, card, {
+        **BENCH_ENV, "BENCH_BUCKETS": BENCH_BUCKETS,
+        "BENCH_SWEEP": BENCH_SWEEP}, forward_launches)
+    launches["K1"] += counts["K1"]
+    mfus = {"recipe": fwd["mfu"], "parity": fwd["parity_arch"]["mfu"],
+            **{f"sweep {k}": v.get("mfu") for k, v in fwd["sweep"].items()}}
+    lat = fwd["latency_ms"]
+    print(f"bench recipe B={fwd['batch']} x {fwd['points']}: "
+          f"{fwd['value']:.2f} clouds/s, mean_batch_ms "
+          f"{fwd['mean_batch_ms']:.3f}, latency p50 {lat['p50']:.3f} p90 "
+          f"{lat['p90']:.3f} p99 {lat['p99']:.3f} ms ({lat['iters']} trips); "
+          f"parity {fwd['parity_arch']['value']:.2f} clouds/s "
+          f"({fwd['parity_arch']['mean_batch_ms']:.3f} ms); mfu {mfus} "
+          f"[{card}]", flush=True)
+    for bucket, row in fwd["buckets"].items():
+        print(f"bench bucket {bucket} (batch {row['batch']}): p50 "
+              f"{row['p50_ms']:.3f} ms, p99 {row['p99_ms']:.3f} ms, "
+              f"{row['round_trip_clouds_per_sec']:.1f} round-trip clouds/s "
+              f"[{card}]", flush=True)
+    for n_pts, row in fwd["sweep"].items():
+        print(f"bench sweep {n_pts} points x {row.get('batch')}: {row} "
+              f"[{card}]", flush=True)
+    if any("error" in row for row in fwd["sweep"].values()):
+        raise AssertionError(f"a sweep point failed: {fwd['sweep']}")
+    if not all(m is not None and 0 < m < 1 for m in mfus.values()):
+        raise AssertionError(f"mfu outside (0, 1): {mfus}")
+
+    after, counts = _bench(torch, dev, card, spread_env, forward_launches)
+    launches["K1"] += counts["K1"]
+    for label, r, n in (("before", before, spread_env["BENCH_ITERS"]),
+                        ("full run", fwd, BENCH_ENV["BENCH_ITERS"]),
+                        ("after", after, spread_env["BENCH_ITERS"])):
+        c = r.get("card_samples", {})
+        print(f"bench recipe throughput {label} ({r['mean_batch_ms']:.3f} "
+              f"ms a batch over {n} iterations): {r['value']:.2f} "
+              f"clouds/s; SM MHz "
+              f"{c.get('clocks.sm')}, W {c.get('power.draw')}, C "
+              f"{c.get('temperature.gpu')} over {c.get('samples')} samples "
+              f"[min, mean, max] [{card}]", flush=True)
+    print(f"bench recipe throughput ratios: after / before "
+          f"{after['value'] / before['value']:.4f}, full run / before "
+          f"{fwd['value'] / before['value']:.4f} [{card}]", flush=True)
+
+    # One profiled chained window: the device's busy share.
+    trace_dir = os.path.join(work, "bench_trace")
+    prof, counts = _bench(torch, dev, card, {
+        **BENCH_ENV, "BENCH_PARITY_SECONDARY": "0", "BENCH_LAT_ITERS": "2",
+        "BENCH_PROFILE": trace_dir}, forward_launches)
+    launches["K1"] += counts["K1"]
+    totals, events = trace_ops.aggregate_device_events(trace_dir)
+    iters = int(BENCH_ENV["BENCH_ITERS"])
+    busy = sum(totals.values()) / 1e3 / iters
+    k1 = sum(us for name, us in totals.items() if trace_ops.classify(name)
+             in ("K1 (fused encoder)", "K2/K3/K5 (encoder chain)")) / 1e3
+    print(f"bench profiled window ({iters} chained batches, {events} device "
+          f"events): device busy {busy:.3f} ms per batch of which K1 "
+          f"{k1 / iters:.3f} ms; {busy / prof['mean_batch_ms'] * 100:.1f}% "
+          f"of the profiled mean_batch_ms {prof['mean_batch_ms']:.3f}, "
+          f"{busy / fwd['mean_batch_ms'] * 100:.1f}% of the unprofiled "
+          f"{fwd['mean_batch_ms']:.3f} [{card}]", flush=True)
+    if not busy > 0:
+        raise AssertionError("the profiled window shows no device time")
+
+    # f32 with the fused encoder raises on the card: no fallback.
+    try:
+        bench.run({"BENCH_DTYPE": "float32", "BENCH_BATCH": "2",
+                   "BENCH_POINTS": "2048", "BENCH_ITERS": "1",
+                   "BENCH_PARITY_SECONDARY": "0"}, device=dev)
+    except ValueError as exc:
+        print(f"bench BENCH_DTYPE=float32 raises: {exc}", flush=True)
+    else:
+        raise AssertionError("the bench ran float32 with the fused encoder")
+
+    # Train mode: the recipe (K2, K3, K4) and the parity model (K5, K4),
+    # each once per step.
+    for label, extra, kernels in (
+            ("recipe", {}, ("K2", "K3", "K4")),
+            ("parity", {"BENCH_CONFIG": "parity"},
+             ("K5 fwd", "K5 bwd", "K4"))):
+        tr, counts = _bench(
+            torch, dev, card, {**BENCH_ENV, "BENCH_TRAIN": "1", **extra},
+            lambda r: {**none, **{k: r["steps"] for k in kernels}})
+        for k in kernels:
+            launches[k] += counts[k]
+        print(f"bench train {label} B={tr['batch']} x {tr['points']}: "
+              f"{tr['value']:.2f} training clouds/s, {tr['mean_batch_ms']:.3f}"
+              f" ms/step, forward-FLOP mfu {tr['mfu']:.4f} [{card}]",
+              flush=True)
+
+    # The tools.
+    t0 = time.perf_counter()
+    grid = _tool(bench_latency.main, [
+        "--config", RECIPE, "--batches", "1,8", "--buckets", "2048,16384",
+        "--iters", "20", "--out", os.path.join(work, "latency.md"),
+        "--device", str(dev)])
+    print(f"bench_latency grid in {time.perf_counter() - t0:.1f} s: "
+          + "; ".join(f"{k} p50 {g['p50_ms']:.3f} p99 {g['p99_ms']:.3f} ms"
+                      for k, g in grid["grid"].items()) + f" [{card}]",
+          flush=True)
+    t0 = time.perf_counter()
+    _tool(profile_train_step.main, ["--device", str(dev)])
+    print(f"profile_train_step in {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    t0 = time.perf_counter()
+    ops = _tool(trace_ops.main, ["--batch", "64", "--steps", "6",
+                                 "--top", "25", "--device", str(dev)])
+    groups = ops["groups_ms"]
+    gap = abs(sum(groups.values()) - ops["profiler_device_ms"])
+    print(f"trace_ops in {time.perf_counter() - t0:.1f} s: groups sum "
+          f"{sum(groups.values()):.4f} ms/step against the profiler's "
+          f"{ops['profiler_device_ms']:.4f} (gap {gap:.2e}, limit "
+          f"{TRACE_SUM_RTOL} relative) [{card}]", flush=True)
+    if gap > TRACE_SUM_RTOL * ops["profiler_device_ms"] or not (
+            groups.get("K2/K3/K5 (encoder chain)", 0) > 0
+            and groups.get("K4 (lockstep JV)", 0) > 0):
+        raise AssertionError(f"trace_ops groups {groups}")
+
+    # The cold start, in a process of its own, building into its default
+    # fresh directory under build/cold/, which it removes when it ends.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wireframe_tpu_torch.tools.compile_report"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=400)
+    print(proc.stderr.rstrip(), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"compile_report failed: {proc.stdout[-2000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"compile_report in {time.perf_counter() - t0:.1f} s (process "
+          f"included): {json.dumps(report)} [{card}]", flush=True)
+    if os.path.exists(report["build_dir"]):
+        raise AssertionError(f"compile_report left {report['build_dir']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2018,6 +2239,8 @@ def main() -> int:
             return 2
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        from wireframe_tpu_torch.utils.platform import card_line
+
         card = card_line()
         kind = torch.cuda.get_device_name(0)
         print(card, flush=True)
@@ -2042,7 +2265,8 @@ def main() -> int:
 
         phase = "K1 kernel and times"
         k1_abs, timing = kernel_phase(
-            torch, dev, card, ((3, 2048), (3, 16384), (64, 2560)))
+            torch, dev, card, ((3, 2048), (3, 16384), (64, 2560),
+                               (128, 2560)))
 
         phase = "K4 kernel and times"
         k4 = k4_phase(torch, dev, card)
@@ -2080,6 +2304,12 @@ def main() -> int:
         phase = "corpus"
         corpus = corpus_phase(torch, dev, card, work)
 
+        phase = "bench"
+        t0 = time.perf_counter()
+        bench = bench_phase(torch, dev, card, work)
+        print(f"bench phase: {time.perf_counter() - t0:.1f} s [{card}]",
+              flush=True)
+
         b, n = 3, 16384
         ms, plain_ms, bound, bound_by = timing[(b, n)]
         src = "wireframe_tpu_torch/csrc/"
@@ -2088,6 +2318,7 @@ def main() -> int:
             "source": f"{src}fused_encoder.cu + {src}hopper_gemm.cuh",
             "replaces": "wireframe_tpu/ops/pallas_encoder.py:71",
             "launches": launches, "corpus_launches": corpus["K1"],
+            "bench_launches": bench["K1"],
             "max_abs_err": k1_abs,
             "shape": f"B={b} N={n} kv_pool=4", "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
@@ -2102,7 +2333,8 @@ def main() -> int:
             kernels.append({"name": name, "route": "cuda",
                             "source": src + source, "replaces": replaces,
                             "launches": train_launches[key],
-                            "corpus_launches": corpus[key], **fields,
+                            "corpus_launches": corpus[key],
+                            "bench_launches": bench[key], **fields,
                             "library_ms": None})
         for key, count, name, replaces in (
                 ("forward", "K5 fwd", "chain forward, remat (K5)",
@@ -2114,6 +2346,7 @@ def main() -> int:
                             "replaces": replaces,
                             "launches": parity_launches[count],
                             "corpus_launches": corpus[count],
+                            "bench_launches": bench[count],
                             **k5[key], "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:

@@ -50,6 +50,11 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 10
+    # The measuring instruments are covered too.
+    assert {os.path.join(ROOT, "wireframe_tpu_torch", p) for p in (
+        "bench.py", "utils/profiling.py", "utils/trees.py",
+        "tools/bench_latency.py", "tools/profile_train_step.py",
+        "tools/trace_ops.py", "tools/compile_report.py")} <= set(sources)
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                              & FORBIDDEN)
            for p in sources}
@@ -100,6 +105,19 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     # Asked for explicitly, the CPU serves.
     pred = serve.WireframePredictor(ckpt, device="cpu")
     assert pred.predict([np.random.default_rng(0).normal(size=(20, 8))])
+
+
+@pytest.mark.parametrize("tool", ["bench", "tools.bench_latency",
+                                  "tools.profile_train_step",
+                                  "tools.trace_ops", "tools.compile_report"])
+def test_measuring_tools_raise_without_cuda(no_cuda, tool, tmp_path):
+    import importlib
+
+    module = importlib.import_module(f"wireframe_tpu_torch.{tool}")
+    argv = ["--out", str(tmp_path / "lat.md")] if "latency" in tool else []
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.main(argv)
+    assert not (tmp_path / "lat.md").exists()
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda, capsys):

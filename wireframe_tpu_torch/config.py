@@ -20,7 +20,13 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Optional, Sequence, Tuple
+
+# The shipped recipe: the default model of the bench and the measuring
+# tools.
+RECIPE_YAML = (Path(__file__).resolve().parents[1] / "configs"
+               / "recommended.yaml")
 
 
 @dataclass

@@ -69,14 +69,16 @@ constexpr int POOL_THREADS = 128;
 
 // Masked window pool of the features F (B*N, C) over windows of p
 // consecutive rows (windows never straddle clouds: N % p == 0).
-// grid (ceil(C / POOL_THREADS), windows).
+// grid (windows, ceil(C / POOL_THREADS)): the windows go on x, whose
+// limit is 2^31 - 1 (y's is 65535, fewer than the 81920 windows of a
+// (128, 2560) batch at p = 4).
 __global__ void window_pool_kernel(const float* __restrict__ F,
                                    const uint8_t* __restrict__ valid,
                                    float* __restrict__ pooled,
                                    int* __restrict__ idx,
                                    float* __restrict__ sums, int C, int p) {
-    const int w = blockIdx.y;
-    const int c = blockIdx.x * POOL_THREADS + threadIdx.x;
+    const int w = blockIdx.x;
+    const int c = blockIdx.y * POOL_THREADS + threadIdx.x;
     if (c >= C) return;
     float pm = -INFINITY, s = 0.0f;
     int arg = 0;
@@ -214,7 +216,7 @@ int k3_gemm_ln_bwd(const void* A, int lda, const void* W, int ldw,
 int k2_window_pool(const float* F, const uint8_t* valid, float* pooled,
                    int* idx, float* sums, int windows, int C, int p,
                    cudaStream_t stream) {
-    window_pool_kernel<<<dim3((C + POOL_THREADS - 1) / POOL_THREADS, windows),
+    window_pool_kernel<<<dim3(windows, (C + POOL_THREADS - 1) / POOL_THREADS),
                          POOL_THREADS, 0, stream>>>(F, valid, pooled, idx,
                                                     sums, C, p);
     return (int)cudaGetLastError();

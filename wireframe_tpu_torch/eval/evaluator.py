@@ -3,9 +3,9 @@
 Port of `wireframe_tpu/eval/evaluator.py`: batched inference (the model's
 inference branch derives vertex counts from existence probabilities),
 edge thresholding at `edge_confidence_thresh`, z-descending edge endpoint
-construction, and streaming APCalculator accumulation.  The forward runs
-the model in `eval()` under `inference_mode`, as `serve.py` does, so the
-encoder's fused kernel K1 runs on the card.
+construction, and streaming APCalculator accumulation.  The forward is
+`train.step.make_forward_fn`'s (under `inference_mode`, as `serve.py`
+runs it), so the encoder's fused kernel K1 runs on the card.
 
 Reference parity notes:
 - ALL `max_vertices` predicted slots are passed as predicted corners
@@ -39,6 +39,9 @@ from wireframe_tpu_torch.eval.decode import decode_predictions
 from wireframe_tpu_torch.eval.distributed import batched_edge_distances
 from wireframe_tpu_torch.metrics.ap_calculator import APCalculator
 from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
+from wireframe_tpu_torch.train.step import (
+    make_forward_fn as train_forward_fn,
+)
 from wireframe_tpu_torch.utils.platform import resolve_device
 
 _OUTPUTS = ("vertices", "edge_probs", "actual_vertex_counts",
@@ -59,12 +62,12 @@ def make_forward_fn(cfg: Config, params, device=None
     forward (`_OUTPUTS`), run on `device` ("cuda" by default)."""
     dev = resolve_device(device)
     model = build_model(cfg, params, dev)
+    model_forward = train_forward_fn(cfg)
 
     def forward(clouds: np.ndarray) -> Dict[str, np.ndarray]:
-        with torch.inference_mode():
-            out = model(torch.from_numpy(np.ascontiguousarray(
-                clouds, np.float32)).to(dev))
-            return {k: out[k].cpu().numpy() for k in _OUTPUTS}
+        out = model_forward(model, torch.from_numpy(np.ascontiguousarray(
+            clouds, np.float32)).to(dev))
+        return {k: out[k].cpu().numpy() for k in _OUTPUTS}
 
     return forward
 

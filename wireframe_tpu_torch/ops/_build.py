@@ -6,9 +6,10 @@ package only, with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas=-v
 
-into `build/kernels/` at the repository root (listed in .gitignore);
-`-Xptxas=-v` only reports each kernel's registers and shared memory.  The
-library name carries a hash of the flags, the source and every `csrc/`
+into `build/kernels/` at the repository root (listed in .gitignore), or
+into the directory a caller names (`tools/compile_report.py` times a cold
+build into a fresh one); `-Xptxas=-v` only reports each kernel's
+registers and shared memory.  The library name carries a hash of the flags, the source and every `csrc/`
 header it includes (`#include "x.cuh"`, followed recursively), so an
 edited source or header is rebuilt and an unchanged one is loaded as it
 is.  The libraries have a plain C interface: no PyTorch headers, so a
@@ -24,8 +25,9 @@ import re
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -69,16 +71,18 @@ def _sources(name: str) -> List[Path]:
     return out
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, build_dir: Optional[Path] = None) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return Path(build_dir or BUILD_DIR) / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, float, str]]:
-    """Compile every `csrc/<name>.cu` whose library does not exist yet,
-    one `nvcc` process per source, all started together.
+def build_all(names: Sequence[str], build_dir: Optional[Path] = None
+              ) -> Dict[str, Tuple[Path, float, str]]:
+    """Compile every `csrc/<name>.cu` whose library does not exist yet
+    in `build_dir` (default `BUILD_DIR`), one `nvcc` process per source,
+    all started together.
 
     Returns {name: (library path, build seconds (0 when cached), nvcc
     output)}.  Raises RuntimeError with nvcc's output when a compile fails.
@@ -86,21 +90,28 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, float, str]]:
     results: Dict[str, Tuple[Path, float, str]] = {}
     running = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, build_dir)
         if out.exists():
             results[name] = (out, 0.0, "")
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((name, out, tmp, cmd, proc, time.perf_counter()))
+
+    def finish(job):
+        # One thread per process: each build's seconds end when its own
+        # nvcc does, not when the ones started before it are read.
+        log, _ = job[4].communicate()
+        return job, log, time.perf_counter() - job[5]
+
+    with ThreadPoolExecutor(max_workers=max(1, len(running))) as pool:
+        finished = list(pool.map(finish, running))
     failures = []
-    for name, out, tmp, cmd, proc, t0 in running:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+    for (name, out, tmp, cmd, proc, _), log, seconds in finished:
         if proc.returncode != 0:
             os.unlink(tmp)
             failures.append(f"nvcc failed ({proc.returncode}) for {name}.cu:"
@@ -113,9 +124,11 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, float, str]]:
     return results
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built on first use."""
+def load(name: str, build_dir: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built into `build_dir`
+    (default `BUILD_DIR`) on first use.  A process loads each library
+    once: later calls return it whatever `build_dir` they name."""
     if name not in _loaded:
-        path, _, _ = build_all([name])[name]
+        path, _, _ = build_all([name], build_dir)[name]
         _loaded[name] = ctypes.CDLL(str(path))
     return _loaded[name]

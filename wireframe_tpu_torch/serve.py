@@ -41,6 +41,7 @@ from wireframe_tpu_torch.eval.decode import decode_wireframe
 from wireframe_tpu_torch.eval.evaluator import build_model
 from wireframe_tpu_torch.io import save_wireframe
 from wireframe_tpu_torch.io.xyz import read_xyz, select_features
+from wireframe_tpu_torch.train.step import make_forward_fn
 from wireframe_tpu_torch.utils.platform import resolve_device
 
 
@@ -69,13 +70,14 @@ class WireframePredictor:
         self.batch_size = int(serve_batch_size or cfg.eval.batch_size)
         self.buckets = tuple(sorted(cfg.data.point_buckets))
         self.model = build_model(cfg, params, self.device)
+        self._model_forward = make_forward_fn(cfg)
 
     def _forward(self, x: np.ndarray) -> Dict[str, np.ndarray]:
-        with torch.inference_mode():
-            out = self.model(torch.from_numpy(x).to(self.device))
-            return {k: out[k].cpu().numpy() for k in (
-                "vertices", "edge_probs", "actual_vertex_counts",
-                "existence_probabilities")}
+        out = self._model_forward(self.model,
+                                  torch.from_numpy(x).to(self.device))
+        return {k: out[k].cpu().numpy() for k in (
+            "vertices", "edge_probs", "actual_vertex_counts",
+            "existence_probabilities")}
 
     # ------------------------------------------------------------------
     # Input preparation

@@ -7,6 +7,9 @@ K3) -> global-norm clip, coupled weight decay, Adam, learning rate -> EMA.
 Nothing in the step reads a value back to the host: the metrics are
 0-d device tensors, and the loop reads them at its log points only.
 
+`make_forward_fn` is the inference forward that serving, the bench and
+the measuring tools call.
+
 Also the reference's monitoring metrics (train.py:148-151): the
 index-aligned vertex RMSE of sample 0's GT-count prefix, the batched
 Hungarian RMSE through the loss's matching, and the train-batch edge
@@ -136,3 +139,22 @@ def make_train_step(cfg, steps_per_epoch: int = 1) -> Callable:
 
     train_step.optimizer = optimizer
     return train_step
+
+
+def make_forward_fn(cfg) -> Callable:
+    """The inference forward: forward(model, point_clouds, counts=None)
+    -> predictions, as device tensors.
+
+    Port of `wireframe_tpu/train/step.py:make_forward_fn` with its default
+    train=False.  The port's params live in the model (`TrainState.model`,
+    `eval.evaluator.build_model`), so the model takes the place of the
+    flax params.  It runs under `torch.inference_mode`, where no autograd
+    record is kept.
+    """
+    def forward(model, point_clouds: torch.Tensor,
+                target_vertex_counts: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            return model(point_clouds, target_vertex_counts, train=False)
+
+    return forward
