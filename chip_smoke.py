@@ -45,7 +45,10 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 3 losses against the same steps with the plain versions on
                 the card; 3 steps with chain_backward=remat (K5 in place of
                 K2 / K3, the same first losses); a 30-step constant-LR run
-                whose loss falls; ms per step, clouds/s, a torch.profiler
+                whose loss falls, and the same 30 steps from the init's
+                FFN output kernels at the scale before ROADMAP C4's repair,
+                both continued to 100 steps (live slots counted after 30
+                and 100, ROADMAP C1); ms per step, clouds/s, a torch.profiler
                 breakdown of one step and a step under CUDA sync debug
                 mode; the trained weights saved through the bridge and
                 served;
@@ -79,23 +82,28 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 pipelined step's kept pairs in pair-table order); `test`
                 writes 8 world-frame .obj files; ms per step, clouds/s per
                 path and the host share of a pipelined chunk;
- 12. bench    — `wireframe_tpu_torch.bench` in this process at its default
-                shapes (B=128 x 2560, bf16) with 10 iterations: the recipe
-                forward with the parity pass, buckets 2048-16384 and the
-                sweep 2048-8192 (K1 once per forward call, 0 < mfu < 1, no
-                failed sweep point), the recipe throughput alone at 30
-                iterations before and after it (the spread, beside the
-                card's clocks and power), one profiled window (the device
-                busy share),
-                float32 refused, train mode for the recipe (K2, K3, K4
-                once per step) and the parity model (K5 forward and
-                backward, K4); then the tools: the latency grid, the step
-                profiler, the op trace (its groups sum to the profiler's
-                device total within 0.1%) and the cold-start report in a
-                process of its own with a fresh build directory, removed
-                when it ends.
-Then a `kernels` JSON line (launches on the main paths, on the corpus
-path and on the bench path) and, last, the `ok` JSON line.
+ 12. layouts  — the full-width recipe's decoder in the layouts the JAX
+                package builds besides the unrolled one: fused cross K/V,
+                scanned, scanned + fused and remat, each from
+                `init_flax_params` for its own tree: served over all four
+                buckets (K1 once per batch, .obj files load back), trained
+                5 steps at batch 8 x 2560 (K2, K3, K4 once per step; the
+                first 3 losses against the plain versions); the scanned
+                decoders from the unrolled weights restacked against the
+                unrolled ones (served outputs and first losses); remat's
+                loss and gradients against no remat with the decoder's
+                dropout on, and the bytes autograd saves; ms per step and
+                device ops per step (tools/trace_ops) per layout beside
+                the unrolled layout's;
+ 13. checkpoints — a state_dict in the reference's own layout (its
+                widths, 64 slots) `torch.save`d and evaluated through
+                `evaluate --torch-checkpoint` on the corpus's test split in
+                f32 (the plain encoder) and in bf16 through K1 (once per
+                forward batch): finite metrics, the two runs' vertices
+                within MODEL_ATOL; a scanned + fused recipe checkpoint
+                with its Adam state resumed twice to the same losses;
+ 14. bench    — `wireframe_tpu_torch.bench`Then a `kernels` JSON line (launches on the main paths, on the corpus,
+layouts, checkpoints and bench paths) and, last, the `ok` JSON line.
 
 Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
 """
@@ -152,6 +160,11 @@ RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PARITY = os.path.join(os.path.dirname(RECIPE), "default.yaml")
 # The reference-parity model as QUALITY.md's bf16 ablation runs it.
 PARITY_SET = ["model.use_pallas_encoder=true", "model.compute_dtype=bfloat16"]
+# The init seed of the served random recipe models (serving, layouts) and
+# of the corpus run: the first seed whose random decoder keeps every
+# slot live (existence above the model's 0.5) on box buildings, so that
+# the decode, edge and .obj paths carry data (seed 0 keeps none).
+SERVE_SEED = 1
 
 
 def recipe_encoder_params(torch, rng, device, input_dim=8,
@@ -410,9 +423,7 @@ def serving_phase(torch, dev, card, work, overrides=(),
     rng = np.random.default_rng(1)
     cfg = load_config(RECIPE, list(overrides))
     ckpt = os.path.join(work, "ckpt")
-    # Seed 1: its random decoder keeps every slot live (existence ~0.89),
-    # so the decode, edge and .obj paths carry data (seed 0 keeps none).
-    flax_params = init_flax_params(cfg.model, seed=1)
+    flax_params = init_flax_params(cfg.model, seed=SERVE_SEED)
     save_port_checkpoint(ckpt, flax_params, cfg)
     predictor = WireframePredictor(ckpt, config=RECIPE, overrides=overrides,
                                    device=dev)
@@ -1160,6 +1171,7 @@ def k5_phase(torch, dev, card, shapes=K5_SHAPES):
 
 TRAIN_STEPS = 20
 FALL_STEPS = 30
+C1_STEPS = 100
 # The first steps with the kernels against the same steps with the plain
 # versions on the card: bf16 throughout, the two differ by K2's rounding
 # flips (pooled kv within 1e-2), carried through the decoder and the loss;
@@ -1242,7 +1254,12 @@ def training_phase(torch, dev, card, work):
     from wireframe_tpu_torch.config import load_config
     from wireframe_tpu_torch.io.obj import load_wireframe
     from wireframe_tpu_torch.serve import WireframePredictor
-    from wireframe_tpu_torch.train.loop import device_batch, train_model
+    from wireframe_tpu_torch.train.loop import (
+        device_batch,
+        init_model,
+        train_model,
+    )
+    from wireframe_tpu_torch.train.state import create_train_state
     from wireframe_tpu_torch.utils.synth import make_box_building_batch
 
     base = ["train.overfit_one_batch=true", "train.log_every=1"]
@@ -1335,17 +1352,51 @@ def training_phase(torch, dev, card, work):
     if not all(map(math.isfinite, fl)) or not last < first:
         raise AssertionError("the constant-LR loss does not fall")
 
+    # ROADMAP C1 and C4: the same 30 steps from the init before C4's
+    # repair, the four ffn_out kernels 16x smaller (the attention output's
+    # fan-in, 1024 x 256, in place of 1024); live slots counted alike.
+    old_model = init_model(fall_cfg, dev)
+    with torch.no_grad():
+        for name, p in old_model.named_parameters():
+            if name.endswith("ffn_out.weight"):
+                p.div_(16.0)
+    old_writer = _Losses()
+    old_state = train_model(fall_cfg, [batch], metric_writer=old_writer,
+                            state=create_train_state(fall_cfg, old_model),
+                            device=dev)
     dbatch = device_batch(batch, dev)
+    runs = {"repaired init": (fall_state, fl),
+            "pre-repair ffn_out scale": (
+                old_state, [r["total_loss"] for r in old_writer.rows])}
+
+    def live_slots(steps):
+        for label, (st, run) in runs.items():
+            with torch.no_grad():
+                probs = st.model.eval()(dbatch["point_clouds"])[
+                    "existence_probabilities"]
+            print(f"C1: after {steps} constant-LR steps from the {label}: "
+                  f"existence > 0.5 in {int((probs > 0.5).sum())} of "
+                  f"{probs.numel()} slots (8 corners a cloud, so 0.2 of "
+                  f"the slots exist), mean {float(probs.mean()):.3f}, max "
+                  f"{float(probs.max()):.3f}; losses first {run[0]:.5f}, "
+                  f"last {run[-1]:.5f}", flush=True)
+
+    live_slots(FALL_STEPS)
+    # Both runs continued at the same LR: is an empty wireframe after 30
+    # steps the existence head's prior (0.2) or a lasting state?
+    long_cfg = load_config(RECIPE, base + [
+        "train.lr_schedule=constant", f"train.num_epochs={C1_STEPS}"])
+    for label, (st, run) in runs.items():
+        writer_c = _Losses()
+        train_model(long_cfg, [batch], metric_writer=writer_c, state=st,
+                    start_epoch=FALL_STEPS, device=dev)
+        run.extend(r["total_loss"] for r in writer_c.rows)
+    live_slots(C1_STEPS)
+
     step_ms = time_and_check_step(torch, cfg, state, dbatch, dev, card,
                                   TRAIN_KERNELS, "train")
 
-    # The trained weights, through the bridge, served.
-    with torch.no_grad():
-        probs = fall_state.model.eval()(dbatch["point_clouds"])[
-            "existence_probabilities"]
-    print(f"trained model on its own batch: existence > 0.5 in "
-          f"{int((probs > 0.5).sum())} of {probs.numel()} slots (8 corners "
-          f"a cloud), max {float(probs.max()):.3f}", flush=True)
+    # The trained weights (C1_STEPS steps), through the bridge, served.
     ckpt = os.path.join(work, "trained")
     save_port_checkpoint(ckpt, state_dict_to_flax(
         fall_state.model.state_dict(), cfg.model), cfg)
@@ -1793,13 +1844,13 @@ def corpus_phase(torch, dev, card, work):
     gen_main(["--out", root, *CORPUS])
     print(f"corpus: generated {' '.join(CORPUS)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    # Train seed 1: the serving phase's seed, whose random decoder keeps
-    # the slots live (existence ~0.89 > the model's 0.5), so that the edge
-    # head, the decode and the Hausdorff passes carry data; after 6 steps
-    # of warmup from lr 0 the weights are still close to their init.
+    # Train seed SERVE_SEED, whose random decoder keeps the slots live,
+    # so that the edge head, the decode and the Hausdorff passes carry
+    # data; after 6 steps of warmup from lr 0 the weights are still close
+    # to their init.
     overrides = [f"train.num_epochs={CORPUS_EPOCHS}",
                  "train.checkpoint_every=1", "train.log_every=1",
-                 "train.seed=1", f"data.root_dir={root}"]
+                 f"train.seed={SERVE_SEED}", f"data.root_dir={root}"]
     ck = os.path.join(work, "corpus_ckpt")
 
     def train_argv(ckdir):
@@ -2017,6 +2068,409 @@ def corpus_phase(torch, dev, card, work):
 
 # ---------------------------------------------------------------------------
 # Bench: the port's measuring instruments at the bench's default shapes
+# ---------------------------------------------------------------------------
+# Layouts: the recipe's decoder in every layout the JAX package builds
+# ---------------------------------------------------------------------------
+
+FUSED = ["model.decoder_fused_cross_kv=true"]
+SCAN = ["model.decoder_scan=true"]
+LAYOUTS = {"fused": FUSED, "scan": SCAN, "scan + fused": SCAN + FUSED,
+           "remat": ["model.decoder_remat=true"]}
+LAYOUT_STEPS = 5
+# The scanned decoder against the unrolled one from the same weights:
+# per layer the same products on slices of the stacked weights, so equal
+# outputs are expected; the limit is one bf16 ulp of a unit-sphere
+# vertex (2^-8) should the library pick another algorithm for a slice.
+SCAN_ATOL = 2.0 ** -8
+
+
+def _serve_layout(dev, card, work, label, flat, cfg, overrides, paths):
+    """Serve `paths` with `flat` as a port checkpoint; returns (the
+    predictor, its K1 launches, the batches served)."""
+    from wireframe_tpu_torch.bridge import save_port_checkpoint
+    from wireframe_tpu_torch.data.bucketing import choose_bucket
+    from wireframe_tpu_torch.io.obj import load_wireframe
+    from wireframe_tpu_torch.serve import WireframePredictor
+
+    ckpt = os.path.join(work, "layout_" + label.replace(" + ", "_")
+                        .replace(" ", "_"))
+    save_port_checkpoint(ckpt, flat, cfg)
+    predictor = WireframePredictor(ckpt, config=RECIPE, overrides=overrides,
+                                   device=dev)
+    sizes = [int(os.path.basename(p).split("_")[1].split(".")[0])
+             for p in paths]
+    per_bucket = {}
+    for n in sizes:
+        b = choose_bucket(n, predictor.buckets)
+        per_bucket[b] = per_bucket.get(b, 0) + 1
+    batches = sum(-(-k // predictor.batch_size) for k in per_bucket.values())
+    reset_launches()
+    t0 = time.perf_counter()
+    results = predictor.predict_files(paths, out_dir=ckpt + "_obj")
+    secs = time.perf_counter() - t0
+    k1 = launch_counts()["K1"]
+    for r in results:
+        lv, le = load_wireframe(r["obj_path"])
+        if not np.isfinite(r["vertices"]).all() or (
+                lv.shape != r["vertices"].shape
+                or len(le) != r["num_edges"]):
+            raise AssertionError(f"{label}: {r['obj_path']} does not load "
+                                 "back")
+    print(f"layout {label}: served {len(paths)} clouds over buckets "
+          f"{sorted(per_bucket)} in {batches} batches, {secs:.2f} s (files "
+          f"read and written); K1 launches {k1}; "
+          f"{sum(r['num_vertices'] for r in results)} vertices, "
+          f"{sum(r['num_edges'] for r in results)} edges, every .obj loads "
+          f"back [{card}]", flush=True)
+    if k1 != batches or sorted(per_bucket) != sorted(predictor.buckets):
+        raise AssertionError(f"{label}: K1 launched {k1} times for "
+                             f"{batches} batches over {per_bucket}")
+    return predictor, k1, batches
+
+
+def _forward_buckets(predictor, paths):
+    """The predictor's model outputs on each bucket's batch of `paths`."""
+    from wireframe_tpu_torch.data.bucketing import choose_bucket
+
+    clouds = [predictor._preprocess(np.loadtxt(p))["pc"] for p in paths]
+    outs = []
+    for bucket in predictor.buckets:
+        pcs = [pc for pc in clouds
+               if choose_bucket(len(pc), predictor.buckets) == bucket]
+        outs.append(predictor._forward(predictor.batch_array(
+            pcs[:predictor.batch_size], bucket)))
+    return outs
+
+
+def _train_layout(torch, dev, cfg, batch, flat, plain=False):
+    """train_model from `flat` on the one batch; returns (losses, launch
+    counts, the final state)."""
+    from wireframe_tpu_torch.bridge import params_from_flax
+    from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
+    from wireframe_tpu_torch.train.loop import train_model
+    from wireframe_tpu_torch.train.state import create_train_state
+
+    model = PointCloudToWireframe(cfg.model)
+    model.load_state_dict(params_from_flax(flat), strict=True)
+    state = create_train_state(cfg, model.to(dev))
+    writer = _Losses()
+    reset_launches()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        state = train_model(cfg, [batch], metric_writer=writer, state=state,
+                            device=dev)
+    torch.cuda.synchronize()
+    return [r["total_loss"] for r in writer.rows], launch_counts(), state
+
+
+def _loss_grads_saved(torch, model, cfg, dbatch, seed):
+    """One train-mode forward, loss and backward with dropout draws from a
+    generator seeded `seed`: (loss, gradients by name, bytes of the
+    tensors autograd saved, each storage once, weights and batch
+    excluded)."""
+    from wireframe_tpu_torch.losses.wireframe_loss import wireframe_loss
+    from wireframe_tpu_torch.train.step import loss_config
+
+    gen = torch.Generator(device=dbatch["point_clouds"].device)
+    gen.manual_seed(seed)
+    kept = {t.untyped_storage().data_ptr() for t in [
+        *model.parameters(), *dbatch.values()]}
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in kept:
+            saved[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        preds = model(dbatch["point_clouds"], dbatch["vertex_counts"],
+                      train=True, generator=gen)
+        loss = wireframe_loss(preds, {
+            "vertices": dbatch["target_vertices"],
+            "vertex_existence": dbatch["vertex_existence"],
+            "edge_labels": dbatch["edge_labels"],
+            "vertex_counts": dbatch["vertex_counts"]},
+            loss_config(cfg))["total_loss"]
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = {k: g for k, g in zip(names, grads) if g is not None}
+    return loss.detach(), grads, sum(saved.values()), gen.get_state()
+
+
+def layouts_phase(torch, dev, card, work):
+    """The full-width recipe in the fused, scanned, scanned + fused and
+    remat layouts, each from `init_flax_params` for its own tree: served
+    over all four buckets (K1 once per batch), trained 5 steps (K2, K3, K4
+    once per step; the first 3 losses against the plain versions); the
+    scanned decoder from the unrolled weights restacked against the
+    unrolled one; remat's gradients against no remat with dropout on;
+    ms per step, device ops (tools/trace_ops) per layout beside the
+    unrolled layout's.  Returns {kernel: launches on this path}."""
+    from wireframe_tpu_torch.bridge import (
+        init_flax_params,
+        params_from_flax,
+        stack_layers,
+    )
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
+    from wireframe_tpu_torch.tools import trace_ops
+    from wireframe_tpu_torch.train.loop import device_batch
+    from wireframe_tpu_torch.train.state import create_train_state
+    from wireframe_tpu_torch.utils.synth import make_box_building_batch
+
+    base = ["train.overfit_one_batch=true", "train.log_every=1",
+            f"train.num_epochs={LAYOUT_STEPS}"]
+    rng = np.random.default_rng(4)
+    offset = np.array([534000.0, 6588000.0, 40.0])
+    paths = []
+    for i, n in enumerate((1300, 2048, 3000, 4096, 6000, 8192, 12000,
+                           20000)):
+        p = os.path.join(work, f"layoutcloud{i}_{n}.xyz")
+        np.savetxt(p, synthetic_building(rng, n, offset), fmt="%.4f")
+        paths.append(p)
+    batch = make_box_building_batch(load_config(RECIPE, base), 8, seed=0)
+    totals = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5 fwd", "K5 bwd")}
+    step_ms, ops = {}, {}
+    for label, extra in (("unrolled", []), *LAYOUTS.items()):
+        cfg = load_config(RECIPE, base + extra)
+        flat = init_flax_params(cfg.model, SERVE_SEED)
+        if label != "unrolled":
+            # The main path: serve, then train.
+            _, k1, _ = _serve_layout(dev, card, work, label, flat, cfg,
+                                     extra, paths)
+            totals["K1"] += k1
+            losses, counts, state = _train_layout(torch, dev, cfg, batch,
+                                                  flat)
+            print(f"layout {label}: {LAYOUT_STEPS} steps, losses "
+                  f"{losses}; launches {counts}", flush=True)
+            want = {"K1": 0, "K2": LAYOUT_STEPS, "K3": LAYOUT_STEPS,
+                    "K4": LAYOUT_STEPS, "K5 fwd": 0, "K5 bwd": 0}
+            if counts != want or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"{label}: launches {counts}, "
+                                     f"expected {want}; losses {losses}")
+            for k, v in counts.items():
+                totals[k] += v
+            plain_cfg = load_config(RECIPE, base[:2] + ["train.num_epochs=3"]
+                                    + extra)
+            plain, _, _ = _train_layout(torch, dev, plain_cfg, batch, flat,
+                                        plain=True)
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+            print(f"layout {label}: first 3 losses, kernels {losses[:3]} vs "
+                  f"plain versions {plain}: max rel diff {max(rel):.2e} "
+                  f"(rtol {TRAIN_LOSS_RTOL})", flush=True)
+            if max(rel) > TRAIN_LOSS_RTOL:
+                raise AssertionError(f"{label}: losses differ from the "
+                                     "plain run")
+        else:
+            model = PointCloudToWireframe(cfg.model)
+            model.load_state_dict(params_from_flax(flat), strict=True)
+            state = create_train_state(cfg, model.to(dev))
+        dbatch = device_batch(batch, dev)
+        step_ms[label] = time_and_check_step(
+            torch, cfg, state, dbatch, dev, card, TRAIN_KERNELS,
+            f"layout {label}")
+        result = _tool(trace_ops.main, [
+            "--batch", "8", "--steps", "2", "--top", "8",
+            "--config", RECIPE, "--device", str(dev), *_sets(extra)])
+        ops[label] = result["events"] / result["steps"]
+    b, n = batch["point_clouds"].shape[:2]
+    print(f"layouts at batch {b} x {n} [{card}]: ms per step "
+          + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items())
+          + "; device ops per step (tools/trace_ops) "
+          + ", ".join(f"{k} {v:.0f}" for k, v in ops.items()), flush=True)
+
+    # The scanned decoder from the unrolled weights, restacked: the
+    # unrolled decoder's served outputs and first losses.
+    for fused in ([], FUSED):
+        u_cfg = load_config(RECIPE, base[:2] + ["train.num_epochs=3"]
+                            + fused)
+        s_cfg = load_config(RECIPE, base[:2] + ["train.num_epochs=3"]
+                            + fused + SCAN)
+        flat = init_flax_params(u_cfg.model, SERVE_SEED)
+        stacked = stack_layers(flat, u_cfg.model.decoder_layers)
+        tag = "scan + fused" if fused else "scan"
+        served = []
+        for lab, w, c, extra in (("unrolled", flat, u_cfg, fused),
+                                 ("restacked", stacked, s_cfg,
+                                  fused + SCAN)):
+            predictor = _serve_layout(dev, card, work, f"{tag} vs {lab}",
+                                      w, c, extra, paths)[0]
+            served.append(_forward_buckets(predictor, paths))
+        v_err = max(float(np.abs(a[k] - b[k]).max())
+                    for a, b in zip(*served) for k in a)
+        runs = [_train_layout(torch, dev, c, batch, w)[0]
+                for c, w in ((u_cfg, flat), (s_cfg, stacked))]
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+        print(f"{tag} from the unrolled weights restacked: served outputs "
+              f"(vertices, existence and edge probabilities, every bucket) "
+              f"max abs diff {v_err:.3e}, first losses {runs[1]} vs "
+              f"unrolled {runs[0]} (max rel diff {l_err:.3e}); bit-equal "
+              f"{v_err == 0.0 and runs[0] == runs[1]} (limits {SCAN_ATOL} "
+              f"and {TRAIN_LOSS_RTOL})", flush=True)
+        if v_err > SCAN_ATOL or l_err > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{tag} differs from the unrolled decoder")
+
+    # Remat with the decoder's dropout on: the same loss and gradients as
+    # without, fewer bytes saved for the backward.
+    drop = ["model.decoder_dropout=0.1"]
+    dbatch = device_batch(batch, dev)
+    flat = init_flax_params(load_config(RECIPE, base).model, SERVE_SEED)
+    out = {}
+    for label, extra in (("no remat", []),
+                         ("remat", ["model.decoder_remat=true"])):
+        cfg = load_config(RECIPE, base + drop + extra)
+        model = PointCloudToWireframe(cfg.model)
+        model.load_state_dict(params_from_flax(flat), strict=True)
+        out[label] = _loss_grads_saved(torch, model.to(dev).train(), cfg,
+                                       dbatch, seed=5)
+        del model
+    (l0, g0, b0, s0), (l1, g1, b1, s1) = out["no remat"], out["remat"]
+    g_err = max(float((g0[k] - g1[k]).abs().max()) for k in g0)
+    same = (torch.equal(l0, l1) and torch.equal(s0, s1)
+            and all(torch.equal(g0[k], g1[k]) for k in g0))
+    print(f"remat with decoder dropout 0.1: loss {float(l1)} vs "
+          f"{float(l0)}, gradients max abs diff {g_err:.3e}, bit-equal "
+          f"(loss, gradients, generator state) {same}; autograd saved "
+          f"{b1 / 1e6:.2f} MB with remat, {b0 / 1e6:.2f} MB without "
+          f"({(b0 - b1) / 1e6:.2f} MB less) [{card}]", flush=True)
+    if not same or not b1 < b0:
+        raise AssertionError("remat changes the gradients or saves no "
+                             "memory")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: the reference's .pth and a scanned, fused checkpoint resumed
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 4
+CKPT_EPOCH = 2
+
+
+def _eval_vertices(evaluate_cli, argv):
+    """Run the evaluate CLI; returns (the printed lines, the vertices of
+    every forward batch it ran)."""
+    import io
+
+    from wireframe_tpu_torch.eval import evaluator
+
+    made = evaluator.make_forward_fn
+    seen = []
+
+    def recording(*args, **kw):
+        fn = made(*args, **kw)
+
+        def forward(clouds):
+            out = fn(clouds)
+            seen.append(out["vertices"])
+            return out
+        return forward
+
+    buf = io.StringIO()
+    evaluator.make_forward_fn = recording
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = evaluate_cli.main(argv)
+    finally:
+        evaluator.make_forward_fn = made
+    if rc != 0:
+        raise AssertionError(f"evaluate {argv} returned {rc}")
+    print(buf.getvalue().rstrip(), flush=True)
+    return buf.getvalue().splitlines(), seen
+
+
+def checkpoints_phase(torch, dev, card, work):
+    """A reference-layout `.pth` (reference widths, 64 slots) evaluated
+    through `evaluate --torch-checkpoint` in f32 and through K1 in bf16;
+    a scanned, fused recipe checkpoint with its Adam state resumed twice
+    to the same losses.  Returns {kernel: launches on this path}."""
+    from wireframe_tpu_torch import evaluate as evaluate_cli
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.train.checkpoint import (
+        latest_step,
+        restore_train_state,
+    )
+    from wireframe_tpu_torch.train.loop import init_model, train_model
+    from wireframe_tpu_torch.train.state import create_train_state
+    from wireframe_tpu_torch.utils.synth import (
+        make_box_building_batch,
+        reference_state_dict,
+    )
+
+    cfg = load_config(PARITY)
+    sd = {k: torch.from_numpy(v).to(dev)
+          for k, v in reference_state_dict(cfg, seed=0).items()}
+    pth = os.path.join(work, "trained_model.pth")
+    torch.save(sd, pth)
+    root = os.path.join(work, "corpus")
+    argv = ["--config", PARITY, "--data-root", root, "--torch-checkpoint",
+            pth, "--device", str(dev)]
+    counts, lines, verts = {}, {}, {}
+    for label, extra in (("f32", []), ("bf16 K1", PARITY_SET)):
+        reset_launches()
+        t0 = time.perf_counter()
+        lines[label], verts[label] = _eval_vertices(evaluate_cli,
+                                                    argv + _sets(extra))
+        torch.cuda.synchronize()
+        counts[label] = launch_counts()
+        print(f"checkpoints: evaluate --torch-checkpoint ({label}) "
+              f"{time.perf_counter() - t0:.2f} s, {len(verts[label])} "
+              f"forward batches; launches {counts[label]} [{card}]",
+              flush=True)
+        values = [float(ln.split()[-1]) for ln in lines[label]
+                  if ln.split() and ln.split()[0] in (
+                      "Wireframe", "Average", "Corners", "Edges")]
+        if len(values) != 8 or not all(map(math.isfinite, values)):
+            raise AssertionError(f"evaluate ({label}) metrics {values}")
+    batches = len(verts["bf16 K1"])
+    want = {"f32": 0, "bf16 K1": batches}
+    if any(counts[k]["K1"] != n for k, n in want.items()) or any(
+            v for c in counts.values() for k, v in c.items() if k != "K1"):
+        raise AssertionError(f"evaluate launches {counts}")
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(verts["f32"], verts["bf16 K1"]))
+    print(f"checkpoints: .pth model vertices, bf16 with K1 against f32 "
+          f"plain: max abs diff {err:.3e} (atol "
+          f"{MODEL_ATOL['vertices']})", flush=True)
+    if len(verts["f32"]) != batches or err > MODEL_ATOL["vertices"]:
+        raise AssertionError("the .pth model's bf16 K1 vertices differ")
+
+    # A scanned, fused recipe checkpoint with Adam state, resumed twice.
+    ckdir = os.path.join(work, "scan_fused_ckpt")
+    sf = SCAN + FUSED + [
+        "train.overfit_one_batch=true", "train.log_every=1",
+        "train.lr_schedule=constant", f"train.num_epochs={CKPT_STEPS}",
+        f"train.checkpoint_every={CKPT_EPOCH}",
+        f"train.checkpoint_dir={ckdir}"]
+    cfg = load_config(RECIPE, sf)
+    batch = make_box_building_batch(cfg, 8, seed=0)
+    writer = _Losses()
+    reset_launches()
+    train_model(cfg, [batch], metric_writer=writer, device=dev)
+    losses = [r["total_loss"] for r in writer.rows]
+    runs = []
+    for _ in range(2):
+        fresh = create_train_state(cfg, init_model(cfg, dev, seed=7))
+        fresh, start = restore_train_state(fresh, ckdir)
+        w = _Losses()
+        train_model(cfg, [batch], metric_writer=w, state=fresh,
+                    start_epoch=start, device=dev)
+        runs.append([r["total_loss"] for r in w.rows])
+    torch.cuda.synchronize()
+    train_counts = launch_counts()
+    n = CKPT_STEPS + 2 * (CKPT_STEPS - CKPT_EPOCH)
+    print(f"checkpoints: scan + fused, {CKPT_STEPS} steps {losses}, "
+          f"resumed twice from step {latest_step(ckdir)}: {runs}, "
+          f"bit-identical {runs[0] == runs[1]}; launches {train_counts} "
+          f"[{card}]", flush=True)
+    if (latest_step(ckdir) != CKPT_EPOCH or runs[0] != runs[1]
+            or len(runs[0]) != CKPT_STEPS - CKPT_EPOCH
+            or any(train_counts[k] != n for k in ("K2", "K3", "K4"))):
+        raise AssertionError("the scan + fused checkpoint does not resume "
+                             "to the same losses")
+    return {k: counts["bf16 K1"][k] + train_counts[k] for k in train_counts}
+
+
 # ---------------------------------------------------------------------------
 
 # The bench's defaults (B=128 x 2560, bf16, the recipe) with fewer
@@ -2304,6 +2758,18 @@ def main() -> int:
         phase = "corpus"
         corpus = corpus_phase(torch, dev, card, work)
 
+        phase = "layouts"
+        t0 = time.perf_counter()
+        layouts = layouts_phase(torch, dev, card, work)
+        print(f"layouts phase: {time.perf_counter() - t0:.1f} s [{card}]",
+              flush=True)
+
+        phase = "checkpoints"
+        t0 = time.perf_counter()
+        ckpts = checkpoints_phase(torch, dev, card, work)
+        print(f"checkpoints phase: {time.perf_counter() - t0:.1f} s "
+              f"[{card}]", flush=True)
+
         phase = "bench"
         t0 = time.perf_counter()
         bench = bench_phase(torch, dev, card, work)
@@ -2318,6 +2784,8 @@ def main() -> int:
             "source": f"{src}fused_encoder.cu + {src}hopper_gemm.cuh",
             "replaces": "wireframe_tpu/ops/pallas_encoder.py:71",
             "launches": launches, "corpus_launches": corpus["K1"],
+            "layouts_launches": layouts["K1"],
+            "checkpoints_launches": ckpts["K1"],
             "bench_launches": bench["K1"],
             "max_abs_err": k1_abs,
             "shape": f"B={b} N={n} kv_pool=4", "ms": ms,
@@ -2334,6 +2802,8 @@ def main() -> int:
                             "source": src + source, "replaces": replaces,
                             "launches": train_launches[key],
                             "corpus_launches": corpus[key],
+                            "layouts_launches": layouts[key],
+                            "checkpoints_launches": ckpts[key],
                             "bench_launches": bench[key], **fields,
                             "library_ms": None})
         for key, count, name, replaces in (
@@ -2346,6 +2816,8 @@ def main() -> int:
                             "replaces": replaces,
                             "launches": parity_launches[count],
                             "corpus_launches": corpus[count],
+                            "layouts_launches": layouts[count],
+                            "checkpoints_launches": ckpts[count],
                             "bench_launches": bench[count],
                             **k5[key], "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)

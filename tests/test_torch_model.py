@@ -142,13 +142,6 @@ def test_unsorted_cloud_is_sorted_in_graph():
                                **F32)
 
 
-@pytest.mark.parametrize("bad", ["model.decoder_scan=true",
-                                 "model.decoder_fused_cross_kv=true"])
-def test_unported_layouts_raise(bad):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PointCloudToWireframe(load_config(RECIPE, list(SMALL) + [bad]).model)
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_matches_flax_mha(dtype):
     """flax MultiHeadDotProductAttention semantics: DenseGeneral layouts,

@@ -2,22 +2,33 @@
 
 A flax parameter tree is keyed by paths such as `encoder/stage0_w` or
 `vertex_decoder/block0/self_attn/query/kernel`.  `params_from_flax` turns
-it into the port's `state_dict`:
-- Dense kernels (in, out) become torch weights (out, in);
-- attention DenseGeneral kernels (D, H, hd) / biases (H, hd) become
-  (H*hd, D) / (H*hd,), and the output kernel (H, hd, D) becomes (D, H*hd);
+it into the port's `state_dict`, one leaf into one entry:
+- a Dense or DenseGeneral kernel becomes a torch weight (out, in) over
+  its flattened input and output axes.  The input axes are the first one,
+  or the (H, hd) head axes of an attention `out` and of the fused
+  decoder's `cross_out`: a (D, H, hd) query kernel becomes (H*hd, D), an
+  (H, hd, D) output kernel (D, H*hd), the fused decoder's (D, L, H, hd)
+  `cross_k_all` kernel (L*H*hd, D);
+- a DenseGeneral bias (H, hd) or (L, H, hd) is flattened;
 - LayerNorm `scale` becomes `weight`;
 - raw parameters (encoder stages, slot queries, the PairDense kernel,
-  whose rows are split by meaning) keep their layout.
+  whose rows are split by meaning) keep their layout;
+- under `vertex_decoder/blocks/` (the `decoder_scan` layout, flax
+  `nn.scan`'s stacked tree) every leaf keeps its leading layer axis and
+  the rules above apply behind it.
 
 `state_dict_to_flax` is its inverse, so a state_dict trained by the port
 is written as a port checkpoint (`save_port_checkpoint`) that
-`serve.WireframePredictor` serves.
+`serve.WireframePredictor` serves.  `flax_param_shapes` lists the JAX
+package's tree for every model shape it builds: the query decoder
+unrolled, with fused cross-attention K/V, scanned, or both, and the
+MLP head.
 
 The port's checkpoint is a directory with `params.npz` (flax paths ->
 float32 arrays) and `config.json` (`config_to_dict` layout).  Reading
 the JAX package's orbax checkpoints needs jax, so that stays out of the
-port: a caller with jax saves its params with `save_port_checkpoint`.
+port: the repository's `export_port_checkpoint.py`, which runs where
+jax runs, writes them in the port's checkpoint layout.
 """
 
 from __future__ import annotations
@@ -33,6 +44,10 @@ from wireframe_tpu_torch.config import Config, ModelConfig, config_to_dict
 
 # Kernels kept in flax's (in, out) layout: PairDense splits its rows.
 _RAW_KERNELS = ("edge_predictor/Dense_2/kernel",)
+# DenseGeneral kernels whose input is the (H, hd) head axes.
+_HEAD_INPUT = ("out", "cross_out")
+# The scanned decoder's stacked leaves (`model.decoder_scan`).
+SCANNED = "vertex_decoder/blocks/"
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -47,6 +62,17 @@ def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def _stacked(path: str) -> int:
+    """1 for a leaf of the scanned decoder (leading layer axis), else 0."""
+    return int(path.startswith(SCANNED))
+
+
+def _input_axes(parts) -> int:
+    """How many leading (per-layer) axes of a kernel are its input: two
+    for the (H, hd, D) output projections, one for every other kernel."""
+    return 2 if parts[-2] in _HEAD_INPUT else 1
+
+
 def _torch_entry(path: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     parts = path.split("/")
     leaf, module = parts[-1], ".".join(parts[:-1])
@@ -54,15 +80,15 @@ def _torch_entry(path: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
         return ".".join(parts), arr
     if leaf == "scale":
         return f"{module}.weight", arr
+    lead = arr.shape[:_stacked(path)]
     if leaf == "bias":
-        return f"{module}.bias", arr.reshape(-1)
-    if arr.ndim == 2:
-        return f"{module}.weight", arr.T
-    if arr.ndim == 3 and parts[-2] == "out":          # (H, hd, D)
-        return f"{module}.weight", arr.reshape(-1, arr.shape[-1]).T
-    if arr.ndim == 3:                                 # (D, H, hd)
-        return f"{module}.weight", arr.reshape(arr.shape[0], -1).T
-    raise ValueError(f"unexpected kernel {path} of shape {arr.shape}")
+        return f"{module}.bias", arr.reshape(lead + (-1,))
+    n_in = len(lead) + _input_axes(parts)
+    if arr.ndim <= n_in:
+        raise ValueError(f"unexpected kernel {path} of shape {arr.shape}")
+    fan_in = int(np.prod(arr.shape[len(lead):n_in]))
+    return f"{module}.weight", np.swapaxes(
+        arr.reshape(lead + (fan_in, -1)), -1, -2)
 
 
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -91,32 +117,33 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor],
             raise ValueError(f"{key}: shape {arr.shape}, expected "
                              f"{ported.shape}")
         leaf = path.rsplit("/", 1)[-1]
-        transposed = (leaf == "kernel" and path not in _RAW_KERNELS)
-        out[path] = np.ascontiguousarray(
-            (arr.T if transposed else arr).reshape(shape), np.float32)
+        if leaf == "kernel" and path not in _RAW_KERNELS:
+            arr = np.swapaxes(arr, -1, -2)
+        out[path] = np.ascontiguousarray(arr.reshape(shape), np.float32)
     return out
 
 
 def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """Every leaf of the flax `PointCloudToWireframe` tree for `cfg` (the
-    query head in its unrolled layout, or the parity MLP head) with its
-    shape."""
+    """Every leaf of the flax `PointCloudToWireframe` tree for `cfg` with
+    its shape: the query head in any of its layouts
+    (`decoder_fused_cross_kv`, `decoder_scan`, both, neither), or the
+    parity MLP head."""
     shapes: Dict[str, Tuple[int, ...]] = {}
 
-    def dense(path, i, o):
-        shapes[f"{path}/kernel"] = (i, o)
-        shapes[f"{path}/bias"] = (o,)
+    def dense(path, i, o, into=shapes):
+        into[f"{path}/kernel"] = (i, o)
+        into[f"{path}/bias"] = (o,)
 
-    def norm(path, d):
-        shapes[f"{path}/scale"] = (d,)
-        shapes[f"{path}/bias"] = (d,)
+    def norm(path, d, into=shapes):
+        into[f"{path}/scale"] = (d,)
+        into[f"{path}/bias"] = (d,)
 
-    def attention(path, d, heads):
+    def attention(path, d, heads, into=shapes):
         for name in ("query", "key", "value"):
-            shapes[f"{path}/{name}/kernel"] = (d, heads, d // heads)
-            shapes[f"{path}/{name}/bias"] = (heads, d // heads)
-        shapes[f"{path}/out/kernel"] = (heads, d // heads, d)
-        shapes[f"{path}/out/bias"] = (d,)
+            into[f"{path}/{name}/kernel"] = (d, heads, d // heads)
+            into[f"{path}/{name}/bias"] = (heads, d // heads)
+        into[f"{path}/out/kernel"] = (heads, d // heads, d)
+        into[f"{path}/out/bias"] = (d,)
 
     prev, c = cfg.input_dim, cfg.encoder_output_dim
     for i, h in enumerate(cfg.encoder_hidden_dims):
@@ -139,15 +166,33 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         norm("vertex_decoder/point_ln", d)
         shapes["vertex_decoder/slot_queries"] = (v, d)
         dense("vertex_decoder/global_proj", c, d)
-        for i in range(cfg.decoder_layers):
-            blk = f"vertex_decoder/block{i}"
-            norm(f"{blk}/ln_self", d)
-            attention(f"{blk}/self_attn", d, cfg.decoder_heads)
-            norm(f"{blk}/ln_cross", d)
-            attention(f"{blk}/cross_attn", d, cfg.decoder_heads)
-            norm(f"{blk}/ln_ffn", d)
-            dense(f"{blk}/ffn_in", d, cfg.decoder_ffn_dim)
-            dense(f"{blk}/ffn_out", cfg.decoder_ffn_dim, d)
+        layers, heads = cfg.decoder_layers, cfg.decoder_heads
+        hd = d // heads
+        if cfg.decoder_fused_cross_kv:
+            for name in ("cross_k_all", "cross_v_all"):
+                shapes[f"vertex_decoder/{name}/kernel"] = (d, layers, heads,
+                                                           hd)
+                shapes[f"vertex_decoder/{name}/bias"] = (layers, heads, hd)
+        blk: Dict[str, Tuple[int, ...]] = {}
+        norm("ln_self", d, blk)
+        attention("self_attn", d, heads, blk)
+        norm("ln_cross", d, blk)
+        if cfg.decoder_fused_cross_kv:
+            blk["cross_q/kernel"] = (d, heads, hd)
+            blk["cross_q/bias"] = (heads, hd)
+            blk["cross_out/kernel"] = (heads, hd, d)
+            blk["cross_out/bias"] = (d,)
+        else:
+            attention("cross_attn", d, heads, blk)
+        norm("ln_ffn", d, blk)
+        dense("ffn_in", d, cfg.decoder_ffn_dim, blk)
+        dense("ffn_out", cfg.decoder_ffn_dim, d, blk)
+        if cfg.decoder_scan:          # nn.scan stacks each leaf by layer
+            for name, shape in blk.items():
+                shapes[f"{SCANNED}block/{name}"] = (layers,) + shape
+        for i in range(0 if cfg.decoder_scan else layers):
+            for name, shape in blk.items():
+                shapes[f"vertex_decoder/block{i}/{name}"] = shape
         norm("vertex_decoder/out_ln", d)
         dense("vertex_decoder/coord_head", d, 3)
         dense("vertex_decoder/exist_head", d, 1)
@@ -180,17 +225,35 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def stack_layers(flat: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
+    """An unrolled decoder's flat flax params (`vertex_decoder/block{i}/...`)
+    in the scanned layout (`vertex_decoder/blocks/block/...`, each leaf
+    stacked by layer): the same model under `decoder_scan`."""
+    out = {k: v for k, v in flat.items()
+           if not k.startswith("vertex_decoder/block")}
+    for k in flat:
+        if k.startswith("vertex_decoder/block0/"):
+            name = k[len("vertex_decoder/block0/"):]
+            out[f"{SCANNED}block/{name}"] = np.stack(
+                [flat[f"vertex_decoder/block{i}/{name}"]
+                 for i in range(num_layers)])
+    return out
+
+
 def init_flax_params(cfg: ModelConfig, seed: int) -> Dict[str, np.ndarray]:
     """Random flax-layout params at flax's init scales, from a numpy seed:
-    lecun-normal kernels (truncated normal, fan-in over the input axes),
-    zero biases, unit LayerNorm scales, normal(0.02) slot queries."""
+    lecun-normal kernels (truncated normal, fan-in over the input axes as
+    flax's Dense and DenseGeneral take it, per layer for the scanned
+    decoder, whose layers `nn.scan` initializes one by one), zero biases,
+    unit LayerNorm scales, normal(0.02) slot queries."""
     rng = np.random.default_rng(seed)
     out = {}
     for path, shape in flax_param_shapes(cfg).items():
-        leaf = path.rsplit("/", 1)[-1]
+        parts = path.split("/")
+        leaf = parts[-1]
         if leaf == "kernel" or leaf.endswith("_w"):
-            fan_in = (int(np.prod(shape[:2])) if path.endswith("out/kernel")
-                      else shape[0])
+            per_layer = shape[_stacked(path):]
+            fan_in = int(np.prod(per_layer[:_input_axes(parts)]))
             z = rng.standard_normal(shape)
             while np.any(np.abs(z) > 2.0):     # truncate at 2 sigma
                 bad = np.abs(z) > 2.0

@@ -2,7 +2,8 @@
 
 The port's counterpart of the repository's `evaluate.py`, with its flags
 plus `--device`: loads a port checkpoint (the latest under
-`--checkpoint-dir`, or `--step`), takes the model's architecture from it,
+`--checkpoint-dir`, or `--step`; `export_port_checkpoint.py` writes one
+from a JAX package's checkpoint), takes the model's architecture from it,
 runs batched inference over a split and prints the Building3D metrics
 (ACO, corner P/R/F1, edge P/R/F1, WED) with the same names and threshold
 defaults (distance 1.0, edge confidence 0.5).
@@ -11,8 +12,11 @@ Paths: the plain evaluator (host float64 Hausdorff), `--device-hausdorff`
 (float32 Hausdorff matrices in one padded device batch), `--raw-points`
 (full clouds, bucketed), `--pipelined` (the fixed-shape dispatch-ahead
 pipeline, counters equal to `--device-hausdorff`'s at the same batch).
-Not ported yet, and refused: `--sharded` (ROADMAP A7) and
-`--torch-checkpoint` (a reference `.pth`, ROADMAP A12).
+`--torch-checkpoint PTH` evaluates the reference's own `trained_model.pth`
+instead, transplanted into the parity model (MLP head, prefix slot
+masks, raw intensity, max_vertices from its final layer), as the
+repository's `evaluate.py` does.  Not ported yet, and refused:
+`--sharded` (ROADMAP A7).
 
 Runs on CUDA; `--device cpu` runs on the CPU.
 
@@ -33,8 +37,9 @@ def parse_args(argv=None):
     p.add_argument("--data-root", default=None)
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--torch-checkpoint", default=None, metavar="PTH",
-                   help="a reference PyTorch trained_model.pth: not ported "
-                        "yet (ROADMAP A12), refused")
+                   help="evaluate a reference PyTorch trained_model.pth "
+                        "via full weight transplantation instead of a "
+                        "port checkpoint")
     p.add_argument("--step", type=int, default=None)
     p.add_argument("--split", default="test", choices=("train", "test"))
     p.add_argument("--raw-points", action="store_true",
@@ -74,13 +79,11 @@ def run(argv=None):
     """Everything `main` does; returns the APCalculator holding the run's
     raw counters and sample count."""
     args = parse_args(argv)
-    if args.torch_checkpoint:
-        raise SystemExit("--torch-checkpoint (evaluating a reference .pth) "
-                         "is not ported yet: ROADMAP A12")
     if args.sharded:
         raise SystemExit("--sharded (the sharded eval path) is not ported "
                          "yet: ROADMAP A7")
 
+    from wireframe_tpu_torch.bridge import flatten_params
     from wireframe_tpu_torch.config import load_config
     from wireframe_tpu_torch.data.building3d import Building3DDataset
     from wireframe_tpu_torch.eval.evaluator import evaluate_model
@@ -90,15 +93,28 @@ def run(argv=None):
     from wireframe_tpu_torch.train.checkpoint import (
         apply_checkpoint_model_config,
         load_checkpoint,
+        load_torch_checkpoint_as_params,
     )
     from wireframe_tpu_torch.utils.platform import resolve_device
 
     dev = resolve_device(args.device)
     cfg = load_config(args.config, args.overrides)
     cfg.data.root_dir = resolve_data_root(args.data_root)
-    payload, meta = load_checkpoint(args.checkpoint_dir, args.step)
-    # The architecture comes from the checkpoint's metadata.
-    apply_checkpoint_model_config(cfg, meta)
+    if args.torch_checkpoint:
+        params, max_vertices = load_torch_checkpoint_as_params(
+            args.torch_checkpoint, num_heads=cfg.model.edge_num_heads)
+        payload = {"params": flatten_params(params)}
+        # The reference model's config: MLP head, prefix slots, raw
+        # intensity (it never rescales), V from the final layer.
+        cfg.data.max_vertices = max_vertices
+        cfg.model.vertex_head = "mlp"
+        cfg.model.slot_mask_mode = "prefix"
+        cfg.data.scale_intensity = False
+        cfg.__post_init__()
+    else:
+        payload, meta = load_checkpoint(args.checkpoint_dir, args.step)
+        # The architecture comes from the checkpoint's metadata.
+        apply_checkpoint_model_config(cfg, meta)
 
     dataset = Building3DDataset(cfg.data, args.split)
     ap = APCalculator(distance_thresh=cfg.eval.distance_thresh,

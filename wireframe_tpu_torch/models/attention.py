@@ -27,7 +27,7 @@ from torch import nn
 from wireframe_tpu_torch.models.layers import Dense
 
 
-def _in_dtype(value: float, dtype: torch.dtype) -> float:
+def in_dtype(value: float, dtype: torch.dtype) -> float:
     """`value` rounded to `dtype`, as a Python float."""
     return float(torch.tensor(value, dtype=torch.float32).to(dtype))
 
@@ -62,7 +62,7 @@ class MultiHeadDotProductAttention(nn.Module):
         v = self._heads(self.value(inputs_kv))
         # sqrt(hd) rounded to the module dtype, as a Python scalar: a
         # tensor built on the host would be a blocking copy every call.
-        q = q / _in_dtype(math.sqrt(self.head_dim), self.dtype)
+        q = q / in_dtype(math.sqrt(self.head_dim), self.dtype)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             logits = torch.where(
@@ -74,7 +74,7 @@ class MultiHeadDotProductAttention(nn.Module):
             keep = torch.rand((1, 1) + weights.shape[-2:],
                               generator=generator,
                               device=weights.device) < keep_prob
-            multiplier = keep.to(weights.dtype) / _in_dtype(keep_prob,
+            multiplier = keep.to(weights.dtype) / in_dtype(keep_prob,
                                                             weights.dtype)
             weights = weights * multiplier
         x = torch.einsum("bhqk,bkhd->bqhd", weights, v)

@@ -73,6 +73,7 @@ class PointCloudToWireframe(nn.Module):
                 kv_pool=cfg.decoder_kv_pool,
                 fused_cross_kv=cfg.decoder_fused_cross_kv,
                 scan=cfg.decoder_scan,
+                remat=cfg.decoder_remat,
             )
         self.edge_predictor = EdgePredictor(
             vertex_dim=3,

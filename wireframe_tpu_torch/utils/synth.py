@@ -109,3 +109,61 @@ def make_box_building_batch(cfg, batch_size: int, *, seed: int = 0,
         batch["edge_labels"][i, pair_slot(_BOX_EDGES[:, 0], _BOX_EDGES[:, 1],
                                           v)] = 1.0
     return batch
+
+
+def reference_state_dict(cfg, seed: int = 0) -> dict:
+    """Random weights in the layout of the reference's own PyTorch model
+    (`trained_model.pth`, which `train.checkpoint.torch_to_flax_params`
+    transplants into the parity model of `cfg.model`): every key the
+    transplant reads, as float32 numpy arrays from a numpy seed.  Linear
+    weights are (out, in) at 1/sqrt(in) scale, the attention's q/k/v
+    packed into one (3H, H) `in_proj_weight`; biases and LayerNorm affine
+    terms are nonzero so that a slip in any of them shows."""
+    m = cfg.model
+    r = np.random.default_rng(seed)
+    sd = {}
+
+    def linear(name, i, o):
+        sd[f"{name}.weight"] = r.normal(size=(o, i)) / np.sqrt(i)
+        sd[f"{name}.bias"] = r.normal(size=(o,)) * 0.1
+
+    def norm(name, d):
+        sd[f"{name}.weight"] = 1.0 + r.normal(size=(d,)) * 0.1
+        sd[f"{name}.bias"] = r.normal(size=(d,)) * 0.1
+
+    prev, c = m.input_dim, m.encoder_output_dim
+    for i, h in enumerate(m.encoder_hidden_dims):
+        linear(f"encoder.mlp.{4 * i}", prev, h)
+        norm(f"encoder.mlp.{4 * i + 1}", h)
+        prev = h
+    linear(f"encoder.mlp.{4 * len(m.encoder_hidden_dims)}", prev, c)
+    linear("encoder.feature_fusion.0", 2 * c, 4 * c)
+    norm("encoder.feature_fusion.1", 4 * c)
+    linear("encoder.feature_fusion.3", 4 * c, 2 * c)
+    norm("encoder.feature_fusion.4", 2 * c)
+    linear("encoder.feature_fusion.6", 2 * c, c)
+    vp = "vertex_predictor"
+    for k, (i, o) in enumerate(((c, 4096), (4096, 2048), (2048, 2048),
+                                (2048, 1024)), start=1):
+        linear(f"{vp}.vertex_mlp{k}.0", i, o)
+        norm(f"{vp}.vertex_mlp{k}.1", o)
+    linear(f"{vp}.residual_proj1", c, 2048)
+    linear(f"{vp}.residual_proj2", c, 1024)
+    linear(f"{vp}.point_pool_proj", 2 * c, c)
+    linear(f"{vp}.final_layer", 1024, m.max_vertices * m.vertex_dim)
+    h, e = m.edge_hidden_dim, "edge_predictor"
+    linear(f"{e}.vertex_proj.0", 3, h // 2)
+    norm(f"{e}.vertex_proj.1", h // 2)
+    linear(f"{e}.vertex_proj.3", h // 2, h)
+    norm(f"{e}.vertex_proj.4", h)
+    linear(f"{e}.attention.in_proj", h, 3 * h)
+    linear(f"{e}.attention.out_proj", h, h)
+    linear(f"{e}.edge_mlp.0", 2 * h + 2 * 3 + 1, h)
+    norm(f"{e}.edge_mlp.1", h)
+    linear(f"{e}.edge_mlp.4", h, h // 2)
+    norm(f"{e}.edge_mlp.5", h // 2)
+    linear(f"{e}.edge_mlp.8", h // 2, h // 4)
+    linear(f"{e}.edge_mlp.10", h // 4, 1)
+    sd[f"{e}.attention.in_proj_weight"] = sd.pop(f"{e}.attention.in_proj.weight")
+    sd[f"{e}.attention.in_proj_bias"] = sd.pop(f"{e}.attention.in_proj.bias")
+    return {k: v.astype(np.float32) for k, v in sd.items()}
