@@ -102,7 +102,20 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 forward batch): finite metrics, the two runs' vertices
                 within MODEL_ATOL; a scanned + fused recipe checkpoint
                 with its Adam state resumed twice to the same losses;
- 14. bench    — `wireframe_tpu_torch.bench`Then a `kernels` JSON line (launches on the main paths, on the corpus,
+ 14. parser   — every .xyz of the corpus phase's corpus read by the C++
+                parser (`io/native`, built with g++ into build/native/)
+                and by np.loadtxt: array_equal float64 arrays, ms per
+                file of each; the library loaded and no cloud of the
+                whole run read by numpy; on one served batch of the
+                corpus's model, the adjacency ops' round trip equal to
+                (p > t) on the card;
+ 15. study    — `tools.seed_study` on that corpus (seeds 0 and 1, 2
+                epochs, EMA and decoded; every subprocess on CUDA): 6
+                records, each naming the card; then `tools.study_report`
+                on them;
+ 16. bench    — `wireframe_tpu_torch.bench` and its four tools at the
+                bench's defaults (B=128 x 2560).
+Then a `kernels` JSON line (launches on the main paths, on the corpus,
 layouts, checkpoints and bench paths) and, last, the `ok` JSON line.
 
 Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
@@ -111,6 +124,7 @@ Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -2472,6 +2486,137 @@ def checkpoints_phase(torch, dev, card, work):
 
 
 # ---------------------------------------------------------------------------
+# Parser: the C++ .xyz parser on the corpus; the adjacency ops on the card
+# ---------------------------------------------------------------------------
+
+PARSER_PASSES = 3
+
+
+def parser_phase(torch, dev, card, work):
+    """Every .xyz of the corpus phase's corpus through the native parser
+    and np.loadtxt (array_equal, float64, ms per file); every cloud read
+    so far in this run went through the native parser; the adjacency ops
+    on one served batch of the corpus's trained model, on the card."""
+    import glob
+
+    from wireframe_tpu_torch.eval.evaluator import make_forward_fn
+    from wireframe_tpu_torch.io import native, xyz
+    from wireframe_tpu_torch.ops.adjacency import (
+        adjacency_from_edge_probs,
+        edge_probs_from_adjacency,
+    )
+    from wireframe_tpu_torch.train.checkpoint import load_checkpoint
+
+    if not native.loaded():
+        raise AssertionError(f"the native parser is not loaded: "
+                             f"{native.error()}")
+    reads = dict(xyz.READS)
+    print(f"parser: {native.library_path().name} loaded; reads so far in "
+          f"this run {reads}", flush=True)
+    if reads["numpy"] or not reads["native"]:
+        raise AssertionError(f"a cloud fell back to np.loadtxt: {reads}")
+    files = sorted(glob.glob(os.path.join(work, "corpus", "*", "xyz",
+                                          "*.xyz")))
+    secs = {"native": 0.0, "np.loadtxt": 0.0}
+    for _ in range(PARSER_PASSES):
+        t0 = time.perf_counter()
+        got = [xyz.read_xyz(f) for f in files]
+        secs["native"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [np.loadtxt(f, dtype=np.float64, ndmin=2) for f in files]
+        secs["np.loadtxt"] += time.perf_counter() - t0
+        for f, a, b in zip(files, got, want):
+            if a.dtype != np.float64 or not np.array_equal(a, b):
+                raise AssertionError(f"{f}: the parsers differ")
+    if xyz.READS["numpy"] != 0:
+        raise AssertionError(f"a corpus file fell back: {xyz.READS}")
+    ms = {k: v / (PARSER_PASSES * len(files)) * 1e3 for k, v in secs.items()}
+    points = sum(len(a) for a in got)
+    print(f"parser: {len(files)} corpus files ({points} points), "
+          f"{PARSER_PASSES} passes, array_equal float64; ms per file: "
+          f"native {ms['native']:.3f}, np.loadtxt {ms['np.loadtxt']:.3f}, "
+          f"ratio {ms['np.loadtxt'] / ms['native']:.2f}x [{card}]",
+          flush=True)
+
+    # Adjacency on one served batch: the corpus phase's EMA checkpoint
+    # serves the 8 test clouds; its pair probabilities go to the card.
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.data.building3d import (
+        Building3DDataset,
+        collate_fixed,
+    )
+
+    payload, _ = load_checkpoint(os.path.join(work, "corpus_ckpt", "ema"))
+    cfg = load_config(RECIPE, [f"data.root_dir={os.path.join(work, 'corpus')}"])
+    test_ds = Building3DDataset(cfg.data, "test")
+    samples = [test_ds.get_sample(i, rng=np.random.default_rng(
+        (cfg.data.seed, i)), augment_on_host=False)
+        for i in range(len(test_ds))]
+    out = make_forward_fn(cfg, payload["params"], dev)(
+        collate_fixed(samples, cfg.model.max_vertices)["point_clouds"])
+    p = torch.from_numpy(out["edge_probs"]).to(dev)
+    v = cfg.model.max_vertices
+    for t in (0.5, float(p.median())):
+        adj = adjacency_from_edge_probs(p, v, t)
+        back = edge_probs_from_adjacency(adj)
+        on = (p > t).to(torch.float32)
+        ok = (adj.device.type == dev.type and torch.equal(back, on)
+              and torch.equal(adj, adj.transpose(1, 2)))
+        print(f"parser: adjacency round trip on the card, batch "
+              f"{tuple(p.shape)}, V {v}, t {t:.6f}: {int(on.sum())} pairs "
+              f"on, equal to (p > t) {ok}", flush=True)
+        if not ok:
+            raise AssertionError("the adjacency round trip differs")
+
+
+# ---------------------------------------------------------------------------
+# Study: the port's seed study and study report on the corpus
+# ---------------------------------------------------------------------------
+
+STUDY_SEEDS = (0, 1)
+STUDY_EPOCHS = 2
+
+
+def study_phase(torch, dev, card, work):
+    """`tools.seed_study` over the corpus phase's corpus (seeds 0 and 1,
+    2 epochs, EMA and decoded, the default device: every subprocess on
+    CUDA), then `tools.study_report` on its records."""
+    from wireframe_tpu_torch.tools import seed_study, study_report
+
+    out = os.path.join(work, "study")
+    argv = ["--config", RECIPE, "--data-root", os.path.join(work, "corpus"),
+            "--out", out, "--seeds", ",".join(map(str, STUDY_SEEDS)),
+            "--tag", "s", "--set", f"train.num_epochs={STUDY_EPOCHS}",
+            "--eval-ema", "--decoded"]
+    said = []
+    for main_fn, args in ((seed_study.main, argv), (study_report.main, [
+            "--results", os.path.join(out, "results.jsonl"),
+            "--control", "s:ema", "--tags", "s:final"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn(args)
+        said.append(buf.getvalue())
+        print(said[-1].rstrip(), flush=True)
+        if rc != 0:
+            raise AssertionError(f"{main_fn.__module__} returned {rc}")
+    with open(os.path.join(out, "results.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    got = sorted((r["seed"], r["variant"]) for r in rows)
+    want = sorted((s, v) for s in STUDY_SEEDS
+                  for v in ("final", "ema", "decoded"))
+    # A failed subprocess raises (train, evaluate) or leaves its decoded
+    # record out with a warning (calibration): 6 records, no warning.
+    if got != want or "WARNING" in said[0]:
+        raise AssertionError(f"seed_study records {got}, expected {want}")
+    if any(r["device"] != card for r in rows):
+        raise AssertionError(f"records name {[r['device'] for r in rows]}, "
+                             f"not {card}")
+    if f"Paired vs control `s:ema` (n={len(STUDY_SEEDS)} seeds)" not in said[1]:
+        raise AssertionError("study_report did not pair the seeds")
+    print(f"study: {len(rows)} records, each on {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 # The bench's defaults (B=128 x 2560, bf16, the recipe) with fewer
 # iterations than its 30 / 20.
@@ -2769,6 +2914,18 @@ def main() -> int:
         ckpts = checkpoints_phase(torch, dev, card, work)
         print(f"checkpoints phase: {time.perf_counter() - t0:.1f} s "
               f"[{card}]", flush=True)
+
+        phase = "parser"
+        t0 = time.perf_counter()
+        parser_phase(torch, dev, card, work)
+        print(f"parser phase: {time.perf_counter() - t0:.1f} s [{card}]",
+              flush=True)
+
+        phase = "study"
+        t0 = time.perf_counter()
+        study_phase(torch, dev, card, work)
+        print(f"study phase: {time.perf_counter() - t0:.1f} s [{card}]",
+              flush=True)
 
         phase = "bench"
         t0 = time.perf_counter()

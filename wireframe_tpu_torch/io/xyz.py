@@ -1,21 +1,42 @@
 """`.xyz` LiDAR point-cloud ingest.
 
 File format (reference README.md:40-55): whitespace-separated rows of
-``X Y Z R G B A Intensity`` floats.  The port parses with ``np.loadtxt``
-only; the JAX package's C++ fast parser (`wireframe_tpu/io/native`) is
-not copied yet (ROADMAP queue A).  Both give identical float64 arrays.
+``X Y Z R G B A Intensity`` floats.  The primary path is the C++ parser
+(`wireframe_tpu_torch.io.native`, a single strtod pass over a read-once
+buffer); ``np.loadtxt`` is its plain version and the fallback for a file
+the C parser refuses (a ragged line).  Both give identical float64 arrays
+(`tests/test_torch_native.py`).  `READS` counts the files each parser
+read, so a caller can show that no file fell back.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
+from wireframe_tpu_torch.io import native
 
-def read_xyz(path: str) -> np.ndarray:
+READS = {"native": 0, "numpy": 0}
+_READS_LOCK = threading.Lock()     # the loader's threads read in parallel
+
+
+def _count(parser: str) -> None:
+    with _READS_LOCK:
+        READS[parser] += 1
+
+
+def read_xyz(path: str, use_native: bool = True) -> np.ndarray:
     """Read an .xyz file into an (N, C) float64 array.
 
     C is inferred from the first row (8 for the Building3D corpus).
     """
+    if use_native:
+        out = native.parse_xyz_native(path)
+        if out is not None:
+            _count("native")
+            return out
+    _count("numpy")
     return np.loadtxt(path, dtype=np.float64, ndmin=2)
 
 
