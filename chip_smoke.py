@@ -113,10 +113,30 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 epochs, EMA and decoded; every subprocess on CUDA): 6
                 records, each naming the card; then `tools.study_report`
                 on them;
- 16. bench    — `wireframe_tpu_torch.bench` and its four tools at the
+ 16. parallel — more than one device on the one card, within 90 s:
+                (a) `evaluate --sharded 4` of the corpus phase's EMA
+                checkpoint, shard by shard and pipelined: counters
+                array_equal to the plain runs', K1 once per forward
+                batch, clouds/s of each; (b) the recipe's data-parallel
+                step (batch 8 x 2560, constant LR) through a real NCCL
+                group of one rank: params array_equal to the plain step's
+                after each of 3 steps, K2 / K3 / K4 once per step, the
+                collective audit; (c) two ranks sharing the card over
+                gloo, the recipe at full width on a global batch of
+                16 x 2560 (device augmentation on, dropout off, targets
+                next to predicted slots) against one process on the 16
+                rows: step 1's losses and params within the JAX mesh
+                test's bounds, the largest param difference over 5 steps,
+                K2 / K3 / K4 once per step on each rank; (d)
+                `sharded_point_pools` at mp = 2, (3, 16384), K1 once per
+                rank, against the unsharded K1 call.  A rank's non-zero
+                exit fails the phase.  NCCL across two cards needs a
+                machine with two;
+ 17. bench    — `wireframe_tpu_torch.bench` and its four tools at the
                 bench's defaults (B=128 x 2560).
 Then a `kernels` JSON line (launches on the main paths, on the corpus,
-layouts, checkpoints and bench paths) and, last, the `ok` JSON line.
+layouts, checkpoints, parallel and bench paths) and, last, the `ok` JSON
+line.
 
 Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
 """
@@ -2618,6 +2638,384 @@ def study_phase(torch, dev, card, work):
 
 # ---------------------------------------------------------------------------
 
+PARALLEL_SHARDS = 4
+PARALLEL_NCCL_STEPS = 3
+PARALLEL_STEPS = 5
+PARALLEL_POOLS = (3, 16384)
+PARALLEL_POOL_TILE = 512            # K1's tile in the K1 phase
+PARALLEL_BUDGET_S = 90.0
+PARALLEL_SEED = 5
+# Two ranks (8 rows each) against one process on the global batch of
+# 16, step 1: the JAX package's own bounds for a mesh step against the
+# one-device step (tests/test_sharding.py:228-284), the elementwise
+# losses at bf16's rtol 1e-4; the vertex loss 1e-2, that test's allowance
+# for a matcher near-tie; params 2.5e-3, its bound for one Adam step.
+DP_RTOL = {"existence_loss": 1e-4, "edge_loss": 1e-4, "vertex_loss": 1e-2}
+DP_PARAM_ATOL = 2.5e-3
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# The command line of one rank (`rank_main`), from the repository root.
+RANK_ARGV = ["-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.rank_main(sys.argv[1]))"]
+
+
+def _run_ranks(task, world, work, timeout):
+    """Start `rank_main(task)` as `world` processes with torchrun's
+    environment (a free localhost port); echo their output; fail on a
+    rank's non-zero exit or timeout.  Returns each rank's result."""
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), CHIP_SMOKE_OUT=os.path.join(
+                       work, f"{task}_{rank}.json"))
+        procs.append(subprocess.Popen(
+            [sys.executable, *RANK_ARGV, task],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.rstrip().splitlines():
+            print(f"  [{task} rank {rank}] {line}", flush=True)
+    failed = [(r, p.returncode) for r, p in enumerate(procs)
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"{task} ranks exited non-zero: {failed}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(work, f"{task}_{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _sharded_eval(torch, dev, card, work):
+    """`evaluate --sharded 4` of the corpus phase's EMA checkpoint, shard
+    by shard and pipelined, against the plain runs: counters
+    array_equal; K1 launches; clouds/s.  Returns K1's launches."""
+    from wireframe_tpu_torch import evaluate as evaluate_cli
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.data.building3d import Building3DDataset
+    from wireframe_tpu_torch.eval.distributed import counters_vector
+    from wireframe_tpu_torch.train.checkpoint import (
+        apply_checkpoint_model_config,
+        load_checkpoint,
+    )
+
+    root = os.path.join(work, "corpus")
+    ema = os.path.join(work, "corpus_ckpt", "ema")
+    cfg = load_config(RECIPE, [f"data.root_dir={root}"])
+    payload, meta = load_checkpoint(ema)
+    apply_checkpoint_model_config(cfg, meta)
+    test_ds = Building3DDataset(cfg.data, "test")
+    n = len(test_ds)
+    vthresh, ethresh = _eval_thresholds(torch, cfg, payload["params"],
+                                        test_ds, dev)
+    base = (["--config", RECIPE, "--data-root", root, "--checkpoint-dir",
+             ema, "--device", str(dev)]
+            + _sets([f"eval.vertex_existence_thresh={vthresh!r}",
+                     f"eval.edge_confidence_thresh={ethresh!r}",
+                     "eval.batch_size=8"]))
+    per_shard = -(-n // PARALLEL_SHARDS)
+    k1 = 0
+    for path, extra, forwards in (
+            ("shard by shard", [], {"plain": 1, "sharded": PARALLEL_SHARDS}),
+            ("pipelined", ["--pipelined", "--eval-batch", "8"],
+             {"plain": 1, "sharded": 1})):
+        vecs = {}
+        for run, flags in (("plain", []),
+                           ("sharded", ["--sharded", str(PARALLEL_SHARDS)])):
+            reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                ap = evaluate_cli.run(base + extra + flags)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = launch_counts()["K1"]
+            if run == "sharded":
+                k1 += launches
+            vecs[run] = counters_vector(ap)
+            print(f"parallel (a) evaluate {path} {run}"
+                  f"{f' --sharded {PARALLEL_SHARDS}' if flags else ''}: "
+                  f"{n / secs:.2f} clouds/s (CLI wall {secs:.2f} s over {n} "
+                  f"clouds, {per_shard} a shard); K1 launches {launches} "
+                  f"for {forwards[run]} forward batches [{card}]",
+                  flush=True)
+            if launches != forwards[run]:
+                raise AssertionError(f"evaluate {path} {run}: {launches} K1 "
+                                     "launches")
+        same = bool(np.array_equal(vecs["sharded"], vecs["plain"]))
+        print(f"parallel (a) {path}: counters {vecs['sharded'].tolist()}, "
+              f"array_equal to the plain run's {same}", flush=True)
+        if not same:
+            raise AssertionError(f"sharded {path} counters "
+                                 f"{vecs['sharded']} != {vecs['plain']}")
+    return k1
+
+
+def parallel_phase(torch, dev, card, work):
+    """More than one device on one card: (a) sharded eval in this
+    process; (b) the dp step through a real NCCL group of one rank; (c)
+    two ranks over gloo on the card against one process; (d) point-
+    sharded pooling at mp = 2 through K1.  Returns {kernel: launches}."""
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in _counters()}
+    launches["K1"] += _sharded_eval(torch, dev, card, work)
+
+    (nccl,) = _run_ranks("nccl", 1, work, timeout=PARALLEL_BUDGET_S)
+    print(f"parallel (b) NCCL, world size 1, {nccl['batch']}: params "
+          f"array_equal to the plain step's after each of "
+          f"{PARALLEL_NCCL_STEPS} steps {nccl['equal']}; ms per dp step "
+          f"{nccl['ms']} (plain {nccl['plain_ms']}) [{card}]", flush=True)
+    print(f"parallel (b) collective audit of a dp step: {nccl['audit']}",
+          flush=True)
+    if not all(nccl["equal"]):
+        raise AssertionError("the NCCL dp step moved the params off the "
+                             "plain step's")
+    if nccl["step_launches"] != [{"K2": 1, "K3": 1, "K4": 1}] * \
+            PARALLEL_NCCL_STEPS:
+        raise AssertionError(f"NCCL dp step launches "
+                             f"{nccl['step_launches']}")
+
+    ranks = _run_ranks("gloo", 2, work, timeout=PARALLEL_BUDGET_S)
+    first = ranks[0]
+    print(f"parallel (c) two ranks over gloo on one card, global batch "
+          f"{first['batch']}: step 1 losses {first['dp_losses']} vs one "
+          f"process {first['ref_losses']} (rtol {DP_RTOL}); largest param "
+          f"difference after steps 1..{PARALLEL_STEPS} "
+          f"{first['param_diff']} (step 1 atol {DP_PARAM_ATOL}); ms per "
+          f"step, two ranks sharing the card (contended, not scaling) "
+          f"{[r['ms'] for r in ranks]}, one process at 16 rows "
+          f"{first['ref_ms']} [{card}]", flush=True)
+    for r, res in enumerate(ranks):
+        want = [{"K2": 1, "K3": 1, "K4": 1}] * PARALLEL_STEPS
+        if res["step_launches"] != want:
+            raise AssertionError(f"rank {r} launches per dp step "
+                                 f"{res['step_launches']}")
+        for k in ("K2", "K3", "K4"):
+            launches[k] += sum(s[k] for s in res["step_launches"])
+        if res["pool_launches"] != 1:
+            raise AssertionError(f"rank {r}: K1 launched "
+                                 f"{res['pool_launches']} times in (d)")
+        launches["K1"] += res["pool_launches"]
+    for k in ("K2", "K3", "K4"):
+        launches[k] += sum(s[k] for s in nccl["step_launches"])
+    print(f"parallel (d) sharded_point_pools at mp=2, {PARALLEL_POOLS}: "
+          f"largest difference from the unsharded K1 call "
+          f"{first['pool_err']} (K1's tolerance rtol {K1_RTOL} atol "
+          f"{K1_ATOL}) [{card}]", flush=True)
+    secs = time.perf_counter() - t0
+    print(f"parallel phase: {secs:.1f} s (budget {PARALLEL_BUDGET_S:.0f} s); "
+          f"launches {launches} [{card}]", flush=True)
+    if secs > PARALLEL_BUDGET_S:
+        raise AssertionError(f"parallel phase took {secs:.1f} s")
+    return launches
+
+
+def _rank_setup(torch, backend, device):
+    """Join the group the environment describes; the card's settings as
+    main() sets them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from wireframe_tpu_torch.parallel.mesh import init_distributed
+
+    return init_distributed(backend=backend, device=device)
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _nccl_rank(torch):
+    """(b): the recipe's dp step through an NCCL group of one rank against
+    the plain step, batch 8 x 2560, constant LR (so the updates are not
+    0), 3 steps: the params must be array_equal after each."""
+    import torch.distributed as dist
+
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.parallel.collective_audit import (
+        audit_train_step_collectives,
+    )
+    from wireframe_tpu_torch.train.loop import device_batch, init_model
+    from wireframe_tpu_torch.train.state import create_train_state
+    from wireframe_tpu_torch.train.step import make_train_step
+    from wireframe_tpu_torch.utils.synth import make_box_building_batch
+
+    dev = _rank_setup(torch, None, None)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"{dist.get_backend()} x "
+                             f"{dist.get_world_size()}, not NCCL x 1")
+    cfg = load_config(RECIPE, ["train.lr_schedule=constant"])
+    batch = device_batch(make_box_building_batch(
+        cfg, cfg.train.batch_size, seed=PARALLEL_SEED), dev)
+    plain = create_train_state(cfg, init_model(cfg, dev, seed=SERVE_SEED))
+    dp = create_train_state(cfg, init_model(cfg, dev, seed=SERVE_SEED))
+    step = make_train_step(cfg)
+    equal, ms, plain_ms, step_launches, audit = [], [], [], [], None
+    for i in range(PARALLEL_NCCL_STEPS):
+        _, t = _timed(torch, lambda: step(
+            plain, batch, torch.Generator(device=dev).manual_seed(i)))
+        plain_ms.append(round(t, 2))
+        reset_launches()
+        (log, _), t = _timed(torch, lambda: audit_train_step_collectives(
+            cfg, dp, batch, torch.Generator(device=dev).manual_seed(i)))
+        ms.append(round(t, 2))
+        counts = launch_counts()
+        step_launches.append({k: counts[k] for k in ("K2", "K3", "K4")})
+        audit = audit or [(c.op, c.dtype, list(c.shape), c.bytes)
+                          for c in log]
+        equal.append(all(torch.equal(a, b) for a, b in zip(
+            plain.model.parameters(), dp.model.parameters())))
+    b, n = batch["point_clouds"].shape[:2]
+    return {"equal": equal, "ms": ms, "plain_ms": plain_ms,
+            "audit": audit, "batch": f"{b} x {n}",
+            "step_launches": step_launches}
+
+
+def _gloo_rank(torch):
+    """(c) and (d) on one rank of two sharing the card over gloo."""
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.ops.fused_encoder import fused_point_encoder
+    from wireframe_tpu_torch.parallel.collective_audit import all_reduce
+    from wireframe_tpu_torch.parallel.mesh import (
+        DataParallel,
+        local_rows,
+        world,
+    )
+    from wireframe_tpu_torch.parallel.multihost import replicate_across_hosts
+    from wireframe_tpu_torch.parallel.sharded_pool import sharded_point_pools
+    from wireframe_tpu_torch.train.loop import device_batch, init_model
+    from wireframe_tpu_torch.train.state import create_train_state
+    from wireframe_tpu_torch.train.step import make_train_step
+    from wireframe_tpu_torch.utils.synth import (
+        make_box_building_batch,
+        targets_near_slots,
+    )
+
+    dev = _rank_setup(torch, "gloo", "cuda:0")
+    rank, size = world()
+    # The shipped recipe at full width, 8 rows a rank; dropout off (the
+    # masks are drawn on each rank's own shapes), device augmentation on,
+    # constant LR so that step 1 moves the params.
+    cfg = load_config(RECIPE, ["train.lr_schedule=constant",
+                               "model.attn_dropout=0", "model.edge_dropout=0",
+                               f"train.batch_size={8 * size}"])
+    model = init_model(cfg, dev, seed=SERVE_SEED)
+    batch = targets_near_slots(cfg, model, make_box_building_batch(
+        cfg, cfg.train.batch_size, seed=PARALLEL_SEED), PARALLEL_SEED,
+        device=dev)
+    state = create_train_state(cfg, model)
+    for tree in (state.model, state.mu, state.nu, state.ema_params):
+        replicate_across_hosts(tree)
+    out = {"batch": f"{cfg.train.batch_size} x {cfg.data.num_points}",
+           "ms": [], "step_launches": [], "param_diff": [], "ref_ms": []}
+    if rank == 0:
+        # One process on the global batch, each step's params kept.
+        ref = create_train_state(cfg, init_model(cfg, dev, seed=SERVE_SEED))
+        ref_step = make_train_step(cfg)
+        ref_batch = device_batch(batch, dev)
+        ref_gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+        ref_params = []
+        for i in range(PARALLEL_STEPS):
+            (_, m), t = _timed(torch, lambda: ref_step(ref, ref_batch,
+                                                       ref_gen))
+            out["ref_ms"].append(round(t, 2))
+            ref_params.append([p.detach().clone()
+                               for p in ref.model.parameters()])
+            if i == 0:
+                out["ref_losses"] = {k: float(m[k]) for k in DP_RTOL}
+        del ref
+    all_reduce(torch.zeros(1, device=dev))      # rank 0's reference done
+    step = make_train_step(cfg, dp=DataParallel.of_group())
+    mine = device_batch(local_rows(batch, rank, size), dev)
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+    for i in range(PARALLEL_STEPS):
+        reset_launches()
+        (_, m), t = _timed(torch, lambda: step(state, mine, gen))
+        out["ms"].append(round(t, 2))
+        counts = launch_counts()
+        out["step_launches"].append({k: counts[k] for k in ("K2", "K3",
+                                                            "K4")})
+        if rank == 0:
+            diff = max(float((a.detach() - b).abs().max()) for a, b in zip(
+                state.model.parameters(), ref_params[i]))
+            out["param_diff"].append(diff)
+            if i == 0:
+                out["dp_losses"] = {k: float(m[k]) for k in DP_RTOL}
+                for k, rtol in DP_RTOL.items():
+                    if not math.isclose(out["dp_losses"][k],
+                                        out["ref_losses"][k], rel_tol=rtol):
+                        raise AssertionError(
+                            f"step 1 {k}: two ranks {out['dp_losses'][k]}, "
+                            f"one process {out['ref_losses'][k]}")
+                if diff > DP_PARAM_ATOL:
+                    raise AssertionError(f"step 1 params differ by {diff}")
+
+    # (d) point-sharded pools at mp = 2 through K1, each rank its half.
+    rng = np.random.default_rng(PARALLEL_SEED)
+    stages, fw, fb = recipe_encoder_params(torch, rng, dev)
+    x = torch.tensor(padded_clouds(rng, *PARALLEL_POOLS), device=dev)
+    reset_launches()
+    pools = sharded_point_pools(x, stages, fw, fb, tile=PARALLEL_POOL_TILE)
+    torch.cuda.synchronize()
+    out["pool_launches"] = launch_counts()["K1"]
+    if rank == 0:
+        whole = fused_point_encoder(x, stages, fw, fb,
+                                    tile=PARALLEL_POOL_TILE)
+        err = 0.0
+        for k, got in pools.items():
+            want = whole[k]
+            err = max(err, float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL):
+                raise AssertionError(f"sharded pool {k} differs from K1's")
+        out["pool_err"] = err
+    return out
+
+
+def rank_main(task: str) -> int:
+    """One rank of the parallel phase (`task` "nccl" or "gloo"), started
+    by `_run_ranks` with torchrun's environment; writes its result as
+    JSON to $CHIP_SMOKE_OUT.  Exits 1 on any failure."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        out = {"nccl": _nccl_rank, "gloo": _gloo_rank}[task](torch)
+        with open(os.environ["CHIP_SMOKE_OUT"], "w") as f:
+            json.dump(out, f)
+        return 0
+    except Exception:
+        traceback.print_exc()
+        return 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+
 # The bench's defaults (B=128 x 2560, bf16, the recipe) with fewer
 # iterations than its 30 / 20.
 BENCH_ENV = {"BENCH_ITERS": "10", "BENCH_LAT_ITERS": "10"}
@@ -2927,6 +3325,9 @@ def main() -> int:
         print(f"study phase: {time.perf_counter() - t0:.1f} s [{card}]",
               flush=True)
 
+        phase = "parallel"
+        parallel = parallel_phase(torch, dev, card, work)
+
         phase = "bench"
         t0 = time.perf_counter()
         bench = bench_phase(torch, dev, card, work)
@@ -2943,6 +3344,7 @@ def main() -> int:
             "launches": launches, "corpus_launches": corpus["K1"],
             "layouts_launches": layouts["K1"],
             "checkpoints_launches": ckpts["K1"],
+            "parallel_launches": parallel["K1"],
             "bench_launches": bench["K1"],
             "max_abs_err": k1_abs,
             "shape": f"B={b} N={n} kv_pool=4", "ms": ms,
@@ -2961,6 +3363,7 @@ def main() -> int:
                             "corpus_launches": corpus[key],
                             "layouts_launches": layouts[key],
                             "checkpoints_launches": ckpts[key],
+                            "parallel_launches": parallel[key],
                             "bench_launches": bench[key], **fields,
                             "library_ms": None})
         for key, count, name, replaces in (
@@ -2975,6 +3378,7 @@ def main() -> int:
                             "corpus_launches": corpus[count],
                             "layouts_launches": layouts[count],
                             "checkpoints_launches": ckpts[count],
+                            "parallel_launches": parallel[count],
                             "bench_launches": bench[count],
                             **k5[key], "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)

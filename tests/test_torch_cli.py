@@ -6,8 +6,10 @@
   the finished run leaves every file untouched; a bad `--data-root` gives
   the JAX CLI's SystemExit text.
 - `evaluate` reads the checkpoint and prints the 8 metric lines;
-  `--sharded` exits naming its ROADMAP item (`--torch-checkpoint` is
-  held to the JAX evaluate.py in tests/test_torch_pth_import.py).
+  `--sharded` with `--raw-points`, which the JAX evaluate.py refuses
+  too, exits before it reads anything (`--sharded` itself is held in
+  tests/test_torch_sharded_eval.py, `--torch-checkpoint` to the JAX
+  evaluate.py in tests/test_torch_pth_import.py).
 - `test` writes `.obj` files byte-equal to the JAX `test.py`'s from the
   same predictions (both packages' forwards replaced by one exact f32
   function of the cloud), in both slot-mask modes.
@@ -128,7 +130,9 @@ def test_evaluate_prints_the_metric_lines(trained, capsys):
     assert ap.num_samples == 4
 
 
-@pytest.mark.parametrize("flag,item", [(["--sharded", "2"], "ROADMAP A7")])
+@pytest.mark.parametrize("flag,item", [
+    (["--sharded", "2", "--raw-points"],
+     "--sharded does not support --raw-points yet")])
 def test_evaluate_refuses_unported_paths(flag, item):
     with pytest.raises(SystemExit, match=item):
         evaluate_cli.main(flag + ["--device", "cpu"])

@@ -7,6 +7,13 @@ applied consistently to the point clouds AND the target vertices.
 
 `augment_batch` draws from a `torch.Generator`; `augment_batch_from_draws`
 does the arithmetic, so tests can hand it the JAX package's draws.
+
+Under data parallelism (`rows`), each rank draws the flips, angles,
+noise and scales of the WHOLE batch from its generator, seeded as every
+other rank's, and applies its own rows' draws: the augmentation is the
+one-device run's.  The model's dropout masks, drawn per layer on each
+rank's own shapes after this, are not: a check that ranks reproduce the
+one-device step turns dropout off.
 """
 
 from __future__ import annotations
@@ -59,26 +66,33 @@ def augment_batch_from_draws(point_clouds: torch.Tensor,
 def augment_batch(generator: Optional[torch.Generator],
                   point_clouds: torch.Tensor, target_vertices: torch.Tensor,
                   rot_degrees: float = 5.0, jitter_std: float = 0.0,
-                  scale_range: float = 0.0
+                  scale_range: float = 0.0,
+                  rows: Optional[Tuple[int, int]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw the flips, angles, noise and scales from `generator` (on the
-    batch's device) and apply them; see `augment_batch_from_draws`."""
+    batch's device) and apply them; see `augment_batch_from_draws`.
+    rows: (first row, whole batch) when `point_clouds` are rows
+    first .. first + b of a larger batch: the whole batch's draws are
+    made and these rows' applied."""
     b = point_clouds.shape[0]
+    first, total = (0, b) if rows is None else rows
     dev = point_clouds.device
 
     def uniform(shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=generator,
                                            device=dev)
 
-    flip_x = torch.rand(b, generator=generator, device=dev) < 0.5
-    flip_y = torch.rand(b, generator=generator, device=dev) < 0.5
+    mine = slice(first, first + b)
+    flip_x = (torch.rand(total, generator=generator, device=dev) < 0.5)[mine]
+    flip_y = (torch.rand(total, generator=generator, device=dev) < 0.5)[mine]
     rot_rad = rot_degrees * math.pi / 180.0
-    angle = uniform((b,), -rot_rad, rot_rad)
+    angle = uniform((total,), -rot_rad, rot_rad)[mine]
     noise = None
     if jitter_std > 0.0:
-        noise = torch.randn(point_clouds.shape[:-1] + (3,),
-                            generator=generator, device=dev)
-    scale = (uniform((b, 1, 1), 1.0 - scale_range, 1.0 + scale_range)
+        noise = torch.randn((total,) + point_clouds.shape[1:-1] + (3,),
+                            generator=generator, device=dev)[mine]
+    scale = (uniform((total, 1, 1), 1.0 - scale_range,
+                     1.0 + scale_range)[mine]
              if scale_range > 0.0 else None)
     return augment_batch_from_draws(point_clouds, target_vertices, flip_x,
                                     flip_y, angle, noise, scale, jitter_std)

@@ -11,12 +11,14 @@ defaults (distance 1.0, edge confidence 0.5).
 Paths: the plain evaluator (host float64 Hausdorff), `--device-hausdorff`
 (float32 Hausdorff matrices in one padded device batch), `--raw-points`
 (full clouds, bucketed), `--pipelined` (the fixed-shape dispatch-ahead
-pipeline, counters equal to `--device-hausdorff`'s at the same batch).
-`--torch-checkpoint PTH` evaluates the reference's own `trained_model.pth`
-instead, transplanted into the parity model (MLP head, prefix slot
-masks, raw intensity, max_vertices from its final layer), as the
-repository's `evaluate.py` does.  Not ported yet, and refused:
-`--sharded` (ROADMAP A7).
+pipeline, counters equal to `--device-hausdorff`'s at the same batch),
+`--sharded N` (`eval.distributed.evaluate_model_sharded` in this
+process: N round-robin shards, evaluated shard by shard or, with
+`--pipelined`, in one pass; the counters equal the unsharded run's on
+the same path, bit for bit).  `--torch-checkpoint PTH` evaluates the
+reference's own `trained_model.pth` instead, transplanted into the
+parity model (MLP head, prefix slot masks, raw intensity, max_vertices
+from its final layer), as the repository's `evaluate.py` does.
 
 Runs on CUDA; `--device cpu` runs on the CPU.
 
@@ -46,8 +48,10 @@ def parse_args(argv=None):
                    help="evaluate on full unsampled clouds via bucketed "
                         "batching instead of num_points sampling")
     p.add_argument("--sharded", type=int, default=0, metavar="N",
-                   help="the sharded path: not ported yet (ROADMAP A7), "
-                        "refused")
+                   help="evaluate via the sharded path "
+                        "(eval.distributed.evaluate_model_sharded) with N "
+                        "shards; counters merge exactly, so metrics match "
+                        "the unsharded run")
     p.add_argument("--device-hausdorff", action="store_true",
                    help="compute pred-vs-GT edge Hausdorff matrices in one "
                         "padded device batch instead of host numpy")
@@ -79,13 +83,13 @@ def run(argv=None):
     """Everything `main` does; returns the APCalculator holding the run's
     raw counters and sample count."""
     args = parse_args(argv)
-    if args.sharded:
-        raise SystemExit("--sharded (the sharded eval path) is not ported "
-                         "yet: ROADMAP A7")
+    if args.sharded and args.raw_points:
+        raise SystemExit("--sharded does not support --raw-points yet")
 
     from wireframe_tpu_torch.bridge import flatten_params
     from wireframe_tpu_torch.config import load_config
     from wireframe_tpu_torch.data.building3d import Building3DDataset
+    from wireframe_tpu_torch.eval.distributed import evaluate_model_sharded
     from wireframe_tpu_torch.eval.evaluator import evaluate_model
     from wireframe_tpu_torch.eval.pipeline import evaluate_corpus_pipelined
     from wireframe_tpu_torch.main import resolve_data_root
@@ -121,7 +125,15 @@ def run(argv=None):
                       confidence_thresh=cfg.eval.edge_confidence_thresh)
     print(f"Evaluating {len(dataset)} samples from '{args.split}'"
           + (" (raw clouds, bucketed)" if args.raw_points else ""))
-    if args.pipelined:
+    if args.sharded:
+        evaluate_model_sharded(
+            cfg, payload["params"], dataset, n_shards=args.sharded,
+            device_hausdorff=args.device_hausdorff, verbose=True,
+            pipelined=args.pipelined,
+            pipeline_kwargs={"batch": args.eval_batch,
+                             "qmax": args.qmax, "emax": args.emax},
+            ap=ap, device=dev)
+    elif args.pipelined:
         if args.raw_points:
             raise SystemExit("--pipelined does not support --raw-points")
         stats = {}

@@ -17,6 +17,13 @@ Port of `wireframe_tpu/losses/wireframe_loss.py`:
 
 total = vertex_weight * (1) + existence_weight * (2) + edge_weight * (3).
 
+The terms are not normalised per sample: (1) divides by the batch's
+total matches, (2) by its B * V slots and (3) by B * max_b C(count_b, 2).
+So a loss over one rank's rows of a batch split across ranks takes the
+whole batch's normalisers (`norms`): each rank's loss is then its share
+of the whole batch's, the ranks' losses sum to it, and so do their
+gradients (`train.step.make_train_step` with `dp`).
+
 matcher: "auto", "pallas" and "device" take K4 (the JAX package's
 XLA-loop "device" solver gives the same assignments, `ops/lsa.py`);
 "scipy" detaches the square cost and solves it on the host.  No path
@@ -26,7 +33,7 @@ syncs with the host except "scipy".
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -110,15 +117,26 @@ def _matched_cols(pred_v, pred_p, tgt_v, counts, matcher: str):
         return out[:, :v]
 
 
+# (total_matches, max_pairs) of this batch's rows -> (total_matches,
+# max_pairs, batch size) of the whole batch.
+Norms = Callable[[torch.Tensor, torch.Tensor],
+                 Tuple[torch.Tensor, torch.Tensor, int]]
+
+
 def wireframe_loss(predictions: Dict[str, torch.Tensor],
                    targets: Dict[str, torch.Tensor],
-                   cfg: WireframeLossConfig = WireframeLossConfig()
+                   cfg: WireframeLossConfig = WireframeLossConfig(),
+                   norms: Optional[Norms] = None
                    ) -> Dict[str, torch.Tensor]:
     """
     predictions: vertices (B,V,3), existence_logits (B,V),
       existence_probabilities (B,V), edge_logits (B,E), pair_mask (B,E).
     targets: vertices (B,V,3) zero-padded, vertex_existence (B,V),
       edge_labels (B,E) on the global pair axis, vertex_counts (B,).
+    norms: None for a whole batch.  For some rows of a larger batch, a
+      function of these rows' matched-slot count and largest pair count
+      that returns the whole batch's (their SUM and MAX over its rows) and
+      its size; each term is then divided by the whole batch's normaliser.
     """
     pred_v = predictions["vertices"]
     pred_p = predictions["existence_probabilities"]
@@ -135,6 +153,10 @@ def wireframe_loss(predictions: Dict[str, torch.Tensor],
     per_coord = smooth_l1(pred_v - tgt_matched)
     per_coord = per_coord * matched[..., None].to(per_coord.dtype)
     total_matches = torch.sum(matched.to(torch.float32))
+    max_pairs = torch.amax(counts * (counts - 1) // 2).to(torch.float32)
+    batch = b
+    if norms is not None:
+        total_matches, max_pairs, batch = norms(total_matches, max_pairs)
     vertex_loss = torch.where(
         total_matches > 0,
         torch.sum(per_coord) / (3.0 * torch.clamp_min(total_matches, 1.0)),
@@ -145,8 +167,9 @@ def wireframe_loss(predictions: Dict[str, torch.Tensor],
         existence_labels = matched.to(torch.float32)
     else:
         existence_labels = targets["vertex_existence"].to(torch.float32)
-    existence_loss = torch.mean(
-        bce_with_logits(predictions["existence_logits"], existence_labels))
+    existence_loss = torch.sum(
+        bce_with_logits(predictions["existence_logits"], existence_labels)
+    ) / (batch * v)
 
     # ---- 3. Edge BCE (reference padded-mean semantics) --------------------
     edge_labels = targets["edge_labels"].to(torch.float32)
@@ -166,8 +189,7 @@ def wireframe_loss(predictions: Dict[str, torch.Tensor],
         edge_labels = edge_labels * pair_mask
     edge_bce = bce_with_logits(predictions["edge_logits"], edge_labels)
     masked_sum = torch.sum(edge_bce * pair_mask)
-    max_pairs = torch.amax(counts * (counts - 1) // 2).to(torch.float32)
-    denom = torch.clamp_min(b * max_pairs, 1.0)
+    denom = torch.clamp_min(batch * max_pairs, 1.0)
     edge_loss = torch.where(max_pairs > 0, masked_sum / denom,
                             torch.zeros((), dtype=masked_sum.dtype,
                                         device=dev))

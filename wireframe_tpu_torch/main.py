@@ -31,6 +31,14 @@ Runs on CUDA; `--device cpu` runs on the CPU with the kernels' plain
 versions.  Without a GPU and without `--device cpu` it raises before it
 reads or writes anything.
 
+On N GPUs, one process each: `torchrun --nproc_per_node N -m
+wireframe_tpu_torch.main ... --set parallel.dp=N` (or the default
+parallel.dp=-1).  Each process joins the group `torchrun` describes
+(`parallel.mesh.init_distributed`: NCCL on CUDA, gloo with `--device
+cpu`) and trains its rows of every global batch (`train.loop`); rank 0
+alone finds or generates the corpus and writes the metrics and the
+checkpoints.  Without `torchrun` nothing changes.
+
 Usage:
   python -m wireframe_tpu_torch.main [--config cfg.yaml] [--data-root PATH]
       [--checkpoint-dir DIR] [--set key=val ...] [--resume] [--device cpu]
@@ -101,9 +109,22 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
 
+    from wireframe_tpu_torch.parallel.mesh import init_distributed, world
+
+    dev = init_distributed(device=args.device)
+    rank, size = world()
+    try:
+        return _train(args, dev, rank, size)
+    finally:
+        if size > 1:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, dev, rank: int, size: int) -> int:
     from wireframe_tpu_torch.config import load_config
     from wireframe_tpu_torch.data.building3d import Building3DDataset
     from wireframe_tpu_torch.data.loader import BatchLoader, MixedBatchLoader
+    from wireframe_tpu_torch.parallel.collective_audit import all_reduce
     from wireframe_tpu_torch.train.checkpoint import (
         latest_step,
         restore_train_state,
@@ -116,11 +137,16 @@ def main(argv=None):
         maybe_wandb,
     )
     from wireframe_tpu_torch.train.state import create_train_state
-    from wireframe_tpu_torch.utils.platform import resolve_device
 
-    dev = resolve_device(args.device)
     cfg = load_config(args.config, args.overrides)
-    cfg.data.root_dir = resolve_data_root(args.data_root)
+    if rank == 0:
+        cfg.data.root_dir = resolve_data_root(args.data_root)
+    if size > 1:
+        # The other ranks look once rank 0 has found or made the corpus.
+        all_reduce(torch.zeros(1, device=dev))
+        if rank:
+            cfg.data.root_dir = resolve_data_root(args.data_root,
+                                                  allow_generate=False)
     cfg.train.checkpoint_dir = args.checkpoint_dir
 
     train_ds = Building3DDataset(cfg.data, "train")
@@ -156,19 +182,24 @@ def main(argv=None):
               f"checkpoints left untouched")
         return 0
 
+    # Only rank 0 writes: the metrics, the checkpoints, the W&B run.
+    writes = rank == 0
     run = maybe_wandb(config={
         "learning_rate": cfg.train.learning_rate,
         "architecture": "PointCloudToWireframe",
         "dataset": "Building3D",
         "epochs": cfg.train.num_epochs,
-    }) if args.wandb else None
+    }) if args.wandb and writes else None
     writer = MetricWriter(jsonl_path=os.path.join(
-        args.checkpoint_dir, "train_metrics.jsonl"), wandb_run=run)
+        args.checkpoint_dir, "train_metrics.jsonl"),
+        wandb_run=run) if writes else None
     anomaly = (torch.autograd.detect_anomaly(check_nan=True)
                if args.debug_nans else contextlib.nullcontext())
     with anomaly:
         state = train_model(cfg, loader, metric_writer=writer, state=state,
                             start_epoch=start_epoch, device=dev)
+    if not writes:
+        return 0
 
     epoch = max(start_epoch, cfg.train.num_epochs)
     path = save_checkpoint(args.checkpoint_dir, state, cfg, epoch=epoch)

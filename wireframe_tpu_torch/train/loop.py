@@ -1,4 +1,4 @@
-"""Training loop on one device.
+"""Training loop, on one device or data-parallel over a process group.
 
 Port of `wireframe_tpu/train/loop.py:train_model`: by default it takes
 ONE batch and overfits it for `num_epochs` steps (the reference regime,
@@ -21,8 +21,20 @@ with a fresh optimizer.
 
 `loader` is any iterable of numpy batch dicts holding `BATCH_KEYS` (a
 list of one batch will do in overfit mode); a loader with an `epoch`
-attribute is fast-forwarded to start_epoch.  Mesh placement (ROADMAP.md
-A7) is not ported.  The loop returns the final state.
+attribute is fast-forwarded to start_epoch.  The loop returns the final
+state.
+
+More than one device: in a process group (`parallel.mesh.
+init_distributed`, one process per GPU under `torchrun`), `cfg.parallel`
+is read through `parallel.mesh.resolve_layout` over the group's ranks,
+the counterpart of the JAX loop's `_make_batch_placer`.  Every rank
+builds the same loader (same seed, same order) and keeps its rows of
+each global batch (`local_rows`); the state is rank 0's, broadcast and
+checked at the start (`replicate_across_hosts`, also after a resume);
+the step is `make_train_step`'s data-parallel one.  Only rank 0 logs,
+writes the metrics, checkpoints and `best`.  Every rank must take part
+in every step, so dp x mp must be the world size, and `parallel.mp > 1`
+(point-parallel training, ROADMAP A7b) raises.
 """
 
 from __future__ import annotations
@@ -41,6 +53,13 @@ from wireframe_tpu_torch.bridge import (
     state_dict_to_flax,
 )
 from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
+from wireframe_tpu_torch.parallel.mesh import (
+    DataParallel,
+    local_rows,
+    resolve_layout,
+    world,
+)
+from wireframe_tpu_torch.parallel.multihost import replicate_across_hosts
 from wireframe_tpu_torch.train.checkpoint import (
     save_checkpoint,
     warm_start_params,
@@ -75,6 +94,29 @@ def epoch_seed(seed: int, start_epoch: int) -> int:
     return int(seq.generate_state(1)[0])
 
 
+def _data_parallel(cfg, batch_size: Optional[int] = None
+                  ) -> Optional[DataParallel]:
+    """This rank's `DataParallel` for training `cfg` in the default process
+    group at global batch `batch_size` (default `train.batch_size`), or
+    None on one device."""
+    if cfg.parallel.mp > 1:
+        raise NotImplementedError(
+            f"parallel.mp={cfg.parallel.mp}: point-parallel training is not "
+            "ported (ROADMAP A7b); train with parallel.mp=1, or pool a "
+            "sharded point axis with parallel.sharded_pool outside training")
+    size = world()[1]
+    layout = resolve_layout(cfg, size, batch_size)
+    if size == 1:
+        return None
+    dp = 1 if layout is None else layout[0]
+    if dp != size:
+        raise ValueError(
+            f"parallel.dp={cfg.parallel.dp} resolves to dp={dp} on {size} "
+            "ranks; every rank takes part in every step, so dp must be "
+            "the world size")
+    return DataParallel.of_group()
+
+
 def train_model(cfg, loader: Iterable, metric_writer=None,
                 state: Optional[TrainState] = None, start_epoch: int = 0,
                 device=None,
@@ -90,6 +132,15 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
     `.log(dict)`, called at the log points.
     """
     dev = resolve_device(device)
+    dp = _data_parallel(cfg, getattr(loader, "batch_size", None))
+    main = dp is None or dp.rank == 0
+
+    def place(batch):
+        if dp is not None:
+            batch = local_rows({k: batch[k] for k in BATCH_KEYS}, dp.rank,
+                               dp.size)
+        return device_batch(batch, dev)
+
     try:
         n_batches = len(loader)
     except TypeError:        # a loader without a length
@@ -108,10 +159,17 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
         if cfg.train.init_from:
             warm_start_params(state, cfg.train.init_from)
             logger.info("Initialized params from %s", cfg.train.init_from)
-    logger.info("Model parameters: %s",
-                f"{sum(p.numel() for p in state.model.parameters()):,}")
+    if dp is not None:
+        for tree in (state.model, state.mu, state.nu, state.ema_params):
+            if tree is not None:
+                replicate_across_hosts(tree)
+    if main:
+        logger.info("Model parameters: %s",
+                    f"{sum(p.numel() for p in state.model.parameters()):,}")
+        if dp is not None:
+            logger.info("Data-parallel training: dp=%d ranks", dp.size)
     state.model.train()
-    train_step = make_train_step(cfg, steps_per_epoch)
+    train_step = make_train_step(cfg, steps_per_epoch, dp=dp)
     optimizer = train_step.optimizer
 
     best_loss = float("inf")
@@ -119,7 +177,7 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
     best_params = None
     if hasattr(loader, "epoch"):
         loader.epoch = start_epoch      # deterministic data order on resume
-    fixed = (device_batch(next(iter(loader)), dev)
+    fixed = (place(next(iter(loader)))
              if cfg.train.overfit_one_batch else None)
 
     num_epochs = cfg.train.num_epochs
@@ -127,18 +185,18 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
     metrics = None
     for epoch in range(start_epoch, num_epochs):
         batches = [fixed] if fixed is not None else (
-            device_batch(b, dev) for b in loader)
+            place(b) for b in loader)
         is_log_epoch = (epoch % cfg.train.log_every == 0
                         or epoch == num_epochs - 1)
         pre_params = None
         for batch in batches:
-            if is_log_epoch and cfg.train.save_best:
+            if is_log_epoch and cfg.train.save_best and main:
                 # The step's metrics come from the PRE-update params.
                 pre_params = {k: p.detach().clone()
                               for k, p in state.params.items()}
             state, metrics = train_step(state, batch, generator)
 
-        if is_log_epoch and metrics is not None:
+        if is_log_epoch and metrics is not None and main:
             m = {k: float(v) for k, v in metrics.items()}
             if (cfg.train.save_best and pre_params is not None
                     and m["total_loss"] < best_loss):
@@ -164,13 +222,15 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
                     "best_loss": best_loss,
                     "best_vertex_rmse": best_rmse,
                 })
-        if every > 0 and (epoch + 1) % every == 0 and epoch + 1 < num_epochs:
+        if (main and every > 0 and (epoch + 1) % every == 0
+                and epoch + 1 < num_epochs):
             path = save_checkpoint(cfg.train.checkpoint_dir, state, cfg,
                                    epoch=epoch + 1)
             logger.info("Checkpoint written: %s", path)
 
-    logger.info("Training completed! Best loss: %.6f, Best RMSE: %.6f",
-                best_loss, best_rmse)
+    if main:
+        logger.info("Training completed! Best loss: %.6f, Best RMSE: %.6f",
+                    best_loss, best_rmse)
     if cfg.train.save_best and best_params is not None:
         path = cfg.train.checkpoint_dir + "/best"
         save_port_checkpoint(path, state_dict_to_flax(best_params, cfg.model),

@@ -14,6 +14,19 @@ Also the reference's monitoring metrics (train.py:148-151): the
 index-aligned vertex RMSE of sample 0's GT-count prefix, the batched
 Hungarian RMSE through the loss's matching, and the train-batch edge
 precision / recall / F1 against the labels the edge BCE used.
+
+Data parallelism (`dp`, a `parallel.mesh.DataParallel`): the counterpart
+of the JAX step on a mesh's dp axis, which computes exactly the
+one-device step on the global batch.  The step takes this rank's rows
+of the global batch; it augments them with the global batch's draws
+(`data.augment`), divides each loss term by the global batch's
+normaliser (`losses.wireframe_loss`: a SUM of the matched-slot counts
+and a MAX of the pair counts over the ranks), so the ranks' losses and
+gradients sum to the global batch's, and all-reduces the gradients as
+ONE flat buffer (parameter order) with SUM.  The clip, decay, Adam and
+EMA then run unchanged on every rank, which so holds identical params.
+The metrics are the global batch's, from one SUM of their partial sums.
+K2, K3 and K4 run per rank on the rows, unchanged.
 """
 
 from __future__ import annotations
@@ -27,14 +40,25 @@ from wireframe_tpu_torch.losses.wireframe_loss import (
     WireframeLossConfig,
     wireframe_loss,
 )
+from wireframe_tpu_torch.parallel.collective_audit import all_reduce
+from wireframe_tpu_torch.parallel.mesh import DataParallel, flat_apply
 from wireframe_tpu_torch.train.state import Optimizer, TrainState, global_norm
 
 BATCH_KEYS = ("point_clouds", "target_vertices", "vertex_existence",
               "vertex_counts", "edge_labels")
 
 
-def _monitor_metrics(pred_vertices, batch, matched_cols
-                     ) -> Dict[str, torch.Tensor]:
+# The partial sums the monitoring metrics are ratios of; a rank's sums
+# add up over the ranks to the global batch's.
+_SUMS = ("total_loss", "vertex_loss", "existence_loss", "edge_loss",
+         "sq0", "n0", "hsq", "hn", "tp", "pred_pos", "pos")
+
+
+def _metric_sums(pred_vertices, batch, losses, edge_probs,
+                 first: bool = True, thresh: float = 0.5) -> torch.Tensor:
+    """(len(_SUMS),) float32: the loss terms and the partial sums of the
+    monitoring metrics.  `first`: these rows hold the batch's sample 0,
+    whose prefix the index-aligned RMSE reads."""
     tgt = batch["target_vertices"]
     counts = batch["vertex_counts"].to(torch.int32)
     v = tgt.shape[1]
@@ -43,32 +67,44 @@ def _monitor_metrics(pred_vertices, batch, matched_cols
     # Index-aligned RMSE over sample 0's prefix (reference monitor).
     m0 = (slot < counts[0]).to(torch.float32)[:, None]
     diff0 = (pred_vertices[0] - tgt[0]) * m0
-    n0 = torch.clamp_min(torch.sum(m0) * 3.0, 1.0)
-    rmse0 = torch.sqrt(torch.sum(diff0 * diff0) / n0)
+    sq0, n0 = torch.sum(diff0 * diff0), torch.sum(m0) * 3.0
+    if not first:
+        sq0, n0 = torch.zeros_like(sq0), torch.zeros_like(n0)
 
     # Hungarian RMSE over the whole batch using the loss's matching.
+    matched_cols = losses["matched_cols"]
     matched = matched_cols < counts[:, None]
     safe = torch.where(matched, matched_cols,
                        torch.zeros_like(matched_cols)).long()
     tgt_m = torch.take_along_dim(tgt, safe[..., None], dim=1)
     d = (pred_vertices - tgt_m) * matched[..., None].to(torch.float32)
-    n = torch.clamp_min(torch.sum(matched.to(torch.float32)) * 3.0, 1.0)
-    h_rmse = torch.sqrt(torch.sum(d * d) / n)
-    return {"vertex_rmse": rmse0, "hungarian_rmse": h_rmse}
 
-
-def _edge_prf(edge_probs, losses, thresh: float = 0.5
-              ) -> Dict[str, torch.Tensor]:
-    labels = losses["edge_labels_eff"]
+    # Edge precision / recall against the labels the edge BCE used.
     mask = losses["pair_mask_eff"]
     pred_pos = (edge_probs > thresh).to(torch.float32) * mask
-    pos = labels * mask
-    tp = torch.sum(pred_pos * pos)
-    p = tp / torch.clamp_min(torch.sum(pred_pos), 1.0)
-    r = tp / torch.clamp_min(torch.sum(pos), 1.0)
-    f1 = 2.0 * p * r / torch.clamp_min(p + r, 1e-9)
-    return {"train_edge_precision": p, "train_edge_recall": r,
-            "train_edge_f1": f1}
+    pos = losses["edge_labels_eff"] * mask
+    return torch.stack([
+        losses["total_loss"].detach().float(),
+        losses["vertex_loss"].detach().float(),
+        losses["existence_loss"].detach().float(),
+        losses["edge_loss"].detach().float(),
+        sq0, n0, torch.sum(d * d),
+        torch.sum(matched.to(torch.float32)) * 3.0,
+        torch.sum(pred_pos * pos), torch.sum(pred_pos), torch.sum(pos)])
+
+
+def _metrics(sums: torch.Tensor) -> Dict[str, torch.Tensor]:
+    s = dict(zip(_SUMS, sums.unbind()))
+    p = s["tp"] / torch.clamp_min(s["pred_pos"], 1.0)
+    r = s["tp"] / torch.clamp_min(s["pos"], 1.0)
+    return {
+        "total_loss": s["total_loss"], "vertex_loss": s["vertex_loss"],
+        "existence_loss": s["existence_loss"], "edge_loss": s["edge_loss"],
+        "vertex_rmse": torch.sqrt(s["sq0"] / torch.clamp_min(s["n0"], 1.0)),
+        "hungarian_rmse": torch.sqrt(s["hsq"]
+                                     / torch.clamp_min(s["hn"], 1.0)),
+        "train_edge_precision": p, "train_edge_recall": r,
+        "train_edge_f1": 2.0 * p * r / torch.clamp_min(p + r, 1e-9)}
 
 
 def loss_config(cfg) -> WireframeLossConfig:
@@ -81,28 +117,38 @@ def loss_config(cfg) -> WireframeLossConfig:
         matched_existence_labels=t.matched_existence_labels)
 
 
-def make_train_step(cfg, steps_per_epoch: int = 1) -> Callable:
+def make_train_step(cfg, steps_per_epoch: int = 1,
+                    dp: Optional[DataParallel] = None) -> Callable:
     """Returns train_step(state, batch, generator) -> (state, metrics).
 
-    batch: the `BATCH_KEYS` tensors on the model's device; generator: a
-    torch.Generator on that device (augmentation and dropout draws).  The
-    state is updated in place and returned.
+    batch: the `BATCH_KEYS` tensors on the model's device (with `dp`,
+    this rank's rows of the global batch, `parallel.mesh.local_rows`);
+    generator: a torch.Generator on that device (augmentation and dropout
+    draws; with `dp`, seeded alike on every rank).  The state is updated
+    in place and returned.
     """
     loss_cfg = loss_config(cfg)
     do_augment = cfg.train.device_augment and cfg.data.augment
     optimizer = Optimizer(cfg, steps_per_epoch)
+
+    def global_norms(total_matches, max_pairs, local_batch):
+        return (all_reduce(total_matches.clone(), "sum"),
+                all_reduce(max_pairs.clone(), "max"),
+                local_batch * dp.size)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         point_clouds = batch["point_clouds"]
         target_vertices = batch["target_vertices"]
+        b = point_clouds.shape[0]
         if do_augment:
             point_clouds, target_vertices = augment_batch(
                 generator, point_clouds, target_vertices,
                 rot_degrees=cfg.train.aug_rot_degrees,
                 jitter_std=cfg.train.aug_jitter_std,
-                scale_range=cfg.train.aug_scale_range)
+                scale_range=cfg.train.aug_scale_range,
+                rows=None if dp is None else dp.rows(b))
         work = dict(batch, point_clouds=point_clouds,
                     target_vertices=target_vertices)
         preds = state.model(work["point_clouds"], work["vertex_counts"],
@@ -111,7 +157,9 @@ def make_train_step(cfg, steps_per_epoch: int = 1) -> Callable:
                    "vertex_existence": work["vertex_existence"],
                    "edge_labels": work["edge_labels"],
                    "vertex_counts": work["vertex_counts"]}
-        losses = wireframe_loss(preds, targets, loss_cfg)
+        norms = (None if dp is None else
+                 lambda t, m: global_norms(t, m, b))
+        losses = wireframe_loss(preds, targets, loss_cfg, norms=norms)
         params = state.params
         names = list(params)
         grads = torch.autograd.grad(losses["total_loss"],
@@ -121,20 +169,19 @@ def make_train_step(cfg, steps_per_epoch: int = 1) -> Callable:
         # jax.grad gives it.
         grads = {k: (g if g is not None else torch.zeros_like(params[k]))
                  for k, g in zip(names, grads)}
+        if dp is not None:
+            flat_apply(grads.values(), all_reduce)
         g_norm = global_norm(grads.values())
         optimizer.apply(state, grads, g_norm)
 
-        metrics = {
-            "total_loss": losses["total_loss"].detach(),
-            "vertex_loss": losses["vertex_loss"].detach(),
-            "existence_loss": losses["existence_loss"].detach(),
-            "edge_loss": losses["edge_loss"].detach(),
-            "grad_norm": g_norm,
-        }
         with torch.no_grad():
-            metrics.update(_monitor_metrics(preds["vertices"].detach(), work,
-                                            losses["matched_cols"]))
-            metrics.update(_edge_prf(preds["edge_probs"].detach(), losses))
+            sums = _metric_sums(preds["vertices"].detach(), work, losses,
+                                preds["edge_probs"].detach(),
+                                first=dp is None or dp.rank == 0)
+            if dp is not None:
+                all_reduce(sums)
+            metrics = _metrics(sums)
+        metrics["grad_norm"] = g_norm
         return state, metrics
 
     train_step.optimizer = optimizer

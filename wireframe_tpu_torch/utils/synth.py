@@ -10,6 +10,13 @@ cloud's centroid and max radius as the dataset does, and z-sorted.
 Both return host numpy arrays in the batch layout `train_step` consumes:
 point_clouds (B, N, D), target_vertices (B, V, 3) zero-padded,
 vertex_existence (B, V), vertex_counts (B,), edge_labels (B, E).
+
+`targets_near_slots` moves a batch's targets next to distinct slots a
+model predicts, for checks that compare two runs of one step: from an
+untrained model, whose slots sit away from the targets, the matching's
+L1 costs tie (two box corners that share x and y swap at no cost when
+both slots sit above them), and float noise between the two runs picks
+different optimal assignments (ROADMAP C1).
 """
 
 from __future__ import annotations
@@ -167,3 +174,44 @@ def reference_state_dict(cfg, seed: int = 0) -> dict:
     sd[f"{e}.attention.in_proj_weight"] = sd.pop(f"{e}.attention.in_proj.weight")
     sd[f"{e}.attention.in_proj_bias"] = sd.pop(f"{e}.attention.in_proj.bias")
     return {k: v.astype(np.float32) for k, v in sd.items()}
+
+
+def targets_near_slots(cfg, model, batch: dict, generator_seed: int, *,
+                       spread: float = 0.05, seed: int = 0,
+                       device="cpu") -> dict:
+    """`batch` with new targets: after the train step's device
+    augmentation (drawn, as the step draws it, from a generator on
+    `device` seeded `generator_seed`), target j of sample i sits `spread`
+    (a normal draw per coordinate) from a distinct slot that `model`
+    predicts in train mode for sample i's augmented cloud.  The
+    augmentation is linear in the targets; its per-sample matrix comes
+    from augmenting the unit vectors with the same draws.  Dropout must
+    be off for the prediction to be the step's."""
+    import torch
+
+    from wireframe_tpu_torch.data.augment import augment_batch
+
+    dev = torch.device(device)
+    pc = torch.from_numpy(batch["point_clouds"]).to(dev)
+    eye = torch.zeros(batch["target_vertices"].shape, device=dev)
+    eye[:, :3] = torch.eye(3, device=dev)
+    rot_t = eye
+    if cfg.train.device_augment and cfg.data.augment:
+        pc, rot_t = augment_batch(
+            torch.Generator(device=dev).manual_seed(generator_seed), pc, eye,
+            rot_degrees=cfg.train.aug_rot_degrees,
+            jitter_std=cfg.train.aug_jitter_std,
+            scale_range=cfg.train.aug_scale_range)
+    counts = batch["vertex_counts"]
+    with torch.no_grad():
+        pred = model(pc, torch.from_numpy(counts).to(dev),
+                     train=True)["vertices"].double().cpu().numpy()
+    rot_t = rot_t[:, :3].double().cpu().numpy()
+    rng = np.random.default_rng(seed)
+    out = dict(batch, target_vertices=np.zeros_like(
+        batch["target_vertices"]))
+    for i, c in enumerate(counts):
+        slots = rng.permutation(pred.shape[1])[:c]
+        near = pred[i, slots] + rng.normal(size=(c, 3)) * spread
+        out["target_vertices"][i, :c] = near @ np.linalg.inv(rot_t[i])
+    return out
