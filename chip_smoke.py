@@ -125,13 +125,21 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 gloo, the recipe at full width on a global batch of
                 16 x 2560 (device augmentation on, dropout off, targets
                 next to predicted slots) against one process on the 16
-                rows: step 1's losses and params within the JAX mesh
-                test's bounds, the largest param difference over 5 steps,
-                K2 / K3 / K4 once per step on each rank; (d)
-                `sharded_point_pools` at mp = 2, (3, 16384), K1 once per
-                rank, against the unsharded K1 call.  A rank's non-zero
-                exit fails the phase.  NCCL across two cards needs a
-                machine with two;
+                rows: step 1's losses within the JAX mesh test's bounds,
+                step 1's first moment (the gradient) within a relative L2
+                bound, the params after step k within 2.1 k lr, K2 / K3 /
+                K4 once per step on each rank; (d) `sharded_point_pools`
+                at mp = 2, (3, 16384), K1 once per rank, against the
+                unsharded K1 call; (e) point-parallel training, the same
+                two ranks at dp = 1 x mp = 2: the recipe at full width on
+                8 x 2560 (each rank 8 x 1280 through K2 / K3) and the
+                parity model on 3 x 2560 (K5), 3 steps each, against one
+                process on the same batch: the gathered KV tokens
+                array_equal to the one-process K2's, step 1's losses and
+                first moment and every step's params within the bounds of
+                (c), each kernel once per step on each rank.  A rank's
+                non-zero exit fails the phase.  NCCL across two cards
+                needs a machine with two;
  17. bench    — `wireframe_tpu_torch.bench` and its four tools at the
                 bench's defaults (B=128 x 2560).
 Then a `kernels` JSON line (launches on the main paths, on the corpus,
@@ -2649,9 +2657,24 @@ PARALLEL_SEED = 5
 # 16, step 1: the JAX package's own bounds for a mesh step against the
 # one-device step (tests/test_sharding.py:228-284), the elementwise
 # losses at bf16's rtol 1e-4; the vertex loss 1e-2, that test's allowance
-# for a matcher near-tie; params 2.5e-3, its bound for one Adam step.
+# for a matcher near-tie.
 DP_RTOL = {"existence_loss": 1e-4, "edge_loss": 1e-4, "vertex_loss": 1e-2}
-DP_PARAM_ATOL = 2.5e-3
+# Params after step k: Adam moves a parameter by at most about lr a step
+# (exactly at most lr at step 1, where the update is lr times the
+# gradient's sign; |mu_hat| / sqrt(nu_hat) stays within 1.01 over the
+# first 5 steps at b1 0.9, b2 0.999), so two runs whose gradients differ
+# only in float noise differ by at most 2 k lr after k steps; 5% slack.
+DP_PARAM_STEP_LRS = 2.1
+# Step 1's first moment (0.1 x the clipped gradient) against the one
+# process's: ||mu - mu_ref|| / ||mu_ref|| over every parameter.  The ranks
+# sum the same products in another order (f32) and bf16 GEMMs of other
+# row counts may round otherwise; a gradient counted twice would read
+# about 1.
+DP_MU_REL = 1e-2
+# (e): point-parallel training at dp = 1 x mp = 2 on the same two ranks.
+MP_STEPS = 3
+MP_RECIPE_ROWS = 8
+MP_PARITY_ROWS = 3
 
 
 def _free_port():
@@ -2795,16 +2818,26 @@ def parallel_phase(torch, dev, card, work):
         raise AssertionError(f"NCCL dp step launches "
                              f"{nccl['step_launches']}")
 
+    print(f"parallel (c)/(e) bounds: step-1 losses rtol {DP_RTOL}; step-1 "
+          f"first moment ||mu - mu_ref|| / ||mu_ref|| <= {DP_MU_REL}; params "
+          f"after step k within {DP_PARAM_STEP_LRS} k lr.  Prediction for "
+          f"(e): the gathered KV tokens array_equal to the one-process "
+          f"K2's (the chain is per point, the slice boundary is a multiple "
+          f"of the 256-row tile and of kv_pool, and a wgmma row's K order "
+          f"does not depend on M); step-1 losses within 1e-5 relative "
+          f"(only the masked mean's window sums add in another order); "
+          f"the first moment within 1e-3 relative [{card}]", flush=True)
     ranks = _run_ranks("gloo", 2, work, timeout=PARALLEL_BUDGET_S)
     first = ranks[0]
     print(f"parallel (c) two ranks over gloo on one card, global batch "
           f"{first['batch']}: step 1 losses {first['dp_losses']} vs one "
-          f"process {first['ref_losses']} (rtol {DP_RTOL}); largest param "
-          f"difference after steps 1..{PARALLEL_STEPS} "
-          f"{first['param_diff']} (step 1 atol {DP_PARAM_ATOL}); ms per "
-          f"step, two ranks sharing the card (contended, not scaling) "
-          f"{[r['ms'] for r in ranks]}, one process at 16 rows "
-          f"{first['ref_ms']} [{card}]", flush=True)
+          f"process {first['ref_losses']} (rtol {DP_RTOL}); step 1 first "
+          f"moment relative L2 difference {first['mu_rel']} (bound "
+          f"{DP_MU_REL}); largest param difference after steps "
+          f"1..{PARALLEL_STEPS} {first['param_diff']} (bounds "
+          f"{first['param_bounds']}); ms per step, two ranks sharing the "
+          f"card (contended, not scaling) {[r['ms'] for r in ranks]}, one "
+          f"process at 16 rows {first['ref_ms']} [{card}]", flush=True)
     for r, res in enumerate(ranks):
         want = [{"K2": 1, "K3": 1, "K4": 1}] * PARALLEL_STEPS
         if res["step_launches"] != want:
@@ -2822,6 +2855,35 @@ def parallel_phase(torch, dev, card, work):
           f"largest difference from the unsharded K1 call "
           f"{first['pool_err']} (K1's tolerance rtol {K1_RTOL} atol "
           f"{K1_ATOL}) [{card}]", flush=True)
+    mp_launches = [{k: 0 for k in launches} for _ in ranks]
+    for name in ("recipe", "parity"):
+        res = first["mp"][name]
+        print(f"parallel (e) {name} at dp=1 x mp=2 over gloo on one card, "
+              f"{res['batch']} ({res['slice']} a rank): "
+              + (f"gathered KV array_equal to one process's K2 "
+                 f"{res['kv_equal']} (largest difference "
+                 f"{res['kv_diff']}); " if "kv_equal" in res else "")
+              + f"step 1 losses {res['losses']} vs one process "
+              f"{res['ref_losses']}; first moment relative L2 "
+              f"{res['mu_rel']}; largest param difference after steps "
+              f"1..{MP_STEPS} {res['param_diff']} (bounds "
+              f"{res['param_bounds']}); ms per step, two ranks sharing the "
+              f"card (time-shared, not a scaling figure) "
+              f"{[r['mp'][name]['ms'] for r in ranks]}, one process "
+              f"{res['ref_ms']}; launches per rank "
+              f"{[r['mp'][name]['launches'] for r in ranks]} [{card}]",
+              flush=True)
+        for r, rres in enumerate(ranks):
+            for k, v in rres["mp"][name]["launches"].items():
+                mp_launches[r][k] += v
+                launches[k] += v
+    for r, counts in enumerate(mp_launches):
+        want = {"K1": 0, "K2": MP_STEPS, "K3": MP_STEPS, "K4": 2 * MP_STEPS,
+                "K5 fwd": MP_STEPS, "K5 bwd": MP_STEPS}
+        if counts != want:
+            raise AssertionError(f"rank {r} (e) launches {counts}, expected "
+                                 f"{want}")
+    launches["mp_per_rank"] = mp_launches
     secs = time.perf_counter() - t0
     print(f"parallel phase: {secs:.1f} s (budget {PARALLEL_BUDGET_S:.0f} s); "
           f"launches {launches} [{card}]", flush=True)
@@ -2899,11 +2961,7 @@ def _gloo_rank(torch):
     from wireframe_tpu_torch.config import load_config
     from wireframe_tpu_torch.ops.fused_encoder import fused_point_encoder
     from wireframe_tpu_torch.parallel.collective_audit import all_reduce
-    from wireframe_tpu_torch.parallel.mesh import (
-        DataParallel,
-        local_rows,
-        world,
-    )
+    from wireframe_tpu_torch.parallel.mesh import Layout, local_rows, world
     from wireframe_tpu_torch.parallel.multihost import replicate_across_hosts
     from wireframe_tpu_torch.parallel.sharded_pool import sharded_point_pools
     from wireframe_tpu_torch.train.loop import device_batch, init_model
@@ -2946,9 +3004,10 @@ def _gloo_rank(torch):
                                for p in ref.model.parameters()])
             if i == 0:
                 out["ref_losses"] = {k: float(m[k]) for k in DP_RTOL}
+                ref_mu = [t.clone() for t in ref.mu.values()]
         del ref
     all_reduce(torch.zeros(1, device=dev))      # rank 0's reference done
-    step = make_train_step(cfg, dp=DataParallel.of_group())
+    step = make_train_step(cfg, layout=Layout.of_group())
     mine = device_batch(local_rows(batch, rank, size), dev)
     gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
     for i in range(PARALLEL_STEPS):
@@ -2959,19 +3018,12 @@ def _gloo_rank(torch):
         out["step_launches"].append({k: counts[k] for k in ("K2", "K3",
                                                             "K4")})
         if rank == 0:
-            diff = max(float((a.detach() - b).abs().max()) for a, b in zip(
-                state.model.parameters(), ref_params[i]))
-            out["param_diff"].append(diff)
             if i == 0:
                 out["dp_losses"] = {k: float(m[k]) for k in DP_RTOL}
-                for k, rtol in DP_RTOL.items():
-                    if not math.isclose(out["dp_losses"][k],
-                                        out["ref_losses"][k], rel_tol=rtol):
-                        raise AssertionError(
-                            f"step 1 {k}: two ranks {out['dp_losses'][k]}, "
-                            f"one process {out['ref_losses'][k]}")
-                if diff > DP_PARAM_ATOL:
-                    raise AssertionError(f"step 1 params differ by {diff}")
+                _check_losses(out["dp_losses"], out["ref_losses"])
+                out["mu_rel"] = _check_mu(state.mu.values(), ref_mu)
+            _check_params(cfg, out, i, state.model.parameters(),
+                          ref_params[i])
 
     # (d) point-sharded pools at mp = 2 through K1, each rank its half.
     rng = np.random.default_rng(PARALLEL_SEED)
@@ -2991,7 +3043,132 @@ def _gloo_rank(torch):
             if not torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL):
                 raise AssertionError(f"sharded pool {k} differs from K1's")
         out["pool_err"] = err
+
+    out["mp"] = _mp_ranks(torch, dev, rank)
     return out
+
+
+def _check_losses(got, want):
+    for k, rtol in DP_RTOL.items():
+        if not math.isclose(got[k], want[k], rel_tol=rtol):
+            raise AssertionError(f"step 1 {k}: ranks {got[k]}, one process "
+                                 f"{want[k]}")
+
+
+def _check_mu(got, want):
+    """||got - want|| / ||want|| over every first-moment tensor, within
+    DP_MU_REL."""
+    num = sum(float(((a - b).double() ** 2).sum()) for a, b in zip(got, want))
+    den = sum(float((b.double() ** 2).sum()) for b in want)
+    rel = math.sqrt(num / den)
+    if rel > DP_MU_REL:
+        raise AssertionError(f"step 1 first moment differs by {rel} "
+                             f"relative (bound {DP_MU_REL})")
+    return rel
+
+
+def _check_params(cfg, out, i, got, want):
+    """The largest param difference after step i + 1, within
+    DP_PARAM_STEP_LRS (i + 1) lr; recorded into `out`."""
+    diff = max(float((a.detach() - b).abs().max()) for a, b in zip(got, want))
+    bound = DP_PARAM_STEP_LRS * (i + 1) * cfg.train.learning_rate
+    out.setdefault("param_diff", []).append(diff)
+    out.setdefault("param_bounds", []).append(bound)
+    if diff > bound:
+        raise AssertionError(f"params differ by {diff} after step {i + 1} "
+                             f"(bound {bound})")
+
+
+def _mp_ranks(torch, dev, rank):
+    """(e) on this rank: point-parallel training at dp = 1 x mp = 2, the
+    recipe and then the parity model, each against one process on the
+    same batch (rank 0).  Returns {model: result}."""
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.parallel.collective_audit import all_reduce
+    from wireframe_tpu_torch.parallel.mesh import Layout, local_rows
+    from wireframe_tpu_torch.parallel.multihost import replicate_across_hosts
+    from wireframe_tpu_torch.train.loop import device_batch, init_model
+    from wireframe_tpu_torch.train.state import create_train_state
+    from wireframe_tpu_torch.train.step import make_train_step
+    from wireframe_tpu_torch.utils.synth import (
+        make_box_building_batch,
+        targets_near_slots,
+    )
+
+    layout = Layout.of_group(mp=2)
+    results = {}
+    for name, config, sets, rows, kernels in (
+            ("recipe", RECIPE, [], MP_RECIPE_ROWS, ("K2", "K3", "K4")),
+            ("parity", PARITY, PARITY_SET, MP_PARITY_ROWS,
+             ("K5 fwd", "K5 bwd", "K4"))):
+        cfg = load_config(config, sets + [
+            "train.lr_schedule=constant", "model.attn_dropout=0",
+            "model.edge_dropout=0", f"train.batch_size={rows}",
+            "parallel.mp=2"])
+        model = init_model(cfg, dev, seed=SERVE_SEED)
+        batch = targets_near_slots(cfg, model, make_box_building_batch(
+            cfg, rows, seed=PARALLEL_SEED), PARALLEL_SEED, device=dev)
+        n = cfg.data.num_points
+        out = {"batch": f"{rows} x {n}", "slice": f"{rows} x {n // 2}",
+               "ms": [], "ref_ms": []}
+        whole = device_batch(batch, dev)
+        if cfg.model.vertex_head == "query":
+            # The KV tokens the encoder hands the decoder: gathered from
+            # the two slices' K2 against one K2 call over the whole cloud.
+            with torch.no_grad():
+                kv = model.encoder(whole["point_clouds"], train=True,
+                                   split=layout)[1]["kv"]
+                if rank == 0:
+                    ref_kv = model.encoder(whole["point_clouds"],
+                                           train=True)[1]["kv"]
+                    out["kv_equal"] = bool(torch.equal(kv, ref_kv))
+                    out["kv_diff"] = float((kv - ref_kv).abs().max())
+        if rank == 0:
+            ref = create_train_state(cfg, init_model(cfg, dev,
+                                                     seed=SERVE_SEED))
+            ref_step = make_train_step(cfg)
+            ref_gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+            ref_params = []
+            for i in range(MP_STEPS):
+                (_, m), t = _timed(torch, lambda: ref_step(ref, whole,
+                                                           ref_gen))
+                out["ref_ms"].append(round(t, 2))
+                ref_params.append([p.detach().clone()
+                                   for p in ref.model.parameters()])
+                if i == 0:
+                    out["ref_losses"] = {k: float(m[k]) for k in DP_RTOL}
+                    ref_mu = [t.clone() for t in ref.mu.values()]
+            del ref
+        state = create_train_state(cfg, model)
+        for tree in (state.model, state.mu, state.nu, state.ema_params):
+            if tree is not None:
+                replicate_across_hosts(tree)
+        all_reduce(torch.zeros(1, device=dev))  # rank 0's reference done
+        step = make_train_step(cfg, layout=layout)
+        mine = device_batch(local_rows(batch, layout.dp_rank, layout.dp),
+                            dev)
+        gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+        reset_launches()
+        for i in range(MP_STEPS):
+            (_, m), t = _timed(torch, lambda: step(state, mine, gen))
+            out["ms"].append(round(t, 2))
+            if rank == 0:
+                if i == 0:
+                    out["losses"] = {k: float(m[k]) for k in DP_RTOL}
+                    _check_losses(out["losses"], out["ref_losses"])
+                    out["mu_rel"] = _check_mu(state.mu.values(), ref_mu)
+                _check_params(cfg, out, i, state.model.parameters(),
+                              ref_params[i])
+        counts = launch_counts()
+        out["launches"] = counts
+        if any(counts[k] != MP_STEPS for k in kernels):
+            raise AssertionError(f"{name} at mp=2: launches {counts}")
+        if rank == 0 and "kv_equal" in out and not out["kv_equal"]:
+            raise AssertionError(f"gathered KV differs from one process's "
+                                 f"K2 by {out['kv_diff']}")
+        results[name] = out
+        del state, model
+    return results
 
 
 def rank_main(task: str) -> int:
@@ -3345,6 +3522,8 @@ def main() -> int:
             "layouts_launches": layouts["K1"],
             "checkpoints_launches": ckpts["K1"],
             "parallel_launches": parallel["K1"],
+            "mp_launches_per_rank": [
+                r["K1"] for r in parallel["mp_per_rank"]],
             "bench_launches": bench["K1"],
             "max_abs_err": k1_abs,
             "shape": f"B={b} N={n} kv_pool=4", "ms": ms,
@@ -3364,6 +3543,8 @@ def main() -> int:
                             "layouts_launches": layouts[key],
                             "checkpoints_launches": ckpts[key],
                             "parallel_launches": parallel[key],
+                            "mp_launches_per_rank": [
+                                r[key] for r in parallel["mp_per_rank"]],
                             "bench_launches": bench[key], **fields,
                             "library_ms": None})
         for key, count, name, replaces in (
@@ -3379,6 +3560,8 @@ def main() -> int:
                             "layouts_launches": layouts[count],
                             "checkpoints_launches": ckpts[count],
                             "parallel_launches": parallel[count],
+                            "mp_launches_per_rank": [
+                                r[count] for r in parallel["mp_per_rank"]],
                             "bench_launches": bench[count],
                             **k5[key], "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)

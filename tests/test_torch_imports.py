@@ -4,6 +4,9 @@
   flax, optax, orbax, the JAX package wireframe_tpu or the repository's
   JAX scripts (main, evaluate, test, bench, visualize, tools,
   __graft_entry__): the port's CLIs keep their own copies.
+- No module outside wireframe_tpu_torch/viz/ imports matplotlib (the
+  card's machine has none), and importing `viz` or `visualize` does not
+  import it either: `viz.plots` is loaded on first use.
 - With no GPU, the entry points raise unless the caller passes
   device="cpu"; chip_smoke.py exits nonzero and prints no `ok` line.
 """
@@ -11,6 +14,8 @@
 import ast
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -59,6 +64,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                              & FORBIDDEN)
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def test_only_viz_imports_matplotlib():
+    viz = os.path.join(ROOT, "wireframe_tpu_torch", "viz")
+    users = {os.path.relpath(p, ROOT) for p in _port_sources()
+             if "matplotlib" in set(_imported_roots(p))}
+    assert users == {"wireframe_tpu_torch/viz/plots.py"}
+    assert os.path.dirname(os.path.join(ROOT, sorted(users)[0])) == viz
+    code = ("import sys, wireframe_tpu_torch, wireframe_tpu_torch.viz, "
+            "wireframe_tpu_torch.visualize, wireframe_tpu_torch.main; "
+            "assert 'matplotlib' not in sys.modules, 'imported'; "
+            "from wireframe_tpu_torch.viz import plot_wireframe; "
+            "assert 'matplotlib' in sys.modules")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 @pytest.fixture

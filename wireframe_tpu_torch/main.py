@@ -37,7 +37,14 @@ parallel.dp=-1).  Each process joins the group `torchrun` describes
 (`parallel.mesh.init_distributed`: NCCL on CUDA, gloo with `--device
 cpu`) and trains its rows of every global batch (`train.loop`); rank 0
 alone finds or generates the corpus and writes the metrics and the
-checkpoints.  Without `torchrun` nothing changes.
+checkpoints.  `--set parallel.mp=M` splits each cloud's points over M
+ranks as well (point-parallel training): the N ranks form dp = N / M
+row blocks of M, world rank r at dp index r // M and mp index r % M;
+data.num_points / M must be a multiple of the training chain's tile
+(model.pallas_chain_tile) where the chain runs, and of the query head's
+decoder_kv_pool.  E.g. on the CPU: `torchrun --nproc_per_node 2 -m
+wireframe_tpu_torch.main ... --set parallel.mp=2 --device cpu`.
+Without `torchrun` nothing changes.
 
 Usage:
   python -m wireframe_tpu_torch.main [--config cfg.yaml] [--data-root PATH]

@@ -17,6 +17,23 @@ module routes them:
   without kv_pool the pools stay eager, so their gradients (ties split
   evenly, as `jnp.max`'s) are autograd's;
 - otherwise the plain chain plus masked pools, differentiated by autograd.
+
+Point-parallel training (`split`, a `parallel.mesh.Layout` with mp > 1):
+every rank of an mp group holds the whole (augmented, z-sorted) cloud,
+decides the path on the whole cloud's N as above, and runs the chain (or
+the plain chain, where that is the path) on its contiguous slice of
+N / mp points; the collectives of `parallel.collective_audit` then give
+every rank of the group the one-process outputs:
+- with kv_pool: the pooled KV is all-gathered over mp and the masked max
+  taken over the gathered windows (so its tie rule is the one-process
+  rule); the masked mean is the SUM over mp of the slices' window sums
+  over the whole cloud's valid count.  The window mask is the whole
+  cloud's, which every rank holds, so it needs no collective;
+- without kv_pool: the four pools from `parallel.sharded_pool.
+  point_pools_train`, unless point features are needed downstream (the
+  query head's KV without kv_pool, or `return_point_features`): then the
+  (B, N, C) features are all-gathered and pooled as in one process (the
+  collective audit bounds that gather).
 """
 
 from __future__ import annotations
@@ -38,6 +55,11 @@ from wireframe_tpu_torch.ops.masked_pool import (
     masked_mean,
     point_validity_mask,
 )
+from wireframe_tpu_torch.parallel.collective_audit import (
+    gather_over_ranks,
+    sum_over_ranks,
+)
+from wireframe_tpu_torch.parallel.sharded_pool import point_pools_train
 
 _kv_pool_warned: set = set()
 
@@ -122,8 +144,9 @@ class PointNetEncoder(nn.Module):
                       for k in ("w", "b", "ln_scale", "ln_bias"))
                 for i in range(len(self.hidden_dims))]
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        # x: (B, N, input_dim); all-zero rows are padding.
+    def forward(self, x: torch.Tensor, train: bool = False, split=None):
+        # x: (B, N, input_dim); all-zero rows are padding.  split: this
+        # rank's place in point-parallel training (module docstring).
         b, n = x.shape[:2]
         tile = (self.chain_tile or self.pallas_tile) if train \
             else self.pallas_tile
@@ -136,7 +159,12 @@ class PointNetEncoder(nn.Module):
         if self.kv_pool > 1 and not kv_pool and use_pallas:
             _warn_kv_pool_fallback(self.kv_pool, tile)
         point_features = None
-        if use_pallas and train:
+        if split is not None and split.mp > 1:
+            if not train:
+                raise ValueError("a point split is a training layout")
+            pooled, point_features = self._split_pools(
+                x, split, tile if use_pallas else 0, kv_pool)
+        elif use_pallas and train:
             # The differentiable chain (models/encoder.py:156-223).  With
             # kv_pool the decoder consumes only the pooled KV, so the slim
             # flavour never returns the (B, N, C) features.
@@ -213,3 +241,63 @@ class PointNetEncoder(nn.Module):
                              dim=-1)
         global_features = self.fusion(combined).float()
         return global_features, pooled, point_features
+
+    def _split_pools(self, x: torch.Tensor, split, tile: int, kv_pool: int):
+        """(pooled, point_features) of the whole cloud `x` from this
+        rank's slice; tile: the chain's tile, 0 for the plain chain."""
+        b, n = x.shape[:2]
+        m = n // split.mp
+        kv_pool = kv_pool if tile else 0
+        if n % split.mp or (tile and m % tile) or (kv_pool and m % kv_pool):
+            raise ValueError(
+                f"N={n} over mp={split.mp}: {m} points a rank do not tile "
+                f"by the chain's tile {tile} and kv_pool {kv_pool}")
+        group = split.mp_group
+        mask = point_validity_mask(x)
+        rows = slice(split.mp_rank * m, (split.mp_rank + 1) * m)
+        xs = x[:, rows]
+        need_feats = bool(self.return_point_features) or (
+            self.point_features_for_kv and not kv_pool)
+        feats_s = kv_s = sums_s = None
+        if tile:
+            outs = differentiable_chain(
+                xs.float().contiguous(), self.stage_params(), self.proj_w,
+                self.proj_b, kv_pool=kv_pool,
+                emit_features=need_feats or not kv_pool,
+                compute_dtype=self.dtype, backward=self.chain_backward)
+            if not kv_pool:
+                feats_s = outs
+            elif need_feats:
+                feats_s, kv_s, sums_s = outs
+            else:
+                kv_s, sums_s = outs
+        else:
+            feats_s = point_encoder_reference(
+                xs, self.stage_params(), self.proj_w, self.proj_b,
+                compute_dtype=self.dtype)
+        feats = (gather_over_ranks(feats_s, group) if need_feats else None)
+        if kv_pool:
+            pooled_kv = gather_over_ranks(kv_s, group)
+            kv_mask = torch.any(mask.reshape(b, n // kv_pool, kv_pool),
+                                dim=-1)
+            count = torch.clamp_min(torch.sum(mask.float(), dim=-1), 1.0)
+            pooled = {
+                "masked_max": masked_max(pooled_kv, kv_mask),
+                "masked_mean": sum_over_ranks(torch.sum(sums_s, dim=-2),
+                                              group) / count[:, None],
+                "kv": pooled_kv,
+                "kv_mask": kv_mask,
+            }
+            if feats is not None:
+                pooled["mean"] = torch.mean(feats, dim=-2)
+                pooled["max"] = torch.amax(feats, dim=-2)
+        elif feats is not None:
+            pooled = {
+                "masked_max": masked_max(feats, mask),
+                "masked_mean": masked_mean(feats, mask),
+                "mean": torch.mean(feats, dim=-2),
+                "max": torch.amax(feats, dim=-2),
+            }
+        else:
+            pooled = point_pools_train(feats_s, mask[:, rows], n, group)
+        return pooled, feats

@@ -90,12 +90,16 @@ class PointCloudToWireframe(nn.Module):
     def forward(self, point_cloud: torch.Tensor,
                 target_vertex_counts: Optional[torch.Tensor] = None,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                split=None) -> Dict[str, torch.Tensor]:
         """point_cloud: (B, N, input_dim), zero rows are padding;
         target_vertex_counts: (B,) GT counts, which drive the edge head in
         train mode (prefix slot masks); train: training mode; generator:
-        the dropout draws."""
+        the dropout draws; split: this rank's `parallel.mesh.Layout` in
+        point-parallel training.  The z-sort runs on the whole cloud, and
+        only the encoder works on this rank's slice of it; everything
+        after the encoder runs on the whole cloud's outputs, the same on
+        every rank of the mp group, and draws its dropout alike there."""
         cfg = self.config
         query = cfg.vertex_head == "query"
         if query and cfg.decoder_kv_pool > 1 and not cfg.points_z_sorted:
@@ -110,7 +114,7 @@ class PointCloudToWireframe(nn.Module):
                                                dim=1)
 
         global_features, pooled, point_features = self.encoder(
-            point_cloud, train=train)
+            point_cloud, train=train, split=split)
 
         if query:
             kv_feats = point_features

@@ -5,7 +5,7 @@ collective the port makes, with the collective-size audit
 (`collective_audit`)."""
 
 from wireframe_tpu_torch.parallel.mesh import (  # noqa: F401
-    DataParallel,
+    Layout,
     broadcast_params,
     init_distributed,
     local_rows,

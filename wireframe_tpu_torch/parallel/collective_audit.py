@@ -12,7 +12,19 @@ and then runs the `torch.distributed` call over `group` (the default
 group when None).  Without a process group each is the identity of a
 group of one, and records all the same, so the audit runs anywhere.
 
-`audit_train_step_collectives` runs one data-parallel train step under a
+Point-parallel training (mp > 1) differentiates through three of them
+(`gather_over_ranks`, `sum_over_ranks`, `max_over_ranks`).  Every rank of
+an mp group runs the same decoder, edge head and loss on the same
+gathered or reduced tensor, so the gradient that reaches the collective's
+output is the same on each rank, and the backward needs no collective:
+the all-gather hands each rank its own slice of it, the SUM hands it on
+unchanged, and the MAX hands it to the one rank that holds the maximum
+(the lowest rank on ties: the ranks hold contiguous point slices in
+rank order, so that is the lowest point index, and each rank's own
+maximum comes from its lowest tied row, `sharded_pool.
+point_pools_train`).
+
+`audit_train_step_collectives` runs one train step of a layout under a
 log and raises if a data collective (all-gather, all-to-all,
 reduce-scatter, broadcast) exceeds a byte budget.  All-reduces are left
 out, as the JAX audit leaves out psums: the gradient all-reduce spans the
@@ -49,6 +61,7 @@ class Collective:
     dtype: str
     shape: Tuple[int, ...]
     bytes: int
+    ranks: int = 1
 
 
 _LOG: contextvars.ContextVar[Optional[List[Collective]]] = (
@@ -66,21 +79,22 @@ def record_collectives() -> Iterator[List[Collective]]:
         _LOG.reset(token)
 
 
-def _record(op: str, t: torch.Tensor) -> None:
+def group_size(group=None) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def _record(op: str, t: torch.Tensor, group) -> None:
     log = _LOG.get()
     if log is not None:
         log.append(Collective(op, str(t.dtype).replace("torch.", ""),
-                              tuple(t.shape), t.numel() * t.element_size()))
-
-
-def group_size(group=None) -> int:
-    return dist.get_world_size(group) if dist.is_initialized() else 1
+                              tuple(t.shape), t.numel() * t.element_size(),
+                              group_size(group)))
 
 
 def all_reduce(t: torch.Tensor, op: str = "sum", group=None
                ) -> torch.Tensor:
     """In place: the elementwise SUM or MAX of `t` over the group."""
-    _record("all_reduce", t)
+    _record("all_reduce", t, group)
     if group_size(group) > 1:
         dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op], group=group)
@@ -89,27 +103,28 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None
 
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """In place: rank `src`'s `t` on every rank."""
-    _record("broadcast", t)
+    _record("broadcast", t, group)
     if group_size(group) > 1:
         dist.broadcast(t, src=src, group=group)
     return t
 
 
-def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
-    """(world * rows, ...): every rank's `t`, in rank order."""
-    _record("all_gather", t)
+def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """Every rank's `t`, in rank order, concatenated along `dim`
+    ((world * rows, ...) for dim 0)."""
+    _record("all_gather", t, group)
     n = group_size(group)
     if n == 1:
         return t.clone()
     out = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(out, t.contiguous(), group=group)
-    return torch.cat(out)
+    return torch.cat(out, dim=dim)
 
 
 def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
     """(rows / world, ...): this rank's block of the SUM of `t` over the
     group."""
-    _record("reduce_scatter", t)
+    _record("reduce_scatter", t, group)
     n = group_size(group)
     if n == 1:
         return t.clone()
@@ -119,6 +134,70 @@ def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
                       dtype=t.dtype, device=t.device)
     dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
     return out
+
+
+def group_rank(group=None) -> int:
+    return dist.get_rank(group) if group_size(group) > 1 else 0
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.size = dim, t.shape[dim]
+        ctx.start = group_rank(group) * ctx.size
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.size), None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t.clone(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Max(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = all_reduce(t.clone(), "max", group)
+        # The lowest rank that holds each maximum: a MAX of n - rank over
+        # the ranks that hold it.
+        n, rank = group_size(group), group_rank(group)
+        code = torch.where(t == out, float(n - rank), 0.0).to(torch.float32)
+        all_reduce(code, "max", group)
+        ctx.save_for_backward(code == float(n - rank))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (mine,) = ctx.saved_tensors
+        return torch.where(mine, g, torch.zeros_like(g)), None
+
+
+def gather_over_ranks(t: torch.Tensor, group=None, dim: int = 1
+                      ) -> torch.Tensor:
+    """`all_gather` along `dim`, differentiable: the backward hands each
+    rank its own slice of the gradient (module docstring)."""
+    return _Gather.apply(t, dim, group)
+
+
+def sum_over_ranks(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The SUM of `t` over the group (out of place), differentiable: the
+    gradient passes unchanged to every rank's `t`."""
+    return _Sum.apply(t, group)
+
+
+def max_over_ranks(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise MAX of `t` over the group (out of place),
+    differentiable: each element's gradient reaches only the lowest rank
+    whose `t` holds the maximum, and is 0 on the others."""
+    return _Max.apply(t, group)
 
 
 def audit_collectives(fn: Callable[[], object],
@@ -136,19 +215,20 @@ def audit_collectives(fn: Callable[[], object],
     return log
 
 
-def audit_train_step_collectives(cfg, state, batch, generator=None, dp=None,
-                                 steps_per_epoch: int = 1,
+def audit_train_step_collectives(cfg, state, batch, generator=None,
+                                 layout=None, steps_per_epoch: int = 1,
                                  max_bytes: int = DEFAULT_MAX_BYTES
                                  ) -> Tuple[List[Collective], dict]:
-    """One data-parallel train step of `cfg` on this rank's `batch` rows
-    (`train.step.make_train_step` with `dp`, default the whole process
-    group) under the audit.  Updates `state`; returns the log and the
-    step's metrics."""
-    from wireframe_tpu_torch.parallel.mesh import DataParallel
+    """One train step of `cfg` on this rank's `batch` rows
+    (`train.step.make_train_step` with `layout`, default the whole
+    process group as dp ranks) under the audit.  Updates `state`; returns
+    the log and the step's metrics."""
+    from wireframe_tpu_torch.parallel.mesh import Layout
     from wireframe_tpu_torch.train.step import make_train_step
 
-    step = make_train_step(cfg, steps_per_epoch,
-                           dp=DataParallel.of_group() if dp is None else dp)
+    step = make_train_step(
+        cfg, steps_per_epoch,
+        layout=Layout.of_group() if layout is None else layout)
     out = []
     log = audit_collectives(
         lambda: out.append(step(state, batch, generator)), max_bytes)

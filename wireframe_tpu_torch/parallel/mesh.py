@@ -8,14 +8,17 @@ started by `torchrun` (`python -m torch.distributed.run`):
 - `init_distributed` joins the process group `torchrun` describes in the
   environment (NCCL for CUDA, gloo for the CPU);
 - `resolve_layout` applies `resolve_mesh`'s rules to the group's world
-  size;
-- each rank takes its contiguous block of the global batch's rows
-  (`local_rows`), as `P("dp")` splits the batch axis;
+  size (with `train=True`, also the training layout's own rules);
+- `Layout` places this rank on the (dp, mp) grid as the JAX mesh's
+  `devices[:dp * mp].reshape(dp, mp)` does: world rank r sits at dp
+  index r // mp and mp index r % mp, and the layout holds the process
+  groups of its dp column and its mp row;
+- each rank takes the contiguous block of the global batch's rows of its
+  dp index (`local_rows`), as `P("dp")` splits the batch axis; the ranks
+  of one mp group take the same rows and split the point axis in the
+  encoder (`models.encoder`), as `P("dp", "mp", None)` splits it;
 - `broadcast_params` replicates parameters from rank 0, the counterpart
-  of `replicate`;
-- `DataParallel` names this rank's place on the dp axis for the train
-  step (`train.step.make_train_step`), which sums the gradients of
-  per-rank losses so that the update is the global batch's.
+  of `replicate`.
 
 One divergence from `resolve_mesh`: where `parallel.dp=-1` finds no
 data-parallel width above 1 that divides the batch on a group of more
@@ -37,7 +40,7 @@ from wireframe_tpu_torch.utils.platform import resolve_device
 
 
 def resolve_layout(cfg, world_size: int,
-                   batch_size: Optional[int] = None
+                   batch_size: Optional[int] = None, train: bool = False
                    ) -> Optional[Tuple[int, int]]:
     """(dp, mp) of `cfg.parallel` over `world_size` ranks, or None for
     1 x 1.
@@ -47,6 +50,15 @@ def resolve_layout(cfg, world_size: int,
     `data.num_points` raise; dp = -1 takes the largest width up to
     world_size // mp that divides the batch.  Where that is 1 on more
     than one rank, this raises (module docstring).
+
+    train: the training layout's rules on top.  Every rank takes part in
+    every step, so dp x mp must be the world size.  With mp > 1 each rank
+    runs the encoder on N / mp points, and the path is decided on the
+    whole cloud's N as the JAX module decides it (models/encoder.py:
+    141-150): where the training chain takes N, N / mp must be a multiple
+    of the chain's tile too, since a slice never falls back to the plain
+    chain; and with the query head's decoder_kv_pool > 1, a multiple of
+    the pool, so that no KV window straddles two ranks.
     """
     n = world_size
     dp, mp = cfg.parallel.dp, cfg.parallel.mp
@@ -75,9 +87,37 @@ def resolve_layout(cfg, world_size: int,
         if bs % dp != 0:
             raise ValueError(
                 f"train.batch_size={bs} not divisible by parallel.dp={dp}")
+    if train:
+        _check_train_layout(cfg, world_size, dp, mp)
     if dp * mp == 1:
         return None
     return dp, mp
+
+
+def _check_train_layout(cfg, world_size: int, dp: int, mp: int) -> None:
+    if dp * mp != world_size:
+        raise ValueError(
+            f"parallel.dp={cfg.parallel.dp} parallel.mp={mp} resolves to "
+            f"dp={dp} x mp={mp} = {dp * mp} ranks on a group of "
+            f"{world_size}; every rank takes part in every step, so dp x mp "
+            "must be the world size")
+    if mp == 1:
+        return
+    m = cfg.model
+    n = cfg.data.num_points
+    tile = m.pallas_chain_tile or m.pallas_tile
+    if m.use_pallas_encoder and n % tile == 0 and (n // mp) % tile:
+        raise ValueError(
+            f"data.num_points={n} over parallel.mp={mp} leaves {n // mp} "
+            f"points a rank, not a multiple of the training chain's tile "
+            f"{tile} (model.pallas_chain_tile); a slice does not fall back "
+            "to the plain chain")
+    if m.vertex_head == "query" and m.decoder_kv_pool > 1 and (
+            (n // mp) % m.decoder_kv_pool):
+        raise ValueError(
+            f"data.num_points={n} over parallel.mp={mp} leaves {n // mp} "
+            f"points a rank, not a multiple of model.decoder_kv_pool="
+            f"{m.decoder_kv_pool}: a KV window would straddle two ranks")
 
 
 def world() -> Tuple[int, int]:
@@ -137,20 +177,51 @@ def local_rows(batch: Dict, rank: int, dp: int) -> Dict:
 
 
 @dataclass(frozen=True)
-class DataParallel:
-    """This rank's place on the dp axis: `rank` of the default process
-    group's `size` ranks."""
+class Layout:
+    """This rank's place on the (dp, mp) grid of the default process
+    group, and the groups it reduces over: `dp_group`, the dp ranks of
+    its mp index (the batch's other row blocks), and `mp_group`, the mp
+    ranks of its dp index (the same rows' other point slices).  A group
+    that spans the world is None, the default group."""
 
-    rank: int
-    size: int
+    dp_rank: int
+    dp: int
+    mp_rank: int = 0
+    mp: int = 1
+    dp_group: object = None
+    mp_group: object = None
 
     @classmethod
-    def of_group(cls) -> "DataParallel":
-        return cls(*world())
+    def of_group(cls, mp: int = 1) -> "Layout":
+        """The layout of the default group's ranks as dp = world / mp rows
+        of mp.  Every rank must call it (it makes the groups, in one
+        order on every rank)."""
+        rank, size = world()
+        if size % mp:
+            raise ValueError(f"parallel.mp={mp} does not divide {size} ranks")
+        dp = size // mp
+        groups = {}
+        for axis, members in (
+                ("dp", [[d * mp + m for d in range(dp)] for m in range(mp)]),
+                ("mp", [[d * mp + m for m in range(mp)] for d in range(dp)])):
+            for ranks in members:
+                if len(ranks) == size:
+                    group = None
+                else:
+                    group = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[axis] = group
+        return cls(rank // mp, dp, rank % mp, mp, groups["dp"],
+                   groups["mp"])
+
+    @property
+    def main(self) -> bool:
+        """World rank 0: the rank that logs and writes."""
+        return self.dp_rank == 0 and self.mp_rank == 0
 
     def rows(self, local_batch: int) -> Tuple[int, int]:
         """(first row, global batch) of this rank's rows."""
-        return self.rank * local_batch, self.size * local_batch
+        return self.dp_rank * local_batch, self.dp * local_batch
 
 
 def param_tensors(model_or_tree) -> list:

@@ -14,9 +14,16 @@ is the slice's length).  A slice with no valid row has a masked max of 0
 from K1, which would win a MAX over negative features: it enters the
 reduction as -inf instead.
 
-This is the explicit variant, as in the JAX package; training does not
-shard the point axis (ROADMAP A7b).  The unsharded K1 call is the
-reference.
+`sharded_point_pools` is the explicit forward-only variant, as in the
+JAX package; the unsharded K1 call is its reference.
+`point_pools_train` is the training variant (point-parallel training,
+`models.encoder` with mp > 1): it takes the point features a rank's
+training chain made of its slice and returns the four pools with
+autograd through the differentiable collectives of `collective_audit`.
+Each rank's maxima come from its lowest tied row (`torch.argmax` gives
+the first), and `max_over_ranks` hands a maximum's gradient to the
+lowest rank that holds it, so a pooled maximum's gradient reaches one
+point, the lowest-indexed of the whole cloud's tied rows.
 """
 
 from __future__ import annotations
@@ -29,7 +36,10 @@ from wireframe_tpu_torch.ops.fused_encoder import fused_point_encoder
 from wireframe_tpu_torch.ops.masked_pool import point_validity_mask
 from wireframe_tpu_torch.parallel.collective_audit import (
     all_reduce,
+    group_rank,
     group_size,
+    max_over_ranks,
+    sum_over_ranks,
 )
 
 
@@ -45,11 +55,9 @@ def sharded_point_pools(x: torch.Tensor, stage_params: Sequence[Tuple],
     (B, C) float32 masked_mean, masked_max, mean and max.  N must divide
     by the group's size, and each slice by `tile` (K1's tiling).
     """
-    import torch.distributed as dist
-
     n = x.shape[1]
     mp = group_size(group)
-    rank = dist.get_rank(group) if mp > 1 else 0
+    rank = group_rank(group)
     if n % mp:
         raise ValueError(f"N={n} not divisible by mp={mp}")
     m = n // mp
@@ -74,5 +82,38 @@ def sharded_point_pools(x: torch.Tensor, stage_params: Sequence[Tuple],
         "masked_max": torch.where(torch.isfinite(masked_max), masked_max,
                                   torch.zeros_like(masked_max)),
         "mean": total_sum / n,
+        "max": maxes[1],
+    }
+
+
+def _first_max(x: torch.Tensor) -> torch.Tensor:
+    """The max over axis -2, differentiated into the lowest tied row."""
+    idx = torch.argmax(x, dim=-2, keepdim=True)
+    return torch.take_along_dim(x, idx, dim=-2).squeeze(-2)
+
+
+def point_pools_train(feats: torch.Tensor, mask: torch.Tensor, n: int,
+                      group=None) -> Dict[str, torch.Tensor]:
+    """The four pools of a cloud whose N = `n` points are split over the
+    ranks of `group` in rank order, from this rank's slice: `feats`
+    (B, n / mp, C) float32 and its validity `mask` (B, n / mp).  Every
+    rank gets the same (B, C) masked_mean, masked_max, mean and max, the
+    one-process pools (`ops.masked_pool`) up to the summation order, with
+    one SUM and two MAX all-reduces; a slice with no valid row enters the
+    masked max as -inf, and a cloud with none pools to 0."""
+    m = mask[..., None]
+    count = torch.sum(mask.float(), dim=-1)
+    sums = sum_over_ranks(torch.stack([
+        torch.sum(feats * m.float(), dim=-2), torch.sum(feats, dim=-2),
+        count[:, None].expand(feats.shape[0], feats.shape[-1])]), group)
+    filled = torch.where(m, feats, torch.full_like(feats, -torch.inf))
+    maxes = max_over_ranks(torch.stack([_first_max(filled),
+                                        _first_max(feats)]), group)
+    masked_max = maxes[0]
+    return {
+        "masked_mean": sums[0] / torch.clamp_min(sums[2], 1.0),
+        "masked_max": torch.where(torch.isfinite(masked_max), masked_max,
+                                  torch.zeros_like(masked_max)),
+        "mean": sums[1] / n,
         "max": maxes[1],
     }

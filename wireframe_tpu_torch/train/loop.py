@@ -26,15 +26,16 @@ state.
 
 More than one device: in a process group (`parallel.mesh.
 init_distributed`, one process per GPU under `torchrun`), `cfg.parallel`
-is read through `parallel.mesh.resolve_layout` over the group's ranks,
+is read through `parallel.mesh.resolve_layout` (its training rules: dp x
+mp must be the world size, and N / mp must tile) over the group's ranks,
 the counterpart of the JAX loop's `_make_batch_placer`.  Every rank
-builds the same loader (same seed, same order) and keeps its rows of
-each global batch (`local_rows`); the state is rank 0's, broadcast and
-checked at the start (`replicate_across_hosts`, also after a resume);
-the step is `make_train_step`'s data-parallel one.  Only rank 0 logs,
-writes the metrics, checkpoints and `best`.  Every rank must take part
-in every step, so dp x mp must be the world size, and `parallel.mp > 1`
-(point-parallel training, ROADMAP A7b) raises.
+builds the same loader (same seed, same order) and keeps the rows of its
+dp index of each global batch (`local_rows`; the ranks of one mp group
+keep the same rows, whole clouds, and split the point axis in the
+encoder); the state is rank 0's, broadcast and checked at the start
+(`replicate_across_hosts`, also after a resume); the step is
+`make_train_step`'s with the `parallel.mesh.Layout`.  Only world rank 0
+logs, writes the metrics, checkpoints and `best`.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from wireframe_tpu_torch.bridge import (
 )
 from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
 from wireframe_tpu_torch.parallel.mesh import (
-    DataParallel,
+    Layout,
     local_rows,
     resolve_layout,
     world,
@@ -94,27 +95,15 @@ def epoch_seed(seed: int, start_epoch: int) -> int:
     return int(seq.generate_state(1)[0])
 
 
-def _data_parallel(cfg, batch_size: Optional[int] = None
-                  ) -> Optional[DataParallel]:
-    """This rank's `DataParallel` for training `cfg` in the default process
+def _layout(cfg, batch_size: Optional[int] = None) -> Optional[Layout]:
+    """This rank's `Layout` for training `cfg` in the default process
     group at global batch `batch_size` (default `train.batch_size`), or
     None on one device."""
-    if cfg.parallel.mp > 1:
-        raise NotImplementedError(
-            f"parallel.mp={cfg.parallel.mp}: point-parallel training is not "
-            "ported (ROADMAP A7b); train with parallel.mp=1, or pool a "
-            "sharded point axis with parallel.sharded_pool outside training")
     size = world()[1]
-    layout = resolve_layout(cfg, size, batch_size)
-    if size == 1:
+    resolved = resolve_layout(cfg, size, batch_size, train=True)
+    if resolved is None:
         return None
-    dp = 1 if layout is None else layout[0]
-    if dp != size:
-        raise ValueError(
-            f"parallel.dp={cfg.parallel.dp} resolves to dp={dp} on {size} "
-            "ranks; every rank takes part in every step, so dp must be "
-            "the world size")
-    return DataParallel.of_group()
+    return Layout.of_group(mp=resolved[1])
 
 
 def train_model(cfg, loader: Iterable, metric_writer=None,
@@ -132,13 +121,13 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
     `.log(dict)`, called at the log points.
     """
     dev = resolve_device(device)
-    dp = _data_parallel(cfg, getattr(loader, "batch_size", None))
-    main = dp is None or dp.rank == 0
+    layout = _layout(cfg, getattr(loader, "batch_size", None))
+    main = layout is None or layout.main
 
     def place(batch):
-        if dp is not None:
-            batch = local_rows({k: batch[k] for k in BATCH_KEYS}, dp.rank,
-                               dp.size)
+        if layout is not None:
+            batch = local_rows({k: batch[k] for k in BATCH_KEYS},
+                               layout.dp_rank, layout.dp)
         return device_batch(batch, dev)
 
     try:
@@ -159,17 +148,20 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
         if cfg.train.init_from:
             warm_start_params(state, cfg.train.init_from)
             logger.info("Initialized params from %s", cfg.train.init_from)
-    if dp is not None:
+    if layout is not None:
         for tree in (state.model, state.mu, state.nu, state.ema_params):
             if tree is not None:
                 replicate_across_hosts(tree)
     if main:
         logger.info("Model parameters: %s",
                     f"{sum(p.numel() for p in state.model.parameters()):,}")
-        if dp is not None:
-            logger.info("Data-parallel training: dp=%d ranks", dp.size)
+        if layout is not None:
+            logger.info("Data-parallel training: dp=%d ranks", layout.dp)
+            if layout.mp > 1:
+                logger.info("Point-parallel training: mp=%d ranks a row "
+                            "block", layout.mp)
     state.model.train()
-    train_step = make_train_step(cfg, steps_per_epoch, dp=dp)
+    train_step = make_train_step(cfg, steps_per_epoch, layout=layout)
     optimizer = train_step.optimizer
 
     best_loss = float("inf")

@@ -15,18 +15,35 @@ index-aligned vertex RMSE of sample 0's GT-count prefix, the batched
 Hungarian RMSE through the loss's matching, and the train-batch edge
 precision / recall / F1 against the labels the edge BCE used.
 
-Data parallelism (`dp`, a `parallel.mesh.DataParallel`): the counterpart
-of the JAX step on a mesh's dp axis, which computes exactly the
-one-device step on the global batch.  The step takes this rank's rows
-of the global batch; it augments them with the global batch's draws
-(`data.augment`), divides each loss term by the global batch's
-normaliser (`losses.wireframe_loss`: a SUM of the matched-slot counts
-and a MAX of the pair counts over the ranks), so the ranks' losses and
-gradients sum to the global batch's, and all-reduces the gradients as
-ONE flat buffer (parameter order) with SUM.  The clip, decay, Adam and
-EMA then run unchanged on every rank, which so holds identical params.
-The metrics are the global batch's, from one SUM of their partial sums.
-K2, K3 and K4 run per rank on the rows, unchanged.
+More than one device (`layout`, a `parallel.mesh.Layout`): the
+counterpart of the JAX step on a (dp, mp) mesh, which computes exactly
+the one-device step on the global batch.
+
+- dp: the step takes the rows of this rank's dp index; it augments them
+  with the global batch's draws (`data.augment`), divides each loss term
+  by the global batch's normaliser (`losses.wireframe_loss`: a SUM of the
+  matched-slot counts and a MAX of the pair counts over the dp group),
+  so the dp ranks' losses and gradients sum to the global batch's.  The
+  metrics are the global batch's, from one SUM of their partial sums
+  over the dp group.
+- mp: the ranks of an mp group hold the same rows and run the encoder
+  on their slices of the point axis (`models.encoder`); everything after
+  the encoder runs on every rank of the group alike, on the same
+  gathered tokens and with the same dropout draws.  So the point MLP's
+  gradients (the encoder's stages and projection) are each rank's
+  slice's share and add up over the mp group, while every other
+  gradient (the fusion MLP, the decoder, the edge head) is already
+  whole on each rank of the group and must count once.  The step
+  reduces the two kinds separately, each as one flat buffer: the point
+  MLP's SUM over the world, the others' SUM over the dp group only.
+  Scaling the second kind by 1 / mp before one world-wide SUM would
+  round for an mp that is not a power of two and move those bytes over
+  mp ranks for nothing; two reductions are exact for every mp.  With
+  mp = 1 the two are one flat SUM over the world.
+
+The clip, decay, Adam and EMA then run unchanged on every rank, which so
+holds identical params.  K2, K3 (or K5) and K4 run per rank on its rows
+and slice, unchanged.
 """
 
 from __future__ import annotations
@@ -41,7 +58,7 @@ from wireframe_tpu_torch.losses.wireframe_loss import (
     wireframe_loss,
 )
 from wireframe_tpu_torch.parallel.collective_audit import all_reduce
-from wireframe_tpu_torch.parallel.mesh import DataParallel, flat_apply
+from wireframe_tpu_torch.parallel.mesh import Layout, flat_apply
 from wireframe_tpu_torch.train.state import Optimizer, TrainState, global_norm
 
 BATCH_KEYS = ("point_clouds", "target_vertices", "vertex_existence",
@@ -117,24 +134,42 @@ def loss_config(cfg) -> WireframeLossConfig:
         matched_existence_labels=t.matched_existence_labels)
 
 
+def point_param_names(model) -> set:
+    """The names of the point MLP's parameters: the encoder's stages and
+    projection, which an mp group's ranks differentiate slice by slice."""
+    return {"encoder." + k for k, _ in
+            model.encoder.named_parameters(recurse=False)}
+
+
 def make_train_step(cfg, steps_per_epoch: int = 1,
-                    dp: Optional[DataParallel] = None) -> Callable:
+                    layout: Optional[Layout] = None) -> Callable:
     """Returns train_step(state, batch, generator) -> (state, metrics).
 
-    batch: the `BATCH_KEYS` tensors on the model's device (with `dp`,
-    this rank's rows of the global batch, `parallel.mesh.local_rows`);
-    generator: a torch.Generator on that device (augmentation and dropout
-    draws; with `dp`, seeded alike on every rank).  The state is updated
-    in place and returned.
+    batch: the `BATCH_KEYS` tensors on the model's device (with `layout`,
+    the rows of this rank's dp index, `parallel.mesh.local_rows`, whole
+    clouds); generator: a torch.Generator on that device (augmentation
+    and dropout draws; with `layout`, seeded alike on every rank).  The
+    state is updated in place and returned.
     """
     loss_cfg = loss_config(cfg)
     do_augment = cfg.train.device_augment and cfg.data.augment
     optimizer = Optimizer(cfg, steps_per_epoch)
+    split = layout if layout is not None and layout.mp > 1 else None
 
     def global_norms(total_matches, max_pairs, local_batch):
-        return (all_reduce(total_matches.clone(), "sum"),
-                all_reduce(max_pairs.clone(), "max"),
-                local_batch * dp.size)
+        group = layout.dp_group
+        return (all_reduce(total_matches.clone(), "sum", group),
+                all_reduce(max_pairs.clone(), "max", group),
+                local_batch * layout.dp)
+
+    def reduce_grads(state, grads):
+        if split is None:
+            flat_apply(grads.values(), all_reduce)
+            return
+        point = point_param_names(state.model)
+        flat_apply([g for k, g in grads.items() if k in point], all_reduce)
+        flat_apply([g for k, g in grads.items() if k not in point],
+                   lambda t: all_reduce(t, group=layout.dp_group))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
@@ -148,16 +183,16 @@ def make_train_step(cfg, steps_per_epoch: int = 1,
                 rot_degrees=cfg.train.aug_rot_degrees,
                 jitter_std=cfg.train.aug_jitter_std,
                 scale_range=cfg.train.aug_scale_range,
-                rows=None if dp is None else dp.rows(b))
+                rows=None if layout is None else layout.rows(b))
         work = dict(batch, point_clouds=point_clouds,
                     target_vertices=target_vertices)
         preds = state.model(work["point_clouds"], work["vertex_counts"],
-                            train=True, generator=generator)
+                            train=True, generator=generator, split=split)
         targets = {"vertices": work["target_vertices"],
                    "vertex_existence": work["vertex_existence"],
                    "edge_labels": work["edge_labels"],
                    "vertex_counts": work["vertex_counts"]}
-        norms = (None if dp is None else
+        norms = (None if layout is None else
                  lambda t, m: global_norms(t, m, b))
         losses = wireframe_loss(preds, targets, loss_cfg, norms=norms)
         params = state.params
@@ -169,17 +204,17 @@ def make_train_step(cfg, steps_per_epoch: int = 1,
         # jax.grad gives it.
         grads = {k: (g if g is not None else torch.zeros_like(params[k]))
                  for k, g in zip(names, grads)}
-        if dp is not None:
-            flat_apply(grads.values(), all_reduce)
+        if layout is not None:
+            reduce_grads(state, grads)
         g_norm = global_norm(grads.values())
         optimizer.apply(state, grads, g_norm)
 
         with torch.no_grad():
             sums = _metric_sums(preds["vertices"].detach(), work, losses,
                                 preds["edge_probs"].detach(),
-                                first=dp is None or dp.rank == 0)
-            if dp is not None:
-                all_reduce(sums)
+                                first=layout is None or layout.dp_rank == 0)
+            if layout is not None:
+                all_reduce(sums, group=layout.dp_group)
             metrics = _metrics(sums)
         metrics["grad_norm"] = g_norm
         return state, metrics
