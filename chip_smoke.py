@@ -39,7 +39,24 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 parity (3, 2560) features shape, the bench's (128, 2560),
                 the recipe's (8, 2560) slim shape and small ragged shapes; its forward
                 array_equal to K2's; times and bounds;
-  8. training — the full-width recipe train step (train_model, overfit
+  8. f32      — the encoder-chain kernels computing in float32, within
+                60 s: (a) the reference-parity model as shipped
+                (configs/default.yaml + model.use_pallas_encoder=true, f32)
+                trained 20 steps at 3 x 2560 (K5 f32 forward and backward
+                and K4 once per step, the loss falling at lr 1e-4, the
+                first 3 losses against the plain versions with the targets
+                next to predicted slots) and served over the four buckets
+                (K1 f32 once per batch, .obj files load back, one batch
+                against the plain f32 encoder); (b) the recipe at
+                model.compute_dtype=float32 with the stash chain, 5 steps
+                at 8 x 2560 (K2 f32, K3 f32, K4 once per step; first 3
+                losses against the plain versions); (c) K1 f32 at (3,
+                2560), (3, 16384), (128, 2560) and ragged shapes, K2 / K3
+                f32 at (8, 2560), K5 f32 at (3, 2560) and (128, 2560) and
+                ragged shapes in each flavour, against the plain f32
+                versions (TF32 off), K1 array_equal to K5's forward, two
+                launches array_equal, times, bounds and K1's peak memory;
+  9. training — the full-width recipe train step (train_model, overfit
                 one synthetic batch of 8 box buildings, 20 steps): finite
                 losses, K2 / K3 / K4 launched once per step each; the first
                 3 losses against the same steps with the plain versions on
@@ -52,7 +69,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 breakdown of one step and a step under CUDA sync debug
                 mode; the trained weights saved through the bridge and
                 served;
-  9. parity   — the reference-parity model (configs/default.yaml with the
+ 10. parity   — the reference-parity model (configs/default.yaml with the
                 fused bf16 encoder: MLP vertex head, remat chain, matcher
                 "device") trained 20 steps at batch 3 x 2560: K5 forward,
                 K5 backward and K4 once per step, K2 / K3 never; the first
@@ -61,7 +78,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 the memory the forward leaves for the backward, remat
                 against stash; ms per step, profile, no host sync; the
                 trained checkpoint served over all four buckets with K1;
- 10. serving  — the full-width recipe WireframePredictor (random weights
+ 11. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
                 buckets; the K1 launch count must equal the batches
@@ -69,7 +86,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 between the kernel and the plain encoder chain; serving
                 time per bucket, and a torch.profiler breakdown of one
                 batch per bucket (device busy share, K1 against the rest);
- 11. corpus   — the recipe at full width from a generated Building3D
+ 12. corpus   — the recipe at full width from a generated Building3D
                 corpus (24 train / 8 test buildings) through the CLIs:
                 `main` trains 2 epochs (K2, K3, K4 once per optimizer
                 step, finite losses, step_6 and ema/step_6), `--resume` of
@@ -82,7 +99,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 pipelined step's kept pairs in pair-table order); `test`
                 writes 8 world-frame .obj files; ms per step, clouds/s per
                 path and the host share of a pipelined chunk;
- 12. layouts  — the full-width recipe's decoder in the layouts the JAX
+ 13. layouts  — the full-width recipe's decoder in the layouts the JAX
                 package builds besides the unrolled one: fused cross K/V,
                 scanned, scanned + fused and remat, each from
                 `init_flax_params` for its own tree: served over all four
@@ -95,25 +112,27 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 dropout on, and the bytes autograd saves; ms per step and
                 device ops per step (tools/trace_ops) per layout beside
                 the unrolled layout's;
- 13. checkpoints — a state_dict in the reference's own layout (its
+ 14. checkpoints — a state_dict in the reference's own layout (its
                 widths, 64 slots) `torch.save`d and evaluated through
                 `evaluate --torch-checkpoint` on the corpus's test split in
-                f32 (the plain encoder) and in bf16 through K1 (once per
-                forward batch): finite metrics, the two runs' vertices
-                within MODEL_ATOL; a scanned + fused recipe checkpoint
-                with its Adam state resumed twice to the same losses;
- 14. parser   — every .xyz of the corpus phase's corpus read by the C++
+                f32 (the plain encoder), in bf16 through K1 and in f32
+                through K1 f32 (once per forward batch): finite metrics,
+                the bf16 run's vertices within MODEL_ATOL of the plain
+                f32 run's, the f32 K1 run's within the f32 forward atol;
+                a scanned + fused recipe checkpoint with its Adam state
+                resumed twice to the same losses;
+ 15. parser   — every .xyz of the corpus phase's corpus read by the C++
                 parser (`io/native`, built with g++ into build/native/)
                 and by np.loadtxt: array_equal float64 arrays, ms per
                 file of each; the library loaded and no cloud of the
                 whole run read by numpy; on one served batch of the
                 corpus's model, the adjacency ops' round trip equal to
                 (p > t) on the card;
- 15. study    — `tools.seed_study` on that corpus (seeds 0 and 1, 2
+ 16. study    — `tools.seed_study` on that corpus (seeds 0 and 1, 2
                 epochs, EMA and decoded; every subprocess on CUDA): 6
                 records, each naming the card; then `tools.study_report`
                 on them;
- 16. parallel — more than one device on the one card, within 90 s:
+ 17. parallel — more than one device on the one card, within 90 s:
                 (a) `evaluate --sharded 4` of the corpus phase's EMA
                 checkpoint, shard by shard and pipelined: counters
                 array_equal to the plain runs', K1 once per forward
@@ -140,11 +159,12 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 (c), each kernel once per step on each rank.  A rank's
                 non-zero exit fails the phase.  NCCL across two cards
                 needs a machine with two;
- 17. bench    — `wireframe_tpu_torch.bench` and its four tools at the
-                bench's defaults (B=128 x 2560).
+ 18. bench    — `wireframe_tpu_torch.bench` and its four tools at the
+                bench's defaults (B=128 x 2560), and the recipe forward
+                with BENCH_DTYPE=float32 through K1 f32.
 Then a `kernels` JSON line (launches on the main paths, on the corpus,
-layouts, checkpoints, parallel and bench paths) and, last, the `ok` JSON
-line.
+layouts, checkpoints, parallel and bench paths; the f32 kernels' under
+their own entries) and, last, the `ok` JSON line.
 
 Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
 """
@@ -169,6 +189,9 @@ import numpy as np
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (data sheet)
 H100_BYTES_PER_S = 3.35e12    # HBM3
 H100_F32_FLOPS = 67e12        # f32 outside the tensor cores (data sheet)
+# The f32 kernels' bound: f32-accurate products on the tensor cores, as
+# three TF32 passes (hi*hi + hi*lo + lo*hi) at the dense TF32 peak.
+H100_3XTF32_FLOPS = 494.7e12 / 3
 # K1 kernel against its plain version.  Both run bf16 operands with f32
 # accumulation; they differ only in summation order, which flips the odd
 # bf16 rounding of an activation (one bf16 ulp is 2^-8 relative).  The
@@ -210,9 +233,11 @@ SERVE_SEED = 1
 
 
 def recipe_encoder_params(torch, rng, device, input_dim=8,
-                          hidden=(512, 1024, 2048, 1024), out=512):
+                          hidden=(512, 1024, 2048, 1024), out=512,
+                          weight_dtype=None):
     """Full-width encoder params with NONZERO biases and LayerNorm affine
-    terms, so padding rows carry real features into the unmasked pools."""
+    terms, so padding rows carry real features into the unmasked pools;
+    weights in bf16 (default) or weight_dtype."""
     stages, prev = [], input_dim
     for h in hidden:
         stages.append(tuple(torch.tensor(a, device=device) for a in (
@@ -226,9 +251,11 @@ def recipe_encoder_params(torch, rng, device, input_dim=8,
                       .astype(np.float32), device=device)
     fb = torch.tensor((rng.standard_normal(out) * 0.1).astype(np.float32),
                       device=device)
-    # The kernel reads bf16 weights: hand both versions the same ones.
-    stages = [(w.to(torch.bfloat16), b, g, be) for w, b, g, be in stages]
-    return stages, fw.to(torch.bfloat16), fb
+    # The kernel reads weights in its compute dtype: hand both versions
+    # the same ones.
+    wdt = weight_dtype or torch.bfloat16
+    stages = [(w.to(wdt), b, g, be) for w, b, g, be in stages]
+    return stages, fw.to(wdt), fb
 
 
 def padded_clouds(rng, b, n, d=8):
@@ -256,18 +283,27 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def k1_bound_ms(b, n, d, hidden, out, kv_pool):
-    """Least time for K1's work: operations at the bf16 peak against the
-    bytes it must move (cloud in, bf16 weights, pools and kv out)."""
+def _bound(flops, nbytes, f32):
+    """(ms, "operations" or "bytes"): the larger of the operations at the
+    peak for the operand type (bf16, or f32 as 3xTF32) and the bytes at
+    the memory rate."""
+    t_ops = flops / (H100_3XTF32_FLOPS if f32 else H100_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def k1_bound_ms(b, n, d, hidden, out, kv_pool, f32=False):
+    """Least time for K1's work: operations at the peak for its operands
+    against the bytes it must move (cloud in, weights in the compute
+    dtype, pools and kv out)."""
     dims = [d, *hidden, out]
     macs = sum(i * o for i, o in zip(dims[:-1], dims[1:]))
     flops = 2.0 * b * n * macs
-    weight_bytes = 2 * macs + 4 * 3 * sum(hidden) + 4 * out
-    io_bytes = 4 * b * n * d + 4 * b * 4 * out + 4 * b * (n // kv_pool) * out
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = (weight_bytes + io_bytes) / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    weight_bytes = (4 if f32 else 2) * macs + 4 * 3 * sum(hidden) + 4 * out
+    io_bytes = 4 * b * n * d + 4 * b * 4 * out + (
+        4 * b * (n // kv_pool) * out if kv_pool else 0)
+    return _bound(flops, weight_bytes + io_bytes, f32)
 
 
 def synthetic_building(rng, n, offset):
@@ -756,15 +792,16 @@ def bf16_ulp(torch, v):
     return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
 
 
-def chain_bound_ms(b, n, d, hidden, out, kv_pool, backward):
-    """Least time for K2's (forward) or K3's (backward) work: bf16
-    tensor-core operations against the bytes each must move."""
+def chain_bound_ms(b, n, d, hidden, out, kv_pool, backward, f32=False):
+    """Least time for K2's (forward) or K3's (backward) work: tensor-core
+    operations for its operands against the bytes each must move."""
     dims = [d, *hidden, out]
     macs = sum(i * o for i, o in zip(dims[:-1], dims[1:]))
     m = b * n
-    stash = 2 * m * sum(hidden)
+    esize = 4 if f32 else 2
+    stash = esize * m * sum(hidden)
     kv = 3 * 4 * m // kv_pool * out
-    weights = 2 * macs + 4 * (3 * sum(hidden) + out)
+    weights = esize * macs + 4 * (3 * sum(hidden) + out)
     if backward:
         flops = 4.0 * m * macs
         nbytes = 4 * m * d + stash + kv + weights + 4 * (
@@ -772,10 +809,7 @@ def chain_bound_ms(b, n, d, hidden, out, kv_pool, backward):
     else:
         flops = 2.0 * m * macs
         nbytes = 4 * m * d + weights + stash + kv
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    return _bound(flops, nbytes, f32)
 
 
 CHAIN_SHAPES = (
@@ -1071,14 +1105,14 @@ def chain_phase(torch, dev, card, shapes=CHAIN_SHAPES):
 K5_MAX_REL, K5_MEAN_REL = 5e-2, 1e-2
 
 
-def k5_bound_ms(b, n, d, hidden, out, kv_pool, emit, backward):
-    """Least time for K5's forward or backward: bf16 tensor-core operations
-    (forward 2, backward 6 FLOP per multiply-add: recompute, dW, dh)
-    against the bytes each must move (no stash)."""
+def k5_bound_ms(b, n, d, hidden, out, kv_pool, emit, backward, f32=False):
+    """Least time for K5's forward or backward: tensor-core operations for
+    its operands (forward 2, backward 6 FLOP per multiply-add: recompute,
+    dW, dh) against the bytes each must move (no stash)."""
     dims = [d, *hidden, out]
     macs = sum(i * o for i, o in zip(dims[:-1], dims[1:]))
     m = b * n
-    weights = 2 * macs + 4 * (3 * sum(hidden) + out)
+    weights = (4 if f32 else 2) * macs + 4 * (3 * sum(hidden) + out)
     feats = 4 * m * out if emit else 0
     kv = 3 * 4 * m // kv_pool * out if kv_pool else 0
     if backward:
@@ -1088,10 +1122,7 @@ def k5_bound_ms(b, n, d, hidden, out, kv_pool, emit, backward):
     else:
         flops = 2.0 * m * macs
         nbytes = 4 * m * d + weights + feats + kv
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    return _bound(flops, nbytes, f32)
 
 
 FULL = (512, 1024, 2048, 1024)
@@ -1232,13 +1263,27 @@ def _counters():
             "K5 bwd": chain_grad.remat_chain_backward}
 
 
+# The f32 kernels' counts: each wrapper's `launches_f32`, under the bf16
+# key + " f32" (K4's cost is f32 in both dtypes: it has one count).
+F32_KEYS = ("K1", "K2", "K3", "K5 fwd", "K5 bwd")
+
+
 def reset_launches():
-    for fn in _counters().values():
+    for k, fn in _counters().items():
         fn.launches = 0
+        if k in F32_KEYS:
+            fn.launches_f32 = 0
 
 
 def launch_counts():
+    """The bf16 kernels' counts (and K4's)."""
     return {k: fn.launches for k, fn in _counters().items()}
+
+
+def f32_launch_counts():
+    """The f32 kernels' counts."""
+    fns = _counters()
+    return {f"{k} f32": fns[k].launches_f32 for k in F32_KEYS}
 
 
 class _Losses:
@@ -1796,6 +1841,584 @@ def profile_train_step(torch, step, state, batch, gen, card, kernels,
           f"{sum(r[1] for r in rows)} device ops [{card}]", flush=True)
     for ms, count, name in sorted(rows, reverse=True)[:10]:
         print(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# f32: the encoder-chain kernels computing in float32 (K1, K2, K3, K5)
+# ---------------------------------------------------------------------------
+
+# The f32 kernels against their plain f32 versions (TF32 off, so the plain
+# products run in full f32).  Both compute
+# in f32 with f32 sums and differ only in summation order (~1e-6 relative
+# over a 2048-term sum):
+# - every forward output: rtol 1e-4, atol 1e-4; the window argmax equal
+#   wherever a window's top two values differ by more than the atol;
+# - every gradient: rtol 1e-3 elementwise and atol 2e-4 of the tensor's
+#   largest magnitude (the CPU test's f32 bound, tests/test_torch_chain_
+#   grad.py, where gradients are of order 1; at full width a dW entry sums
+#   20480 rows and reaches ~1e2, and the f32 rounding of such a sum alone,
+#   ~6e-4 on either side, passes an absolute 2e-4 on entries near 0: an
+#   H100 run read 1.5 times it on K3's dW3 with a relative L2
+#   difference of 1.35e-6), with the plain backward run from the
+#   kernel's own f32 z (K2's stash, which K5's recompute equals bit for
+#   bit).  The ReLU gate is a step: where a LayerNorm output lies within
+#   the two statistics' rounding of 0 (~1e-7), the two sides may open it
+#   differently, which moves that stage's d gamma, d beta and d b in its
+#   column by a whole cotangent, its dW column by one row's product, dx in
+#   its row and every lower stage's dW a little, past any elementwise
+#   bound at full width.  So the cotangent is 0 on every kv window (row,
+#   without kv pooling) that holds a gate within F32_TIE of 0 on the plain
+#   side: such a row's dz is 0 at every stage whichever way its gates
+#   open, every other gate opens alike on both sides, and every element
+#   of every gradient is held to the bound;
+# - losses: step 1 rtol 1e-4, steps 2-3 rtol 1e-3.  The recipe's step 1
+#   carries the kv tokens' f32 differences (up to ~6e-6) through four
+#   decoder layers and the loss: an H100 run read 1.57e-5, past an rtol
+#   of 1e-5.
+F32_FWD_RTOL, F32_FWD_ATOL = 1e-4, 1e-4
+F32_GRAD_RTOL, F32_GRAD_ATOL = 1e-3, 2e-4
+F32_TIE = 1e-6
+F32_LOSS_RTOL = (1e-4, 1e-3, 1e-3)
+# K1's peak device memory at (3, 16384) in f32: the two widest f32
+# activations (604 MB) and the kv tokens.
+K1_F32_PEAK_BYTES = 0.70e9
+F32_TRAIN_STEPS = 20            # (a) the parity model as shipped
+F32_RECIPE_STEPS = 5            # (b) the recipe at f32
+F32_BUDGET_S = 60.0
+# The f32 shapes of part (c): (name, B, N, hidden, out, kv_pool, emit
+# features).  The chain's (K2 / K3 and K5 in each flavour) ...
+F32_CHAIN_SHAPES = (
+    ("recipe", 8, 2560, FULL, 512, 4, False),
+    ("parity features", 3, 2560, FULL, 512, 0, True),
+    ("bench parity features", 128, 2560, FULL, 512, 0, True),
+    ("ragged kv", 2, 200, (40, 72), 36, 4, True),
+    ("ragged features", 2, 256, (40, 72), 36, 0, True),
+    ("ragged slim", 2, 200, (40, 72), 36, 4, False),
+    ("ragged cluster", 2, 328, (600, 1100), 300, 4, True))
+# ... and K1's: (B, N, hidden, out, kv_pool, tile).  kv windows of 5 and
+# 41 rows cross the 128-row tiles; (600, 1100) runs clusters of 3 and 5.
+F32_K1_SHAPES = (
+    (3, 2560, FULL, 512, 4, 512), (3, 16384, FULL, 512, 4, 512),
+    (128, 2560, FULL, 512, 4, 512), (2, 200, (40, 72), 36, 4, 200),
+    (2, 200, (40, 72), 36, 0, 200), (2, 200, (40, 72), 36, 5, 200),
+    (2, 328, (600, 1100), 300, 41, 328))
+
+
+def f32_params(torch, rng, dev, hidden, out):
+    """recipe_encoder_params with full f32 weights."""
+    return recipe_encoder_params(torch, rng, dev, hidden=hidden, out=out,
+                                 weight_dtype=torch.float32)
+
+
+def f32_forward_close(label, got, want, keys):
+    """Each forward output against its plain f32 version; returns the
+    largest absolute difference."""
+    max_abs = 0.0
+    for key in keys:
+        g, w = got[key].float(), want[key].float()
+        if g.shape != w.shape or not bool(g.isfinite().all()):
+            raise AssertionError(f"{label} {key}: shape {tuple(g.shape)} "
+                                 f"or non-finite")
+        err = (g - w).abs()
+        ok = bool((err <= F32_FWD_ATOL + F32_FWD_RTOL * w.abs()).all())
+        max_abs = max(max_abs, err.max().item())
+        print(f"{label} {key:14s} max_abs {err.max().item():.3e} (rtol "
+              f"{F32_FWD_RTOL}, atol {F32_FWD_ATOL}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label} {key} disagrees")
+    return max_abs
+
+
+def f32_tied_rows(torch, x, stage_params, zs, p):
+    """The rows (B * N,) of every kv window (p > 1) or row (p = 0) that
+    holds a gate within F32_TIE of a tie: a stage's LayerNorm output,
+    rebuilt from the f32 z as the plain backward rebuilds it, that close
+    to 0; and the count of such gates."""
+    from wireframe_tpu_torch.ops.chain_grad import _stage_stats
+
+    b, n = x.shape[:2]
+    rows = torch.zeros(b * n, dtype=torch.bool, device=x.device)
+    count = 0
+    for z, (_w, _b, g, be) in zip(zs, stage_params):
+        _, xhat, _ = _stage_stats(z.reshape(b * n, -1).float(), g, be,
+                                  torch.float32)
+        near = (xhat * g.float() + be.float()).abs() <= F32_TIE
+        rows |= near.any(1)
+        count += int(near.sum())
+        del xhat, near
+    if p:
+        rows = rows.reshape(b, n // p, p).any(-1, keepdim=True).expand(
+            b, n // p, p).reshape(-1)
+    return rows, count
+
+
+def f32_grads_close(torch, label, gk, gp, tied):
+    """dx and every parameter gradient of a backward against its plain
+    version, every element (see F32_GRAD_RTOL); returns the largest
+    absolute difference."""
+    flat = lambda r: [("dx", r[0])] + [  # noqa: E731
+        (f"{t}{i}", v) for i, st in enumerate(r[1])
+        for t, v in zip(("dW", "db", "dgamma", "dbeta"), st)] + [
+        ("dW_proj", r[2]), ("db_proj", r[3])]
+    worst, worst_at, max_abs = 0.0, "", 0.0
+    for (name, a), (_, w) in zip(flat(gk), flat(gp)):
+        if a.shape != w.shape or not bool(a.isfinite().all()):
+            raise AssertionError(f"{label} {name}: shape or non-finite")
+        err = (a - w).abs()
+        max_abs = max(max_abs, err.max().item())
+        r = (err / (F32_GRAD_ATOL * w.abs().max()
+                    + F32_GRAD_RTOL * w.abs())).max().item()
+        if r > worst:
+            worst, worst_at = r, name
+    rows, gates = tied
+    # The zeroed rows must leave the check its data.
+    ok = worst <= 1.0 and rows.float().mean().item() <= 0.1
+    print(f"{label}: dx and {len(flat(gk)) - 1} parameter gradients, "
+          f"largest |diff| / (atol max|plain| + rtol |plain|) {worst:.3f} "
+          f"({worst_at}; limit 1 at rtol {F32_GRAD_RTOL}, atol "
+          f"{F32_GRAD_ATOL}), every element; cotangent 0 on the "
+          f"{int(rows.sum())} of {rows.numel()} rows behind {gates} gates "
+          f"within {F32_TIE} of a tie; max_abs {max_abs:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} disagrees")
+    return max_abs
+
+
+def f32_k1(torch, dev, card):
+    """K1 in f32 against its plain f32 version at F32_K1_SHAPES; its point
+    features and kv tokens array_equal to K5's f32 forward; two launches
+    array_equal; times, bounds and the peak memory at (3, 16384).
+    Returns ({(B, N): timing fields}, max abs error)."""
+    from wireframe_tpu_torch.ops.chain_grad import remat_chain_forward
+    from wireframe_tpu_torch.ops.fused_encoder import (
+        fused_point_encoder,
+        fused_point_encoder_plain,
+    )
+
+    rng = np.random.default_rng(12)
+    f32 = torch.float32
+    timing, max_abs = {}, 0.0
+    for b, n, hidden, out, p, tile in F32_K1_SHAPES:
+        stages, fw, fb = f32_params(torch, rng, dev, hidden, out)
+        x = torch.tensor(padded_clouds(rng, b, n), device=dev)
+        kw = dict(tile=tile, compute_dtype=f32, kv_pool=p)
+        feats = b * n <= 3 * 2560
+        got = fused_point_encoder(x, stages, fw, fb,
+                                  return_point_features=feats, **kw)
+        want = fused_point_encoder_plain(x, stages, fw, fb,
+                                         return_point_features=feats, **kw)
+        max_abs = max(max_abs, f32_forward_close(
+            f"K1 f32 B={b} N={n} kv_pool {p}", got, want, list(want)))
+        del want
+        if b > 1:
+            for key in ("masked_mean", "masked_max") + (
+                    ("kv_features",) if p else ()):
+                if got[key][-1].abs().max().item() != 0.0:
+                    raise AssertionError(f"all-padding sample {key} != 0")
+        if feats:
+            k5 = remat_chain_forward(x, stages, fw, fb, kv_pool=p,
+                                     emit_features=True, compute_dtype=f32)
+            again = fused_point_encoder(x, stages, fw, fb,
+                                        return_point_features=True, **kw)
+            same = {"point_features": torch.equal(got["point_features"],
+                                                  k5["features"])}
+            if p:
+                same["kv_features"] = torch.equal(got["kv_features"],
+                                                  k5["pooled"])
+            same["two launches"] = all(torch.equal(got[k], again[k])
+                                       for k in got)
+            print(f"K1 f32 B={b} N={n} kv_pool {p}: array_equal to K5's f32 "
+                  f"forward and to a second launch {same}", flush=True)
+            if not all(same.values()):
+                raise AssertionError(f"K1 f32 B={b} N={n}: {same}")
+            del k5, again
+        del got
+        if b * n < 3 * 2560:
+            continue
+        call = lambda: fused_point_encoder(x, stages, fw, fb, **kw)  # noqa
+        if (b, n) == (3, 16384):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del res
+            print(f"K1 f32 B={b} N={n} peak device memory of one call: "
+                  f"{peak / 1e9:.4f} GB beyond the {base / 1e9:.4f} GB "
+                  f"allocated before it (limit {K1_F32_PEAK_BYTES / 1e9} GB;"
+                  f" bf16 {K1_PEAK_BYTES / 1e9}) [{card}]", flush=True)
+            if peak > K1_F32_PEAK_BYTES:
+                raise AssertionError(f"K1 f32 holds {peak} bytes")
+        ms = cuda_ms(torch, call, 10)
+        plain_ms = cuda_ms(torch, lambda: fused_point_encoder_plain(
+            x, stages, fw, fb, **kw), 3)
+        bound, bound_by = k1_bound_ms(b, n, 8, hidden, out, p, f32=True)
+        simt = 2.0 * b * n * sum(i * o for i, o in zip(
+            (8, *hidden), (*hidden, out))) / H100_F32_FLOPS * 1e3
+        timing[(b, n)] = {"shape": f"B={b} N={n} kv_pool={p}", "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": bound_by}
+        print(f"K1 f32 time B={b} N={n}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}, "
+              f"3xTF32), {bound / ms * 100:.1f}% of bound; FP32 SIMT "
+              f"ceiling {simt:.3f} ms ({simt / ms * 100:.1f}%) [{card}]",
+              flush=True)
+        del x
+    return timing, max_abs
+
+
+def f32_chain(torch, dev, card):
+    """K2 / K3 and K5 in f32 against their plain f32 versions at
+    F32_CHAIN_SHAPES: forwards at the forward tolerance (stash, window
+    argmax), backwards from the kernel's own stash; K5's forward
+    array_equal to K2's; two launches array_equal; times and bounds.
+    Returns {"K2", "K3", "K5 forward", "K5 backward": timing fields at
+    the recipe's (8, 2560) and the parity (3, 2560) shapes}."""
+    from wireframe_tpu_torch.ops.chain_grad import (
+        chain_backward,
+        chain_backward_plain,
+        chain_forward,
+        chain_forward_plain,
+        remat_chain_backward,
+        remat_chain_forward,
+    )
+
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    f32 = torch.float32
+    result = {}
+    for name, b, n, hidden, out, p, emit in F32_CHAIN_SHAPES:
+        stages, fw, fb = f32_params(torch, rng, dev, hidden, out)
+        x = torch.tensor(padded_clouds(rng, b, n), device=dev)
+        kw = dict(kv_pool=p, compute_dtype=f32, emit_features=emit)
+        got = chain_forward(x, stages, fw, fb, **kw)
+        k5 = remat_chain_forward(x, stages, fw, fb, **kw)
+        want = chain_forward_plain(x, stages, fw, fb,
+                                   **{**kw, "emit_features": True})
+        keys = (["pooled", "sums"] if p else []) + (["features"] if emit
+                                                     else [])
+        fwd_abs = f32_forward_close(f"K2 f32 {name} ({b}, {n})", got, want,
+                                    keys)
+        fwd_abs = max(fwd_abs, f32_forward_close(
+            f"K2 f32 {name} ({b}, {n}) stash", {
+                f"z{k}": z for k, z in enumerate(got["zs"])}, {
+                f"z{k}": z for k, z in enumerate(want["zs"])},
+            [f"z{k}" for k in range(len(hidden))]))
+        same = [k for k in k5 if not torch.equal(k5[k], got[k])]
+        if same or "zs" in k5 or any(z.dtype != f32 for z in got["zs"]):
+            raise AssertionError(f"K5 f32 forward differs from K2's in "
+                                 f"{same} ({name})")
+        if p:
+            f = want["features"]
+            valid = x.sum(-1).abs() > 1e-9
+            filled = torch.where(valid[..., None], f,
+                                 torch.full_like(f, -torch.inf))
+            top2 = torch.topk(filled.reshape(b, n // p, p, -1), 2,
+                              dim=2).values
+            clear = ~(top2[:, :, 0] - top2[:, :, 1] <= F32_FWD_ATOL)
+            agree = got["idx"] == want["idx"]
+            print(f"K2 f32 {name} idx: agreement "
+                  f"{agree.float().mean().item() * 100:.4f}% overall, "
+                  f"{agree[clear].float().mean().item() * 100:.4f}% where "
+                  f"the top-two gap exceeds {F32_FWD_ATOL}", flush=True)
+            if not bool(agree[clear].all()):
+                raise AssertionError(f"K2 f32 idx disagrees ({name})")
+            del f, filled, top2
+        del want
+        # Cotangents, 0 on the windows / rows behind a near-tie gate.
+        zs = got["zs"]
+        tied = f32_tied_rows(torch, x, stages, zs, p)
+        keep = (~tied[0]).float().reshape(b, n, 1)
+        cot = {}
+        if p:
+            wkeep = keep.reshape(b, n // p, p, 1)[:, :, 0]
+            cot = dict(dpool=torch.randn(got["pooled"].shape, device=dev,
+                                         generator=gen) * wkeep,
+                       dsums=torch.randn(got["sums"].shape, device=dev,
+                                         generator=gen) * 0.1 * wkeep,
+                       idx=got["idx"])
+        if emit:
+            cot["g"] = torch.randn((b, n, out), device=dev,
+                                   generator=gen) * 0.1 * keep
+        bkw = dict(kv_pool=p, compute_dtype=f32, **cot)
+        gp = chain_backward_plain(x, stages, fw, fb, zs, **bkw)
+        small = b * n <= 8 * 2560
+        bwd_abs = {}
+        for label, fn in (
+                ("K3", lambda: chain_backward(x, stages, fw, fb, zs, **bkw)),
+                ("K5 backward", lambda: remat_chain_backward(
+                    x, stages, fw, fb, **bkw))):
+            if label == "K3" and not small:
+                continue
+            gk = fn()
+            bwd_abs[label] = f32_grads_close(
+                torch, f"{label} f32 {name} ({b}, {n})", gk, gp, tied)
+            if not small:
+                continue
+            again = fn()
+            same = [torch.equal(u, v) for u, v in zip(
+                [gk[0], *[t for st in gk[1] for t in st], gk[2], gk[3]],
+                [again[0], *[t for st in again[1] for t in st], again[2],
+                 again[3]])]
+            if not all(same):
+                raise AssertionError(f"{label} f32 {name}: two launches "
+                                     "differ")
+            del gk, again
+        del gp
+        if small:
+            yard = grad_errors(
+                remat_chain_backward(x, stages, fw, fb, **bkw),
+                chain_backward_plain(x, stages, fw, fb, None, **bkw))
+            print(f"K5 f32 {name} ({b}, {n}) yardstick, against the plain "
+                  f"version recomputing its own z: worst max rel err "
+                  f"{yard[0]:.2e} ({yard[1]}), worst mean rel err "
+                  f"{yard[2]:.2e} ({yard[3]}); the backwards repeat bit "
+                  f"for bit", flush=True)
+        if name in ("recipe", "parity features", "bench parity features"):
+            timed = (("K2", lambda: chain_forward(x, stages, fw, fb, **kw),
+                      lambda: chain_forward_plain(x, stages, fw, fb, **kw),
+                      False, fwd_abs),
+                     ("K3", lambda: chain_backward(x, stages, fw, fb, zs,
+                                                   **bkw),
+                      lambda: chain_backward_plain(x, stages, fw, fb, zs,
+                                                   **bkw), True,
+                      bwd_abs.get("K3")))
+            if name != "recipe":
+                timed = (("K5 forward", lambda: remat_chain_forward(
+                    x, stages, fw, fb, **kw), lambda: chain_forward_plain(
+                        x, stages, fw, fb, stash=False, **kw), False,
+                    fwd_abs),
+                    ("K5 backward", lambda: remat_chain_backward(
+                        x, stages, fw, fb, **bkw),
+                     lambda: chain_backward_plain(x, stages, fw, fb, None,
+                                                  **bkw), True,
+                     bwd_abs["K5 backward"]))
+            for label, fn, plain, backward, err in timed:
+                ms = cuda_ms(torch, fn, 10)
+                plain_ms = cuda_ms(torch, plain, 3)
+                if label.startswith("K5"):
+                    bound, bound_by = k5_bound_ms(b, n, 8, hidden, out, p,
+                                                  emit, backward, f32=True)
+                else:
+                    bound, bound_by = chain_bound_ms(b, n, 8, hidden, out,
+                                                     p, backward, f32=True)
+                macs = sum(i * o for i, o in zip((8, *hidden),
+                                                 (*hidden, out)))
+                ops = 2.0 * b * n * macs * (
+                    (3 if label.startswith("K5") else 2) if backward else 1)
+                simt = ops / H100_F32_FLOPS * 1e3
+                print(f"{label} f32 time {name} ({b}, {n}): kernel "
+                      f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                      f"{bound:.4f} ms ({bound_by}, 3xTF32), "
+                      f"{bound / ms * 100:.1f}% of bound; FP32 SIMT ceiling "
+                      f"{simt:.3f} ms ({simt / ms * 100:.1f}%); library: "
+                      f"none [{card}]", flush=True)
+                if name != "bench parity features":
+                    result[label] = {
+                        "shape": f"B={b} N={n} kv_pool={p}"
+                        + ("" if emit else " slim"), "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by, "max_abs_err": err}
+        del x, got, k5, zs, cot, tied, keep
+    return result
+
+
+def _f32_losses(torch, config, sets, batch, dev, plain):
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.train.loop import train_model
+
+    w = _Losses()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        train_model(load_config(config, sets), [batch], metric_writer=w,
+                    device=dev)
+    return [r["total_loss"] for r in w.rows]
+
+
+def _f32_compare(label, kern, plain):
+    rel = [abs(a - b) / abs(b) for a, b in zip(kern, plain)]
+    ok = len(rel) == 3 and all(r <= t for r, t in zip(rel, F32_LOSS_RTOL))
+    print(f"f32 {label}: first 3 losses, kernels {kern} vs plain versions "
+          f"{plain}: relative differences {rel} (limits {F32_LOSS_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"f32 {label} losses differ from the plain run")
+
+
+def f32_phase(torch, dev, card, work):
+    """(a) the parity model as shipped (configs/default.yaml +
+    model.use_pallas_encoder=true: f32), trained 20 steps through K5 f32
+    and K4 and served over the four buckets through K1 f32; (b) the recipe
+    at f32 (stash), 5 steps through K2 f32, K3 f32 and K4; each first 3
+    losses against the plain versions; (c) the kernels alone.  Returns
+    {key: fields} for the kernels line."""
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.data.bucketing import choose_bucket
+    from wireframe_tpu_torch.io.obj import load_wireframe
+    from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
+    from wireframe_tpu_torch.serve import WireframePredictor
+    from wireframe_tpu_torch.train.checkpoint import save_checkpoint
+    from wireframe_tpu_torch.train.loop import (
+        epoch_seed,
+        init_model,
+        train_model,
+    )
+    from wireframe_tpu_torch.utils.synth import (
+        make_box_building_batch,
+        targets_near_slots,
+    )
+
+    t0 = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("the plain f32 versions would run in TF32")
+    none = {k: 0 for k in {**launch_counts(), **f32_launch_counts()}}
+    out = {}
+
+    def counted(want):
+        counts = {**launch_counts(), **f32_launch_counts()}
+        if counts != {**none, **want}:
+            raise AssertionError(f"launches {counts}, expected "
+                                 f"{ {**none, **want} }")
+        return counts
+
+    # (a) The parity model as shipped, trained: counts to 0, 20 steps,
+    # counts read.
+    shipped = ["model.use_pallas_encoder=true", "train.log_every=1"]
+    cfg = load_config(PARITY,
+                      shipped + [f"train.num_epochs={F32_TRAIN_STEPS}"])
+    m = cfg.model
+    print(f"f32 (a) parity model as shipped: {m.compute_dtype}, fused "
+          f"encoder {m.use_pallas_encoder}, chain_backward "
+          f"{m.chain_backward}, batch {cfg.train.batch_size} x "
+          f"{cfg.data.num_points}, lr {cfg.train.learning_rate}", flush=True)
+    if m.compute_dtype != "float32":
+        raise AssertionError("configs/default.yaml no longer ships f32")
+    batch = make_box_building_batch(cfg, cfg.train.batch_size, seed=0)
+    writer = _Losses()
+    reset_launches()
+    t1 = time.perf_counter()
+    state = train_model(cfg, [batch], metric_writer=writer, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    losses = [r["total_loss"] for r in writer.rows]
+    out["train"] = counted({"K4": F32_TRAIN_STEPS,
+                            "K5 fwd f32": F32_TRAIN_STEPS,
+                            "K5 bwd f32": F32_TRAIN_STEPS})
+    print(f"f32 (a) {F32_TRAIN_STEPS} steps in {secs:.2f} s "
+          f"({secs / F32_TRAIN_STEPS * 1e3:.1f} ms a step, metrics read "
+          f"every step); launches {out['train']}; losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)} [{card}]", flush=True)
+    if len(losses) != F32_TRAIN_STEPS or not all(map(math.isfinite,
+                                                     losses)):
+        raise AssertionError("an f32 parity loss is not finite")
+    # The fall at lr 1e-4 (at its lr 1e-3 the loss first overshoots; see
+    # parity_phase), from the same start.
+    fall = _f32_losses(torch, PARITY, shipped + [
+        "train.learning_rate=0.0001", f"train.num_epochs={F32_TRAIN_STEPS}"],
+        batch, dev, plain=False)
+    first, last = float(np.mean(fall[:3])), float(np.mean(fall[-3:]))
+    print(f"f32 (a) {F32_TRAIN_STEPS} steps at lr 1e-4: mean loss of the "
+          f"first 3 steps {first:.5f}, of the last 3 {last:.5f}", flush=True)
+    if not all(map(math.isfinite, fall)) or not last < first:
+        raise AssertionError("the f32 parity loss does not fall")
+    # The first 3 steps at the shipped lr, kernels against the plain
+    # versions, dropout off, the targets next to predicted slots.
+    cmp_sets = shipped + ["model.attn_dropout=0", "model.edge_dropout=0",
+                          "train.num_epochs=3"]
+    ccfg = load_config(PARITY, cmp_sets)
+    near = targets_near_slots(ccfg, init_model(ccfg, dev), batch,
+                              epoch_seed(ccfg.train.seed, 0), device=dev)
+    _f32_compare("(a) parity", *(
+        _f32_losses(torch, PARITY, cmp_sets, near, dev, plain)
+        for plain in (False, True)))
+
+    # (a) Served: the trained checkpoint over the four buckets, counts to
+    # 0 just before, read just after.
+    path = save_checkpoint(os.path.join(work, "f32_ckpt"), state, cfg,
+                           epoch=F32_TRAIN_STEPS)
+    predictor = WireframePredictor(path, device=dev)
+    sizes = (1300, 3000, 6000, 12000, 20000)
+    rng = np.random.default_rng(14)
+    offset = np.array([534000.0, 6588000.0, 40.0])
+    paths = []
+    for i, n in enumerate(sizes):
+        pth = os.path.join(work, f"f32_cloud{i}_{n}.xyz")
+        np.savetxt(pth, synthetic_building(rng, n, offset), fmt="%.4f")
+        paths.append(pth)
+    buckets = [choose_bucket(n, predictor.buckets) for n in sizes]
+    if sorted(set(buckets)) != sorted(predictor.buckets):
+        raise AssertionError(f"f32 clouds miss a bucket: {buckets}")
+    batches = sum(-(-buckets.count(k) // predictor.batch_size)
+                  for k in set(buckets))
+    reset_launches()
+    results = predictor.predict_files(paths, out_dir=os.path.join(
+        work, "f32_obj"))
+    torch.cuda.synchronize()
+    out["serve"] = counted({"K1 f32": batches})
+    for pth, r in zip(paths, results):
+        v, e = r["vertices"], r["edges"]
+        lv, le = load_wireframe(r["obj_path"])
+        if not np.isfinite(v).all() or lv.shape != v.shape or (
+                len(le) != r["num_edges"]):
+            raise AssertionError(f"f32 checkpoint: {pth} does not serve")
+    print(f"f32 (a) served {len(paths)} clouds in {batches} batches over "
+          f"buckets {predictor.buckets}; launches {out['serve']}; .obj files "
+          f"load back", flush=True)
+    pcs = [predictor._preprocess(np.loadtxt(pth))["pc"] for pth in paths[:2]]
+    xb = torch.tensor(predictor.batch_array(pcs, predictor.buckets[1]),
+                      device=dev)
+    plain_model = PointCloudToWireframe(load_config(PARITY, [
+        "model.use_pallas_encoder=false"]).model).to(dev).eval()
+    plain_model.load_state_dict(predictor.model.state_dict(), strict=True)
+    with torch.inference_mode():
+        f32_forward_close("f32 (a) served batch, K1 f32 vs the plain f32 "
+                          "encoder:", predictor.model(xb), plain_model(xb),
+                          list(MODEL_ATOL))
+    del predictor, plain_model, state
+
+    # (b) The recipe at f32 with the stash chain: counts to 0, 5 steps,
+    # counts read; the first 3 against the plain versions.
+    rsets = ["model.compute_dtype=float32", "train.overfit_one_batch=true",
+             "train.log_every=1", "model.attn_dropout=0",
+             "model.edge_dropout=0"]
+    rcfg = load_config(RECIPE,
+                       rsets + [f"train.num_epochs={F32_RECIPE_STEPS}"])
+    if rcfg.model.chain_backward != "stash":
+        raise AssertionError("the recipe no longer ships the stash chain")
+    rbatch = targets_near_slots(
+        rcfg, init_model(rcfg, dev),
+        make_box_building_batch(rcfg, rcfg.train.batch_size, seed=0),
+        epoch_seed(rcfg.train.seed, 0), device=dev)
+    reset_launches()
+    t1 = time.perf_counter()
+    w = _Losses()
+    train_model(rcfg, [rbatch], metric_writer=w, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    rl = [r["total_loss"] for r in w.rows]
+    out["recipe"] = counted({"K2 f32": F32_RECIPE_STEPS,
+                             "K3 f32": F32_RECIPE_STEPS,
+                             "K4": F32_RECIPE_STEPS})
+    print(f"f32 (b) recipe, float32, stash, {rcfg.train.batch_size} x "
+          f"{rcfg.data.num_points}: {F32_RECIPE_STEPS} steps in {secs:.2f} s;"
+          f" launches {out['recipe']}; losses {rl} [{card}]", flush=True)
+    if not all(map(math.isfinite, rl)):
+        raise AssertionError("an f32 recipe loss is not finite")
+    _f32_compare("(b) recipe", rl[:3], _f32_losses(
+        torch, RECIPE, rsets + ["train.num_epochs=3"], rbatch, dev,
+        plain=True))
+
+    # (c) The kernels alone.
+    out["K1"] = f32_k1(torch, dev, card)
+    out["chain"] = f32_chain(torch, dev, card)
+    secs = time.perf_counter() - t0
+    print(f"f32 phase: {secs:.1f} s (budget {F32_BUDGET_S:.0f} s) [{card}]",
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2423,9 +3046,10 @@ def _eval_vertices(evaluate_cli, argv):
 
 def checkpoints_phase(torch, dev, card, work):
     """A reference-layout `.pth` (reference widths, 64 slots) evaluated
-    through `evaluate --torch-checkpoint` in f32 and through K1 in bf16;
-    a scanned, fused recipe checkpoint with its Adam state resumed twice
-    to the same losses.  Returns {kernel: launches on this path}."""
+    through `evaluate --torch-checkpoint` in f32 (the plain encoder), in
+    bf16 through K1 and in f32 through K1; a scanned, fused recipe
+    checkpoint with its Adam state resumed twice to the same losses.
+    Returns {kernel: launches on this path}."""
     from wireframe_tpu_torch import evaluate as evaluate_cli
     from wireframe_tpu_torch.config import load_config
     from wireframe_tpu_torch.train.checkpoint import (
@@ -2447,28 +3071,35 @@ def checkpoints_phase(torch, dev, card, work):
     root = os.path.join(work, "corpus")
     argv = ["--config", PARITY, "--data-root", root, "--torch-checkpoint",
             pth, "--device", str(dev)]
-    counts, lines, verts = {}, {}, {}
-    for label, extra in (("f32", []), ("bf16 K1", PARITY_SET)):
+    counts, lines, verts, f32_counts = {}, {}, {}, {}
+    for label, extra in (("f32", []), ("bf16 K1", PARITY_SET),
+                         ("f32 K1", ["model.use_pallas_encoder=true"])):
         reset_launches()
         t0 = time.perf_counter()
         lines[label], verts[label] = _eval_vertices(evaluate_cli,
                                                     argv + _sets(extra))
         torch.cuda.synchronize()
         counts[label] = launch_counts()
+        f32_counts[label] = f32_launch_counts()
         print(f"checkpoints: evaluate --torch-checkpoint ({label}) "
               f"{time.perf_counter() - t0:.2f} s, {len(verts[label])} "
-              f"forward batches; launches {counts[label]} [{card}]",
-              flush=True)
+              f"forward batches; launches {counts[label]}, f32 "
+              f"{f32_counts[label]} [{card}]", flush=True)
         values = [float(ln.split()[-1]) for ln in lines[label]
                   if ln.split() and ln.split()[0] in (
                       "Wireframe", "Average", "Corners", "Edges")]
         if len(values) != 8 or not all(map(math.isfinite, values)):
             raise AssertionError(f"evaluate ({label}) metrics {values}")
     batches = len(verts["bf16 K1"])
-    want = {"f32": 0, "bf16 K1": batches}
+    want = {"f32": 0, "bf16 K1": batches, "f32 K1": 0}
+    want_f32 = {"f32": 0, "bf16 K1": 0, "f32 K1": batches}
     if any(counts[k]["K1"] != n for k, n in want.items()) or any(
             v for c in counts.values() for k, v in c.items() if k != "K1"):
         raise AssertionError(f"evaluate launches {counts}")
+    if any(f32_counts[k]["K1 f32"] != n for k, n in want_f32.items()) or any(
+            v for c in f32_counts.values() for k, v in c.items()
+            if k != "K1 f32"):
+        raise AssertionError(f"evaluate f32 launches {f32_counts}")
     err = max(float(np.abs(a - b).max())
               for a, b in zip(verts["f32"], verts["bf16 K1"]))
     print(f"checkpoints: .pth model vertices, bf16 with K1 against f32 "
@@ -2476,6 +3107,12 @@ def checkpoints_phase(torch, dev, card, work):
           f"{MODEL_ATOL['vertices']})", flush=True)
     if len(verts["f32"]) != batches or err > MODEL_ATOL["vertices"]:
         raise AssertionError("the .pth model's bf16 K1 vertices differ")
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(verts["f32"], verts["f32 K1"]))
+    print(f"checkpoints: .pth model vertices, f32 with K1 against f32 "
+          f"plain: max abs diff {err:.3e} (atol {F32_FWD_ATOL})", flush=True)
+    if len(verts["f32 K1"]) != batches or err > F32_FWD_ATOL:
+        raise AssertionError("the .pth model's f32 K1 vertices differ")
 
     # A scanned, fused recipe checkpoint with Adam state, resumed twice.
     ckdir = os.path.join(work, "scan_fused_ckpt")
@@ -2510,7 +3147,9 @@ def checkpoints_phase(torch, dev, card, work):
             or any(train_counts[k] != n for k in ("K2", "K3", "K4"))):
         raise AssertionError("the scan + fused checkpoint does not resume "
                              "to the same losses")
-    return {k: counts["bf16 K1"][k] + train_counts[k] for k in train_counts}
+    return {**{k: counts["bf16 K1"][k] + train_counts[k]
+               for k in train_counts},
+            "K1 f32": f32_counts["f32 K1"]["K1 f32"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3329,15 +3968,24 @@ def bench_phase(torch, dev, card, work):
     if not busy > 0:
         raise AssertionError("the profiled window shows no device time")
 
-    # f32 with the fused encoder raises on the card: no fallback.
-    try:
-        bench.run({"BENCH_DTYPE": "float32", "BENCH_BATCH": "2",
-                   "BENCH_POINTS": "2048", "BENCH_ITERS": "1",
-                   "BENCH_PARITY_SECONDARY": "0"}, device=dev)
-    except ValueError as exc:
-        print(f"bench BENCH_DTYPE=float32 raises: {exc}", flush=True)
-    else:
-        raise AssertionError("the bench ran float32 with the fused encoder")
+    # The recipe forward in f32 through K1 f32 (at B=128 x 2560, 3 timed
+    # iterations), counts to 0 just before and read just after.
+    reset_launches()
+    f32_env = {**BENCH_ENV, "BENCH_DTYPE": "float32", "BENCH_ITERS": "3",
+               "BENCH_LAT_ITERS": "2", "BENCH_PARITY_SECONDARY": "0"}
+    f32 = bench.run(f32_env, device=dev)
+    torch.cuda.synchronize()
+    counts = {**launch_counts(), **f32_launch_counts()}
+    print(json.dumps(f32), flush=True)
+    expected = {**{k: 0 for k in counts}, "K1 f32": f32["forward_calls"]}
+    print(f"bench {f32_env}: recipe B={f32['batch']} x {f32['points']} in "
+          f"f32 {f32['value']:.2f} clouds/s ({f32['mean_batch_ms']:.3f} ms a "
+          f"batch, mfu against the bf16 peak {f32['mfu']:.4f}) beside bf16's "
+          f"{fwd['value']:.2f} ({fwd['mean_batch_ms']:.3f} ms); launches "
+          f"{counts}, expected {expected} [{card}]", flush=True)
+    if counts != expected or f32["dtype"] != "float32":
+        raise AssertionError(f"bench f32 launches {counts} != {expected}")
+    launches["K1 f32"] = counts["K1 f32"]
 
     # Train mode: the recipe (K2, K3, K4) and the parity model (K5, K4),
     # each once per step.
@@ -3463,6 +4111,9 @@ def main() -> int:
             raise AssertionError(f"a chain kernel's error changed: recorded "
                                  f"{CHAIN_MAX_ABS}")
 
+        phase = "f32"
+        f32 = f32_phase(torch, dev, card, work)
+
         phase = "training"
         train_launches, _ = training_phase(torch, dev, card, work)
 
@@ -3564,6 +4215,34 @@ def main() -> int:
                                 r[count] for r in parallel["mp_per_rank"]],
                             "bench_launches": bench[count],
                             **k5[key], "library_ms": None})
+        # The f32 kernels: launches on the f32 phase's main paths ((a)
+        # served and trained, (b) trained), the checkpoints' f32 K1 run
+        # and the bench's f32 run.
+        k1_f32 = {**f32["K1"][0][(3, 16384)], "max_abs_err": f32["K1"][1]}
+        for key, name, fields, launched, source, replaces in (
+                ("K1 f32", "fused_point_encoder (K1), float32", k1_f32,
+                 f32["serve"]["K1 f32"], "fused_encoder.cu",
+                 "pallas_encoder.py:71"),
+                ("K2 f32", "chain forward, stash (K2), float32",
+                 f32["chain"]["K2"], f32["recipe"]["K2 f32"],
+                 "chain_grad.cu", "pallas_chain_grad.py:264"),
+                ("K3 f32", "chain backward (K3), float32",
+                 f32["chain"]["K3"], f32["recipe"]["K3 f32"],
+                 "chain_grad.cu", "pallas_chain_grad.py:400"),
+                ("K5 fwd f32", "chain forward, remat (K5), float32",
+                 f32["chain"]["K5 forward"], f32["train"]["K5 fwd f32"],
+                 "chain_grad.cu", "pallas_chain_grad.py:159"),
+                ("K5 bwd f32", "chain backward, remat (K5), float32",
+                 f32["chain"]["K5 backward"], f32["train"]["K5 bwd f32"],
+                 "chain_grad.cu", "pallas_chain_grad.py:400")):
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"{src}{source} + {src}hopper_gemm.cuh",
+                "replaces": f"wireframe_tpu/ops/{replaces}",
+                "launches": launched,
+                "checkpoints_launches": ckpts.get(key, 0),
+                "bench_launches": bench.get(key, 0),
+                **fields, "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:
         traceback.print_exc()

@@ -26,8 +26,9 @@ bench.py divides by 625 clouds/sec/chip, a TPU v5e-8 target, and no TPU
 figure is a target for the port.
 
 Env knobs (bench.py's): BENCH_BATCH (128), BENCH_POINTS (2560),
-BENCH_DTYPE (bfloat16 | float32; the kernels compute in bf16 only, so
-float32 with the fused encoder raises on the card), BENCH_ITERS (30),
+BENCH_DTYPE (bfloat16 | float32; the fused encoder's kernels compute in
+either, float32 on their FFMA main loop; mfu stays against the bf16
+peak, as bench.py's), BENCH_ITERS (30),
 BENCH_LAT_ITERS (20), BENCH_TRAIN=1 (time the train step instead),
 BENCH_PALLAS (1: the fused encoder kernels), BENCH_BUCKETS=2048,4096,...
 (per-bucket latency at a roughly constant point budget),

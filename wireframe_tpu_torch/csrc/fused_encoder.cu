@@ -9,23 +9,26 @@
 // cloud gives 0), unmasked sum / max (padding rows INCLUDED: they carry
 // bias + LayerNorm output, not zeros), the valid count, and the optional
 // kv window masked max over `p` consecutive rows (an empty window gives 0).
+// The same in f32 (compute_dtype=float32, the `_f32` functions): f32
+// operands and h, f32 accumulation (hopper_gemm.cuh's FFMA main loop).
 //
 // What bounds it on this card: operations.  The chain is
 //   2 * (8*512 + 512*1024 + 1024*2048 + 2048*1024 + 1024*512)
 //   = 10.49 MFLOP per point
 // against ~32 B of input per point plus 10.5 MB of bf16 weights read once,
 // far above the H100's ~295 FLOP/B ridge point, so the tensor cores are the
-// limit (989 TFLOP/s bf16 dense).
+// limit (989 TFLOP/s bf16 dense); in f32 the FP32 SIMT rate (67 TFLOP/s).
 //
 // Design: every product goes through the warp-specialised wgmma + TMA
 // GEMM of hopper_gemm.cuh, stage by stage, so the only activation in
-// device memory is each stage's bf16 h (18.4 KB a point in all):
-//   k1_prep     x in bf16 with rows padded to 8 elements (TMA's 16-byte
-//               rows) and each row's validity from the RAW f32 row
-//               (|sum x| > 1e-9, pallas_encoder.py:168): the chain
-//               kernels' own input pass, so stage 0 reads the same x;
-//   k1_stage    one stage: z = h W + b with LayerNorm + ReLU -> bf16 h in
-//               the epilogue, across a cluster of ceil(W / 256) CTAs (W <=
+// device memory is each stage's h (18.4 KB a point in all in bf16, 36.9
+// KB in f32):
+//   k1_prep     x in the compute dtype with rows padded to 8 elements
+//               (TMA's 16-byte rows) and each row's validity from the
+//               RAW f32 row (|sum x| > 1e-9, pallas_encoder.py:168): the
+//               chain kernels' own input pass, so stage 0 reads the same x;
+//   k1_stage    one stage: z = h W + b with LayerNorm + ReLU -> h in the
+//               epilogue, across a cluster of ceil(W / 256) CTAs (W <=
 //               2048); f32 z never reaches device memory.  It is K5's
 //               forward stage (the same kernel with a null z), so K1's h
 //               equals K5's bit for bit;
@@ -109,19 +112,33 @@ extern "C" {
 // The GEMM's row tile, for the caller's plan.
 int k1_row_tile() { return hgemm::BM; }
 
-// The cloud in bf16 and each row's validity; see hgemm::prep_x.
+// k1_prep, k1_stage and k1_project each have an `_f32` twin with the
+// same arguments whose operands and h are f32.
+
+// The cloud in the compute dtype and each row's validity; see
+// hgemm::prep_x.
 int k1_prep(const float* X, int D, void* xb, int ldx, uint8_t* valid, int M,
             cudaStream_t stream) {
     return hgemm::prep_x(X, D, static_cast<bf16*>(xb), ldx, valid, M, stream);
 }
+int k1_prep_f32(const float* X, int D, void* xb, int ldx, uint8_t* valid,
+                int M, cudaStream_t stream) {
+    return hgemm::prep_x(X, D, static_cast<float*>(xb), ldx, valid, M,
+                         stream);
+}
 
-// One stage: H = bf16(relu(LayerNorm(A W + b))); see hgemm::gemm_ln_fwd.
+// One stage: H = relu(LayerNorm(A W + b)); see hgemm::gemm_ln_fwd.
 int k1_stage(const void* A, int lda, const void* W, int ldw,
              const float* bias, const float* gamma, const float* beta,
              void* H, int ldh, int M, int N, int K, cudaStream_t stream) {
-    return hgemm::gemm_ln_fwd(A, lda, W, ldw, bias, gamma, beta,
-                              static_cast<bf16*>(H), ldh, nullptr, 0, 0, M,
-                              N, K, stream);
+    return hgemm::gemm_ln_fwd(A, lda, W, ldw, bias, gamma, beta, H, ldh,
+                              nullptr, 0, 0, M, N, K, false, stream);
+}
+int k1_stage_f32(const void* A, int lda, const void* W, int ldw,
+                 const float* bias, const float* gamma, const float* beta,
+                 void* H, int ldh, int M, int N, int K, cudaStream_t stream) {
+    return hgemm::gemm_ln_fwd(A, lda, W, ldw, bias, gamma, beta, H, ldh,
+                              nullptr, 0, 0, M, N, K, true, stream);
 }
 
 // The projection and its pools; see hgemm::gemm_pool.
@@ -130,7 +147,14 @@ int k1_project(const void* A, int lda, const void* W, int ldw,
                float* part, float* kv, float* edge, int p, int clouds,
                int rows, int N, int K, cudaStream_t stream) {
     return hgemm::gemm_pool(A, lda, W, ldw, bias, valid, F, ldf, part, kv,
-                            edge, p, clouds, rows, N, K, stream);
+                            edge, p, clouds, rows, N, K, false, stream);
+}
+int k1_project_f32(const void* A, int lda, const void* W, int ldw,
+                   const float* bias, const uint8_t* valid, float* F,
+                   int ldf, float* part, float* kv, float* edge, int p,
+                   int clouds, int rows, int N, int K, cudaStream_t stream) {
+    return hgemm::gemm_pool(A, lda, W, ldw, bias, valid, F, ldf, part, kv,
+                            edge, p, clouds, rows, N, K, true, stream);
 }
 
 int k1_finalize(const float* part, const float* edge, float* kv,

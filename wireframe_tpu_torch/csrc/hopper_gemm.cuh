@@ -1,8 +1,10 @@
 // Warp-specialised wgmma + TMA GEMM of the chain kernels K2 / K3 / K5
-// (chain_grad.cu), hand-written for Hopper (sm_90a), with a stage's
-// LayerNorm fused into its epilogue across a thread-block cluster.
+// (chain_grad.cu) and of K1 (fused_encoder.cu), hand-written for Hopper
+// (sm_90a), with a stage's LayerNorm fused into its epilogue across a
+// thread-block cluster.
 //
-//   C (M, N) = op(A) (M, K) @ op(B) (K, N), bf16 operands, f32 accumulate
+//   C (M, N) = op(A) (M, K) @ op(B) (K, N), f32 accumulate; operands bf16
+//   (wgmma main loop) or f32 (FFMA main loop, F32 = 1; see below)
 //
 // Three operand forms, each read as it is stored (wgmma's transpose bits
 // for 16-bit operands; no transposing copy):
@@ -17,14 +19,16 @@
 //   STORE   f32 C (+ bias), masked at the ragged M / N edges;
 //   LN_FWD  the forward LayerNorm + ReLU of one stage: z = acc + b, its
 //           mean, then its variance (two passes, eps 1e-6), each summed
-//           over the cluster; h = bf16(relu(ln)); and the bf16 stash of z
-//           (K2), the f32 z (K5's recompute) or neither (K5's forward);
+//           over the cluster; h = relu(ln) in the operand type; and the
+//           bf16 stash of z (K2 in bf16), the f32 z (K2's stash in f32,
+//           K5's recompute) or neither (K5's forward);
 //   LN_BWD  one stage's backward from dh = acc and the stage's z (bf16
-//           stash, K3; recomputed f32 z, K5): the statistics rebuilt
-//           (two cluster sums); h rebuilt (K3); jnp.maximum's tie rule
-//           (half the cotangent at ln == 0) and the LayerNorm backward (a
-//           third cluster sum, of dxhat and dxhat * xhat); bf16 dz; and
-//           per-CTA column partials of d gamma, d beta and d b;
+//           stash, K3 in bf16; f32 z, K3 in f32 and K5): the statistics
+//           rebuilt (two cluster sums); h rebuilt (K3); jnp.maximum's tie
+//           rule (half the cotangent at ln == 0) and the LayerNorm
+//           backward (a third cluster sum, of dxhat and dxhat * xhat); dz
+//           in the operand type; and per-CTA column partials of d gamma,
+//           d beta and d b;
 //   POOL    the point encoder's projection (K1): f = acc + b, as STORE
 //           adds it, then per column over the tile's rows the masked and
 //           unmasked sums and maxima, the valid count and the kv window
@@ -45,6 +49,18 @@
 // (then free) ring and work on it by rows, so they hold few registers
 // beside it and store 16 contiguous bytes a lane.
 //
+// f32 operands (F32 = 1, the JAX kernels' compute_dtype=float32): wgmma
+// takes f32 only as TF32 (10 mantissa bits), so the same ring, at 32 of
+// depth a stage (128 x 32 + 32 x 256 floats: the same 48 KB), feeds a
+// SIMT main loop of fmaf in full f32, each sum over k in order.  Consumer
+// thread t holds tile rows t / 16 + 16 i (i < 8) and 16 columns, read as
+// float4 along n (MN-major B) or along k (K-major B); the 128-byte
+// swizzle spreads those reads over the banks.  The sums then go through
+// the f32 tile in the freed ring into the wgmma accumulator's layout, so
+// every epilogue runs unchanged.  The f32 stash needs no z tile: in f32
+// it is z = acc + b itself, written from the f32 tile (LN_FWD), and read
+// back from device memory (LN_BWD with ZF32), as K5's recomputed z is.
+//
 // POOL runs its row tiles per cloud (blockIdx.y = cloud * tiles + tile), so
 // no tile holds rows of two clouds: TMA loads a whole 128-row box from the
 // 2-D map of all rows and the epilogue drops the rows past the cloud's end.
@@ -61,11 +77,11 @@
 //
 // Tensor maps: cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint (no libcuda link), cached by address, shape,
-// stride and box.  TMA needs 16-byte row strides: the callers pad their
-// buffers' rows to multiples of 8 elements.
+// stride, box and element type.  TMA needs 16-byte row strides: the
+// callers pad their buffers' rows to multiples of 8 elements.
 //
-// What bounds it: operations (a 128 x 256 x 64 step reads 48 KB for
-// 2 M multiply-adds).
+// What bounds it: operations (a 128 x 256 x 64 bf16 step reads 48 KB for
+// 2 M multiply-adds; an f32 step 48 KB for 1 M, at the FP32 SIMT rate).
 
 #pragma once
 
@@ -85,6 +101,7 @@ using bf16 = __nv_bfloat16;
 constexpr int BM = 128;
 constexpr int BN = 256;
 constexpr int BK = 64;
+constexpr int BK_F32 = 32;                        // f32 depth of a stage
 constexpr int STAGES = 4;
 constexpr int CONSUMERS = 2;                      // warpgroups, 64 rows each
 constexpr int THREADS = 128 * (CONSUMERS + 1);
@@ -103,6 +120,8 @@ constexpr int SMEM_BYTES = 1024 + AREA_BYTES + RED_FLOATS * 4 +
                            2 * STAGES * 8;
 static_assert(3 * 8 * BN * 4 <= ZTILE, "column partials");
 static_assert(SMEM_BYTES <= 232448, "shared memory");
+static_assert(BM * BK_F32 * 4 == A_BYTES && BK_F32 * BN * 4 == B_BYTES,
+              "an f32 stage fills a bf16 stage's bytes");
 
 enum { FWD = 0, DH = 1, DW = 2 };
 enum { STORE = 0, LN_FWD = 1, LN_BWD = 2, POOL = 3 };
@@ -118,11 +137,11 @@ struct Params {
     const float* bias;     // STORE (FWD) and LN_FWD
     const float* gamma;
     const float* beta;
-    bf16* H;               // LN_FWD: h; LN_BWD: rebuilt h (null: none)
-    int ldh;
+    void* H;               // LN_FWD: h; LN_BWD: rebuilt h (null: none);
+    int ldh;               // bf16, or f32 with F32
     void* Z;               // LN_FWD: bf16 stash / f32 z / null out;
     int ldz, z_f32;        // LN_BWD: the bf16 stash or the f32 z in
-    bf16* DZ;              // LN_BWD
+    void* DZ;              // LN_BWD; bf16, or f32 with F32
     int lddz;
     float* part;           // LN_BWD: [row tile][3 N]
     // POOL: clouds of `rows` rows, `tiles` row tiles each.  C (ldc) takes
@@ -433,12 +452,170 @@ __device__ __forceinline__ float bcast(float v, int lane) {
 }
 
 // ---------------------------------------------------------------------------
+// The f32 main loop (F32 = 1)
+// ---------------------------------------------------------------------------
+
+// Byte offset of 16-byte chunk `chunk` (0..7) of 128-byte row `row` in a
+// TMA box written with the 128-byte swizzle (1024-byte aligned box).
+__device__ __forceinline__ int swz(int row, int chunk) {
+    return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+    return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+// The 16 B values of thread column tx at depth k of an MN-major B stage:
+// columns 4 tx + 64 jj + e, in boxes of 32 columns x 32 rows of k.
+__device__ __forceinline__ void b_row_mn(const uint8_t* b, int k, int tx,
+                                         float (&bv)[16]) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            b + (tx / 8 + 2 * jj) * 4096 + swz(k, tx & 7));
+        bv[4 * jj] = v.x; bv[4 * jj + 1] = v.y;
+        bv[4 * jj + 2] = v.z; bv[4 * jj + 3] = v.w;
+    }
+}
+
+// acc[16 i + j] += sum over the stages' k, in order, of A[row i][k] *
+// B[k][col j] in f32 fmaf, for tile rows ty + 16 i and columns col j of
+// ffma_col<B_MN>.  Stage s holds A at ring + s * STAGE_BYTES: (128 m, 32 k)
+// K-major, or 4 boxes of (32 k, 32 m) MN-major; B after it: 8 boxes of
+// (32 k, 32 n) MN-major, or (256 n, 32 k) K-major.  Each consumer warp
+// frees a stage once its reads of it are done.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void ffma_main_loop(float (&acc)[128],
+                                               const uint8_t* ring,
+                                               uint64_t* full,
+                                               uint64_t* empty, int nk,
+                                               int lane) {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+    for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&full[s], (kt / STAGES) & 1);
+        const uint8_t* a = ring + s * STAGE_BYTES;
+        const uint8_t* b = a + A_BYTES;
+        if (!A_MN) {
+#pragma unroll 2
+            for (int kq = 0; kq < BK_F32 / 4; ++kq) {
+                float4 av[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+                    av[i] = *reinterpret_cast<const float4*>(
+                        a + swz(ty + 16 * i, kq));
+                if (B_MN) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        float bv[16];
+                        b_row_mn(b, 4 * kq + e, tx, bv);
+#pragma unroll
+                        for (int i = 0; i < 8; ++i) {
+                            const float ai = lane4(av[i], e);
+#pragma unroll
+                            for (int j = 0; j < 16; ++j)
+                                acc[16 * i + j] =
+                                    fmaf(ai, bv[j], acc[16 * i + j]);
+                        }
+                    }
+                } else {
+#pragma unroll
+                    for (int j = 0; j < 16; ++j) {
+                        const float4 bv = *reinterpret_cast<const float4*>(
+                            b + swz(tx + 16 * j, kq));
+#pragma unroll
+                        for (int i = 0; i < 8; ++i) {
+                            float c = acc[16 * i + j];
+                            c = fmaf(av[i].x, bv.x, c);
+                            c = fmaf(av[i].y, bv.y, c);
+                            c = fmaf(av[i].z, bv.z, c);
+                            acc[16 * i + j] = fmaf(av[i].w, bv.w, c);
+                        }
+                    }
+                }
+            }
+        } else {
+#pragma unroll 4
+            for (int k = 0; k < BK_F32; ++k) {
+                float ai[8], bv[16];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int m = ty + 16 * i;
+                    ai[i] = *reinterpret_cast<const float*>(
+                        a + (m / 32) * 4096 + swz(k, (m & 31) / 4) +
+                        (m & 3) * 4);
+                }
+                b_row_mn(b, k, tx, bv);
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 16; ++j)
+                        acc[16 * i + j] = fmaf(ai[i], bv[j], acc[16 * i + j]);
+            }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+    }
+}
+
+// Tile column of the f32 main loop's accumulator column j (< 16) for
+// consumer thread column tx.
+template <bool B_MN>
+__device__ __forceinline__ int ffma_col(int tx, int j) {
+    return B_MN ? 4 * tx + 64 * (j / 4) + j % 4 : tx + 16 * j;
+}
+
+// The f32 main loop's sums into the wgmma accumulator's layout (rows r,
+// r + 8, columns 8 j + 2 q + e), through the f32 tile in the freed ring.
+template <bool B_MN>
+__device__ __forceinline__ void ffma_to_fragment(float (&acc)[128],
+                                                 float* tile, int r, int q) {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+    consumer_bar();                 // both warpgroups are done with the ring
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        float* row = tile + (ty + 16 * i) * TILE_LD;
+        if (B_MN) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+                *reinterpret_cast<float4*>(row + ffma_col<true>(tx, 4 * jj)) =
+                    make_float4(acc[16 * i + 4 * jj], acc[16 * i + 4 * jj + 1],
+                                acc[16 * i + 4 * jj + 2],
+                                acc[16 * i + 4 * jj + 3]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+                row[ffma_col<false>(tx, j)] = acc[16 * i + j];
+        }
+    }
+    consumer_bar();
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                tile + (r + 8 * h) * TILE_LD + 8 * j + 2 * q);
+            acc[4 * j + 2 * h] = v.x;
+            acc[4 * j + 2 * h + 1] = v.y;
+        }
+}
+
+// An element of the operand type from f32 (bf16: round to nearest even).
+__device__ __forceinline__ void put(bf16* p, float v) {
+    *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+
+// ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
-template <int FORM, int EPI, int ZF32>
+template <int FORM, int EPI, int ZF32, int F32>
 __global__ void __launch_bounds__(THREADS, 1)
 wgmma_chain_kernel(const __grid_constant__ Params p) {
+    // The f32 kernels read the stage's z from device memory (LN_BWD).
+    static_assert(!F32 || EPI != LN_BWD || ZF32, "f32 z");
+    using OutT = typename std::conditional<F32 != 0, float, bf16>::type;
     extern __shared__ uint8_t smem_raw[];
     // 1024-byte aligned (128-byte swizzle atoms); pointer arithmetic on the
     // shared array keeps every access below a known shared-memory one.
@@ -449,6 +626,9 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
     constexpr bool A_MN = FORM == DW;
     constexpr bool B_MN = FORM != DH;
     constexpr int SYNCS = EPI == LN_FWD ? 3 : (EPI == LN_BWD ? 4 : 0);
+    constexpr int KB = F32 ? BK_F32 : BK;           // depth of a stage
+    constexpr int MNB = F32 ? 32 : 64;              // MN-major box width
+    constexpr int BOX_BYTES = MNB * KB * (F32 ? 4 : 2);
 
     const int wg = threadIdx.x / 128;
     const int m0 = EPI == POOL ? (blockIdx.y / p.tiles) * p.rows +
@@ -457,7 +637,7 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
     const int n0 = blockIdx.x * BN;
     const int kbeg = FORM == DW ? blockIdx.z * p.ksplit : 0;
     const int kend = FORM == DW ? min(p.K, kbeg + p.ksplit) : p.K;
-    const int nk = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+    const int nk = kend > kbeg ? (kend - kbeg + KB - 1) / KB : 0;
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < STAGES; ++s) {
@@ -476,20 +656,22 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
                 const int s = kt % STAGES;
                 mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
                 mbar_expect_tx(&full[s], STAGE_BYTES);
-                const int k0 = kbeg + kt * BK;
+                const int k0 = kbeg + kt * KB;
                 uint8_t* a = ring + s * STAGE_BYTES;
                 uint8_t* b = a + A_BYTES;
                 if (A_MN) {
-                    tma_load(a, &p.ta, &full[s], m0, k0);
-                    tma_load(a + A_BYTES / 2, &p.ta, &full[s], m0 + 64, k0);
+#pragma unroll
+                    for (int j = 0; j < BM / MNB; ++j)
+                        tma_load(a + j * BOX_BYTES, &p.ta, &full[s],
+                                 m0 + MNB * j, k0);
                 } else {
                     tma_load(a, &p.ta, &full[s], k0, m0);
                 }
                 if (B_MN) {
 #pragma unroll
-                    for (int j = 0; j < BN / 64; ++j)
-                        tma_load(b + j * (B_BYTES / 4), &p.tb, &full[s],
-                                 n0 + 64 * j, k0);
+                    for (int j = 0; j < BN / MNB; ++j)
+                        tma_load(b + j * BOX_BYTES, &p.tb, &full[s],
+                                 n0 + MNB * j, k0);
                 } else {
                     tma_load(b, &p.tb, &full[s], k0, n0);
                 }
@@ -509,33 +691,42 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
 
-    for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % STAGES;
-        mbar_wait(&full[s], (kt / STAGES) & 1);
-        const uint32_t a = smem_u32(ring + s * STAGE_BYTES) + wg * (A_BYTES / 2);
-        const uint32_t b = smem_u32(ring + s * STAGE_BYTES + A_BYTES);
-        fence_acc(acc);
-        wgmma_fence();
+    if constexpr (F32) {
+        ffma_main_loop<A_MN, B_MN>(acc, ring, full, empty, nk, lane);
+    } else {
+        for (int kt = 0; kt < nk; ++kt) {
+            const int s = kt % STAGES;
+            mbar_wait(&full[s], (kt / STAGES) & 1);
+            const uint32_t a =
+                smem_u32(ring + s * STAGE_BYTES) + wg * (A_BYTES / 2);
+            const uint32_t b = smem_u32(ring + s * STAGE_BYTES + A_BYTES);
+            fence_acc(acc);
+            wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            const uint64_t da = A_MN ? make_desc(a + kk * 2048, A_BYTES / 2, 1024)
-                                     : make_desc(a + kk * 32, 0, 1024);
-            const uint64_t db = B_MN ? make_desc(b + kk * 2048, B_BYTES / 4, 1024)
-                                     : make_desc(b + kk * 32, 0, 1024);
-            wgmma_m64n256k16<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                const uint64_t da =
+                    A_MN ? make_desc(a + kk * 2048, A_BYTES / 2, 1024)
+                         : make_desc(a + kk * 32, 0, 1024);
+                const uint64_t db =
+                    B_MN ? make_desc(b + kk * 2048, B_BYTES / 4, 1024)
+                         : make_desc(b + kk * 32, 0, 1024);
+                wgmma_m64n256k16<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
+            }
+            wgmma_commit();
+            wgmma_wait<1>();
+            fence_acc(acc);
+            if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
         }
-        wgmma_commit();
-        wgmma_wait<1>();
+        wgmma_wait<0>();
         fence_acc(acc);
-        if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+        if (nk > 0 && lane == 0) mbar_arrive(&empty[(nk - 1) % STAGES]);
     }
-    wgmma_wait<0>();
-    fence_acc(acc);
-    if (nk > 0 && lane == 0) mbar_arrive(&empty[(nk - 1) % STAGES]);
 
     // Fragment coordinates: tile rows r, r + 8; columns 8 j + 2 q (+1).
     const int q = lane & 3;
     const int r = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+    if constexpr (F32)
+        ffma_to_fragment<B_MN>(acc, reinterpret_cast<float*>(ring), r, q);
 
     if (EPI == STORE) {
         const bool rv[2] = {m0 + r < M, m0 + r + 8 < M};
@@ -716,7 +907,7 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
 #pragma unroll
             for (int e = 0; e < 8; ++e)
                 h[e] = fmaxf((z[e] - mu) * rstd * gam[e] + bet[e], 0.0f);
-            store8(p.H + (size_t)row * p.ldh, c0, N, h);
+            store8(static_cast<OutT*>(p.H) + (size_t)row * p.ldh, c0, N, h);
             if (p.Z != nullptr) {
                 if (p.z_f32)
                     store8(static_cast<float*>(p.Z) + (size_t)row * p.ldz, c0,
@@ -837,8 +1028,11 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
             cz[e] += dz[e];
         }
         if (row < M && c0 < N) {
-            store8(p.DZ + (size_t)row * p.lddz, c0, N, dz);
-            if (p.H != nullptr) store8(p.H + (size_t)row * p.ldh, c0, N, hv);
+            store8(static_cast<OutT*>(p.DZ) + (size_t)row * p.lddz, c0, N,
+                   dz);
+            if (p.H != nullptr)
+                store8(static_cast<OutT*>(p.H) + (size_t)row * p.ldh, c0, N,
+                       hv);
         }
     }
     // Column partials: this warp's 16 rows, then the 8 warps in order
@@ -866,12 +1060,13 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
     cluster_sync_last();
 }
 
-// The chain's first operand: xb[r, :ldx] = bf16(X[r, :D]) (as
-// x.astype(bf16)) then zeros, rows padded for TMA; valid[r] = |sum_d
-// X[r, d]| > 1e-9, the encoder's validity mask from the RAW f32 row (null:
-// skip).
+// The chain's first operand: xb[r, :ldx] = X[r, :D] in the operand type
+// (bf16 as x.astype(bf16), or f32) then zeros, rows padded for TMA;
+// valid[r] = |sum_d X[r, d]| > 1e-9, the encoder's validity mask from the
+// RAW f32 row (null: skip).
+template <typename T>
 __global__ void prep_x_kernel(const float* __restrict__ X, int D,
-                              bf16* __restrict__ xb, int ldx,
+                              T* __restrict__ xb, int ldx,
                               uint8_t* __restrict__ valid, int M) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= M) return;
@@ -879,9 +1074,9 @@ __global__ void prep_x_kernel(const float* __restrict__ X, int D,
     float s = 0.0f;
     for (int d = 0; d < D; ++d) {
         s += xr[d];
-        xb[(size_t)r * ldx + d] = __float2bfloat16(xr[d]);
+        put(xb + (size_t)r * ldx + d, xr[d]);
     }
-    for (int d = D; d < ldx; ++d) xb[(size_t)r * ldx + d] = __float2bfloat16(0.0f);
+    for (int d = D; d < ldx; ++d) put(xb + (size_t)r * ldx + d, 0.0f);
     if (valid != nullptr) valid[r] = fabsf(s) > 1e-9f ? 1 : 0;
 }
 
@@ -889,7 +1084,8 @@ __global__ void prep_x_kernel(const float* __restrict__ X, int D,
 // Host side: tensor maps and launches
 // ---------------------------------------------------------------------------
 
-inline int prep_x(const float* X, int D, bf16* xb, int ldx, uint8_t* valid,
+template <typename T>
+inline int prep_x(const float* X, int D, T* xb, int ldx, uint8_t* valid,
                   int M, cudaStream_t stream) {
     if (ldx < D || ldx % 8) return (int)cudaErrorInvalidValue;
     prep_x_kernel<<<(M + 255) / 256, 256, 0, stream>>>(X, D, xb, ldx, valid,
@@ -977,20 +1173,22 @@ inline int tensor_map(CUtensorMap* out, const void* ptr, bool f32,
 
 // Maps of the two operands for a form.  A: (M, K) K-major with row stride
 // lda, or (K, M) MN-major for DW; B: (K, N) MN-major with row stride ldb,
-// or (N, K) K-major for DH.
+// or (N, K) K-major for DH; bf16, or f32 (f32: boxes 32 deep, 128 bytes
+// like bf16's 64).
 inline int operand_maps(Params& p, int form, const void* A, int lda,
-                        const void* B, int ldb) {
+                        const void* B, int ldb, bool f32) {
+    const int kb = f32 ? BK_F32 : BK, mnb = f32 ? 32 : 64;
     int err = form == DW
-                  ? tensor_map(&p.ta, A, false, p.M, p.K, lda, 64, 64)
-                  : tensor_map(&p.ta, A, false, p.K, p.M, lda, 64, BM);
+                  ? tensor_map(&p.ta, A, f32, p.M, p.K, lda, mnb, kb)
+                  : tensor_map(&p.ta, A, f32, p.K, p.M, lda, kb, BM);
     if (err) return err;
-    return form == DH ? tensor_map(&p.tb, B, false, p.K, p.N, ldb, 64, BN)
-                      : tensor_map(&p.tb, B, false, p.N, p.K, ldb, 64, 64);
+    return form == DH ? tensor_map(&p.tb, B, f32, p.K, p.N, ldb, kb, BN)
+                      : tensor_map(&p.tb, B, f32, p.N, p.K, ldb, mnb, kb);
 }
 
-template <int FORM, int EPI, int ZF32>
+template <int FORM, int EPI, int ZF32, int F32>
 inline int launch(const Params& p, int splits, cudaStream_t stream) {
-    auto kernel = wgmma_chain_kernel<FORM, EPI, ZF32>;
+    auto kernel = wgmma_chain_kernel<FORM, EPI, ZF32, F32>;
     static bool ready = false;
     if (!ready) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -1020,16 +1218,17 @@ inline int launch(const Params& p, int splits, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-// C = op(A) op(B) (+ bias, FWD only), f32, row stride ldc.  DW: `splits`
-// K-slices of ksplit rows (a multiple of BK) write partials at
-// C + s * M * ldc.
+// C = op(A) op(B) (+ bias, FWD only), f32, row stride ldc; operands bf16,
+// or f32 (f32).  DW: `splits` K-slices of ksplit rows (a multiple of the
+// stage depth) write partials at C + s * M * ldc.
 inline int gemm_store(int form, const void* A, int lda, const void* B,
                       int ldb, const float* bias, float* C, int ldc, int M,
-                      int N, int K, int splits, int ksplit,
+                      int N, int K, int splits, int ksplit, bool f32,
                       cudaStream_t stream) {
     if (M < 1 || N < 1 || K < 1 || ldc < N || splits < 1 ||
         (form != DW && splits != 1) || (form != FWD && bias != nullptr) ||
-        (splits > 1 && (ksplit % BK || (long long)ksplit * splits < K)))
+        (splits > 1 && (ksplit % (f32 ? BK_F32 : BK) ||
+                        (long long)ksplit * splits < K)))
         return (int)cudaErrorInvalidValue;
     Params p;
     memset(&p, 0, sizeof p);
@@ -1041,23 +1240,31 @@ inline int gemm_store(int form, const void* A, int lda, const void* B,
     p.ldc = ldc;
     p.c_split = (long long)M * ldc;
     p.bias = bias;
-    int err = operand_maps(p, form, A, lda, B, ldb);
+    int err = operand_maps(p, form, A, lda, B, ldb, f32);
     if (err) return err;
-    if (form == FWD) return launch<FWD, STORE, 0>(p, 1, stream);
-    if (form == DH) return launch<DH, STORE, 0>(p, 1, stream);
-    if (form == DW) return launch<DW, STORE, 0>(p, splits, stream);
+    if (f32) {
+        if (form == FWD) return launch<FWD, STORE, 0, 1>(p, 1, stream);
+        if (form == DH) return launch<DH, STORE, 0, 1>(p, 1, stream);
+        if (form == DW) return launch<DW, STORE, 0, 1>(p, splits, stream);
+        return (int)cudaErrorInvalidValue;
+    }
+    if (form == FWD) return launch<FWD, STORE, 0, 0>(p, 1, stream);
+    if (form == DH) return launch<DH, STORE, 0, 0>(p, 1, stream);
+    if (form == DW) return launch<DW, STORE, 0, 0>(p, splits, stream);
     return (int)cudaErrorInvalidValue;
 }
 
-// One forward stage: z = A W + b (A (M, K) bf16, W (K, N) bf16), then
-// H = bf16(relu(LayerNorm(z))), and Z = the bf16 stash or the f32 z
-// (z_f32) or nothing (null).
+// One forward stage: z = A W + b (A (M, K), W (K, N), both bf16, or both
+// f32 with f32), then H = relu(LayerNorm(z)) in the operand type, and Z =
+// the bf16 stash or the f32 z (z_f32; the only z in f32) or nothing (null).
 inline int gemm_ln_fwd(const void* A, int lda, const void* W, int ldw,
                        const float* bias, const float* gamma,
-                       const float* beta, bf16* H, int ldh, void* Z, int ldz,
-                       int z_f32, int M, int N, int K, cudaStream_t stream) {
+                       const float* beta, void* H, int ldh, void* Z, int ldz,
+                       int z_f32, int M, int N, int K, bool f32,
+                       cudaStream_t stream) {
     if (M < 1 || N < 1 || K < 1 || N > MAX_CLUSTER * BN || ldh < N ||
-        (Z != nullptr && ldz < N) || ldh % 8 || (Z != nullptr && ldz % 8))
+        (Z != nullptr && ldz < N) || ldh % 8 || (Z != nullptr && ldz % 8) ||
+        (f32 && Z != nullptr && !z_f32))
         return (int)cudaErrorInvalidValue;
     Params p;
     memset(&p, 0, sizeof p);
@@ -1073,25 +1280,27 @@ inline int gemm_ln_fwd(const void* A, int lda, const void* W, int ldw,
     p.Z = Z;
     p.ldz = ldz;
     p.z_f32 = z_f32;
-    int err = operand_maps(p, FWD, A, lda, W, ldw);
+    int err = operand_maps(p, FWD, A, lda, W, ldw, f32);
     if (err) return err;
-    return launch<FWD, LN_FWD, 0>(p, 1, stream);
+    return f32 ? launch<FWD, LN_FWD, 0, 1>(p, 1, stream)
+               : launch<FWD, LN_FWD, 0, 0>(p, 1, stream);
 }
 
 // One stage's backward: dh = A W^T (A = dz of the stage above, (M, K);
-// W = the weight above, stored (N, K)) in registers, then the LayerNorm /
-// ReLU backward from Z (the bf16 stash, or the f32 z when z_f32): DZ
-// (bf16), Hout (the rebuilt bf16 h; null: not written) and the column
+// W = the weight above, stored (N, K); both bf16, or both f32 with f32)
+// in registers, then the LayerNorm / ReLU backward from Z (the bf16
+// stash, or the f32 z when z_f32, the only z in f32): DZ and Hout (the
+// rebuilt h; null: not written) in the operand type, and the column
 // partials part[row tile][d gamma (N) | d beta (N) | d b (N)].
 inline int gemm_ln_bwd(const void* A, int lda, const void* W, int ldw,
                        const void* Z, int ldz, int z_f32, const float* gamma,
-                       const float* beta, bf16* DZ, int lddz, bf16* Hout,
-                       int ldh, float* part, int M, int N, int K,
+                       const float* beta, void* DZ, int lddz, void* Hout,
+                       int ldh, float* part, int M, int N, int K, bool f32,
                        cudaStream_t stream) {
     if (M < 1 || N < 1 || K < 1 || N > MAX_CLUSTER * BN || lddz < N ||
         lddz % 8 || (Hout != nullptr && (ldh < N || ldh % 8)) ||
         Z == nullptr || reinterpret_cast<uintptr_t>(Z) % 16 || ldz < N ||
-        ldz % 8)
+        ldz % 8 || (f32 && !z_f32))
         return (int)cudaErrorInvalidValue;
     Params p;
     memset(&p, 0, sizeof p);
@@ -1108,14 +1317,16 @@ inline int gemm_ln_bwd(const void* A, int lda, const void* W, int ldw,
     p.part = part;
     p.Z = const_cast<void*>(Z);
     p.ldz = ldz;
-    const int err = operand_maps(p, DH, A, lda, W, ldw);
+    const int err = operand_maps(p, DH, A, lda, W, ldw, f32);
     if (err) return err;
-    return z_f32 ? launch<DH, LN_BWD, 1>(p, 1, stream)
-                 : launch<DH, LN_BWD, 0>(p, 1, stream);
+    if (f32) return launch<DH, LN_BWD, 1, 1>(p, 1, stream);
+    return z_f32 ? launch<DH, LN_BWD, 1, 0>(p, 1, stream)
+                 : launch<DH, LN_BWD, 0, 0>(p, 1, stream);
 }
 
 // The point encoder's projection: f = A W + b for `clouds` clouds of
-// `rows` rows (A (clouds * rows, K) bf16, W (K, N) bf16), pooled per
+// `rows` rows (A (clouds * rows, K), W (K, N), both bf16 or both f32 with
+// f32), pooled per
 // (cloud, 128-row tile) into pool; kv window maxima over kvp rows (kv
 // null: none), with the partials of windows that cross a tile boundary in
 // edge (needed when kvp does not divide 128 and a cloud has two tiles or
@@ -1123,7 +1334,7 @@ inline int gemm_ln_bwd(const void* A, int lda, const void* W, int ldw,
 inline int gemm_pool(const void* A, int lda, const void* W, int ldw,
                      const float* bias, const uint8_t* valid, float* F,
                      int ldf, float* pool, float* kv, float* edge, int kvp,
-                     int clouds, int rows, int N, int K,
+                     int clouds, int rows, int N, int K, bool f32,
                      cudaStream_t stream) {
     const int tiles = (rows + BM - 1) / BM;
     if (clouds < 1 || rows < 1 || N < 1 || K < 1 || bias == nullptr ||
@@ -1148,9 +1359,10 @@ inline int gemm_pool(const void* A, int lda, const void* W, int ldw,
     p.rows = rows;
     p.tiles = tiles;
     p.kvp = kvp;
-    const int err = operand_maps(p, FWD, A, lda, W, ldw);
+    const int err = operand_maps(p, FWD, A, lda, W, ldw, f32);
     if (err) return err;
-    return launch<FWD, POOL, 0>(p, 1, stream);
+    return f32 ? launch<FWD, POOL, 0, 1>(p, 1, stream)
+               : launch<FWD, POOL, 0, 0>(p, 1, stream);
 }
 
 }  // namespace

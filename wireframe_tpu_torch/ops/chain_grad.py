@@ -31,10 +31,13 @@ Each kernel has its plain PyTorch version here (`chain_forward_plain`,
 is the remat backward); the wrappers `chain_forward` / `chain_backward`
 (K2 / K3) and `remat_chain_forward` / `remat_chain_backward` (K5) take it
 for CPU tensors and launch the CUDA kernels (`csrc/chain_grad.cu`) for
-CUDA tensors, each counting its kernel launches in `.launches`.  Products
-of `compute_dtype` operands with f32 accumulation are written as f32
-products of rounded operands (exact products, f32 sums), as in
-`ops.fused_encoder`.
+CUDA tensors, each counting its kernel launches: `.launches` in bf16,
+`.launches_f32` in f32.  The kernels compute in the JAX kernels' two
+dtypes (`kernel_dtype`): bf16 operands on the wgmma main loop, or f32
+operands, h, stash and dz on an FFMA main loop in full f32 (`chain_plan`
+says which).  Products of `compute_dtype` operands with f32 accumulation
+are written as f32 products of rounded operands (exact products, f32
+sums), as in `ops.fused_encoder`.
 """
 
 from __future__ import annotations
@@ -216,9 +219,34 @@ def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
 # ---------------------------------------------------------------------------
 
 BM, BN, BK = 128, 256, 64   # the wgmma tile of csrc/hopper_gemm.cuh
+BK_F32 = 32                 # the FFMA main loop's depth a stage (f32)
+STAGES = 4                  # ring stages
 MAX_CLUSTER = 8             # CTAs of a LayerNorm cluster (portable limit)
 _SPLIT_ROWS = 512           # least rows per K-slice of a split h^T dz
 _SMS = 132                  # H100 SXM streaming multiprocessors
+SMEM_LIMIT = 232448         # shared memory a block may use on the H100
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def kernel_dtype(compute_dtype) -> torch.dtype:
+    """The compute dtype of a K1, K2, K3 or K5 call on the card: bfloat16
+    or float32, the JAX kernels' two; anything else raises."""
+    if compute_dtype not in KERNEL_DTYPES:
+        raise ValueError("the encoder-chain kernels (K1, K2, K3, K5) compute "
+                         f"in bfloat16 or float32, not {compute_dtype}")
+    return compute_dtype
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one GEMM launch, as csrc/hopper_gemm.cuh
+    reckons it: the ring, or the epilogue's f32 tile and bf16 z tile where
+    those are larger, the cluster exchange slots and the ring's
+    mbarriers, and 1024 bytes to align the ring.  The same for both main
+    loops: an f32 stage (BK_F32 deep) fills a bf16 stage's bytes."""
+    tile_ld = BN + 8
+    ring = STAGES * (BM * BK + BK * BN) * 2
+    epilogue = BM * tile_ld * 4 + BM * tile_ld * 2
+    return 1024 + max(ring, epilogue) + 4 * BM * 4 + 2 * STAGES * 8
 
 
 def pad8(n: int) -> int:
@@ -237,31 +265,47 @@ def ln_cluster(width: int) -> int:
     return cs
 
 
-def split_k(rows: int, i: int, h: int, sms: int = _SMS
+def split_k(rows: int, i: int, h: int, sms: int = _SMS, bk: int = BK
             ) -> List[Tuple[int, int]]:
     """K-slices [start, stop) of dW (i, h) = h^T dz, summed over `rows`:
-    enough slices to fill the card once, each a multiple of BK rows
-    (the last takes the rest), in order.  Their partials are summed in
-    this order."""
+    enough slices to fill the card once, each a multiple of bk rows (the
+    main loop's depth a stage; the last takes the rest), in order.  Their
+    partials are summed in this order."""
     tiles = -(-i // BM) * -(-h // BN)
     splits = max(1, min(sms // tiles, rows // _SPLIT_ROWS))
-    ksplit = -(-(-(-rows // splits)) // BK) * BK
+    ksplit = -(-(-(-rows // splits)) // bk) * bk
     return [(s, min(rows, s + ksplit)) for s in range(0, rows, ksplit)]
 
 
-def chain_plan(m: int, d: int, widths: Sequence[int], out: int) -> Dict:
+def chain_plan(m: int, d: int, widths: Sequence[int], out: int,
+               compute_dtype=torch.bfloat16) -> Dict:
     """What one chain call launches, from its shapes alone: the row
-    tiles, the padded row strides of x (bf16), each stage's buffers and
-    the projection cotangent, each stage's cluster, and the K-slices of
-    every dW product (x^T dz0, h_k^T dz_k+1, ..., h_last^T g)."""
+    tiles, the padded row strides (elements) of x, each stage's buffers
+    and the projection cotangent, each stage's cluster, the K-slices of
+    every dW product (x^T dz0, h_k^T dz_k+1, ..., h_last^T g); and for the
+    compute dtype the main loop ("wgmma" for bf16, "ffma" for f32), its
+    tile (rows, columns, depth of a stage), the bytes of a ring stage and
+    of a launch's shared memory, and the dtype of each buffer: x, h, the
+    stash, the cotangents dz and the seed in the compute dtype, K5's
+    recomputed z in f32."""
+    cdt = kernel_dtype(compute_dtype)
+    f32 = cdt == torch.float32
+    bk = BK_F32 if f32 else BK
+    esize = 4 if f32 else 2
     dims = [d, *widths, out]
     return {"row_tiles": -(-m // BM),
             "x_ld": pad8(d),
             "stage_ld": [pad8(w) for w in widths],
             "out_ld": pad8(out),
             "clusters": [ln_cluster(w) for w in widths],
-            "dw_slices": [split_k(m, i, o)
-                          for i, o in zip(dims[:-1], dims[1:])]}
+            "dw_slices": [split_k(m, i, o, bk=bk)
+                          for i, o in zip(dims[:-1], dims[1:])],
+            "main_loop": "ffma" if f32 else "wgmma",
+            "tile": (BM, BN, bk),
+            "stage_bytes": (BM * bk + bk * BN) * esize,
+            "smem_bytes": smem_bytes(),
+            "dtypes": {"x": cdt, "h": cdt, "stash": cdt, "dz": cdt,
+                       "seed": cdt, "recomputed_z": torch.float32}}
 
 
 # ---------------------------------------------------------------------------
@@ -271,34 +315,51 @@ def chain_plan(m: int, d: int, widths: Sequence[int], out: int) -> Dict:
 _FWD, _DH, _DW = 0, 1, 2    # operand forms of k23_gemm
 
 
+# The chain library's typed entry points: name -> argument types, each
+# with an `_f32` twin of the same arguments for the f32 compute dtype.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_DTYPED = {"k23_prep_x": [_P, _I, _P, _I, _P, _I, _P],
+           "k23_gemm": [_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
+           "k2_gemm_ln": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                          _I, _I, _P],
+           "k3_gemm_ln_bwd": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _P,
+                              _I, _P, _I, _I, _I, _P],
+           "k3_seed": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P]}
+
+
 def _lib() -> ctypes.CDLL:
     from wireframe_tpu_torch.ops import _build
 
     lib = _build.load("chain_grad")
     if not getattr(lib, "_k23_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.k23_tile.argtypes = [i]
-        lib.k23_max_width.argtypes = lib.k23_row_chunk.argtypes = []
-        lib.k23_prep_x.argtypes = [p, i, p, i, p, i, p]
-        lib.k23_gemm.argtypes = [i, p, i, p, i, p, p, i, i, i, i, i, i, p]
-        lib.k2_gemm_ln.argtypes = [p, i, p, i, p, p, p, p, i, p, i, i, i, i,
-                                   i, p]
-        lib.k3_gemm_ln_bwd.argtypes = [p, i, p, i, p, i, i, p, p, p, i, p,
-                                       i, p, i, i, i, p]
-        lib.k2_window_pool.argtypes = [p, p, p, p, p, i, i, i, p]
-        lib.k3_seed.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
-        lib.k3_colsum.argtypes = [p, p, i, ctypes.c_longlong, p]
-        for fn in (lib.k23_tile, lib.k23_max_width, lib.k23_row_chunk,
-                   lib.k23_prep_x, lib.k23_gemm, lib.k2_gemm_ln,
-                   lib.k3_gemm_ln_bwd, lib.k2_window_pool, lib.k3_seed,
-                   lib.k3_colsum):
-            fn.restype = ctypes.c_int
-        tile = tuple(lib.k23_tile(k) for k in range(3))
-        if tile != (BM, BN, BK) or lib.k23_max_width() != MAX_CLUSTER * BN:
-            raise RuntimeError(f"csrc/hopper_gemm.cuh's tile {tile} does "
-                               f"not match the plan's {(BM, BN, BK)}")
+        types = {"k23_tile": [_I], "k23_tile_f32": [_I],
+                 "k23_smem_bytes": [], "k23_max_width": [],
+                 "k23_row_chunk": [],
+                 "k2_window_pool": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+                 "k3_colsum": [_P, _P, _I, ctypes.c_longlong, _P]}
+        for name, args in _DTYPED.items():
+            types[name] = types[name + "_f32"] = args
+        for name, args in types.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+        tiles = {"bf16": tuple(lib.k23_tile(k) for k in range(3)),
+                 "f32": tuple(lib.k23_tile_f32(k) for k in range(3))}
+        want = {"bf16": (BM, BN, BK), "f32": (BM, BN, BK_F32)}
+        if (tiles != want or lib.k23_max_width() != MAX_CLUSTER * BN
+                or lib.k23_smem_bytes() != smem_bytes()):
+            raise RuntimeError(
+                f"csrc/hopper_gemm.cuh's tiles {tiles}, widest stage "
+                f"{lib.k23_max_width()} and {lib.k23_smem_bytes()} bytes of "
+                f"shared memory do not match the plan's {want}, "
+                f"{MAX_CLUSTER * BN} and {smem_bytes()}")
         lib._k23_typed = True
     return lib
+
+
+def _fn(lib, name: str, cdt: torch.dtype):
+    """The entry point `name` of the library for compute dtype cdt."""
+    return getattr(lib, name + ("_f32" if cdt == torch.float32 else ""))
 
 
 def _check(err: int, what: str) -> None:
@@ -329,55 +390,58 @@ def _tma_rows(t: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _prep_x(lib, x, plan, need_valid, stream, what):
-    """x (B, N, D) f32 -> bf16 (M, D) with padded rows, and the validity
-    of every row when kv pooling needs it."""
+    """x (B, N, D) f32 -> (M, D) in the compute dtype with padded rows, and
+    the validity of every row when kv pooling needs it."""
     b, n, d = x.shape
     m = b * n
-    xb = _rows(m, d, torch.bfloat16, x.device)
+    cdt = plan["dtypes"]["x"]
+    xb = _rows(m, d, cdt, x.device)
     valid = torch.empty(m, dtype=torch.uint8,
                         device=x.device) if need_valid else None
-    _check(lib.k23_prep_x(_ptr(x), d, _ptr(xb), plan["x_ld"], _ptr(valid), m,
-                          stream), what)
+    _check(_fn(lib, "k23_prep_x", cdt)(_ptr(x), d, _ptr(xb), plan["x_ld"],
+                                       _ptr(valid), m, stream), what)
     return xb, valid
 
 
 def _stage_forward(lib, a, k_in, layer, m, stream, *, z_dtype, what):
-    """One stage's fused GEMM + LayerNorm: (h, z) where z is the bf16
-    stash, the f32 z or None (z_dtype None).  K2, K5's forward and K5's
-    recompute all come through here, so their h and z agree bit for
-    bit."""
+    """One stage's fused GEMM + LayerNorm: (h, z) with h in the operand
+    dtype of a, and z the stash (bf16, or f32 in f32), the f32 z or None
+    (z_dtype None).  K2, K5's forward and K5's recompute all come through
+    here, so their h and z agree bit for bit."""
     w, bb, g, be = layer
     width = w.shape[1]
     dev = a.device
-    h = _rows(m, width, torch.bfloat16, dev)
+    h = _rows(m, width, a.dtype, dev)
     z = None if z_dtype is None else _rows(m, width, z_dtype, dev)
-    _check(lib.k2_gemm_ln(_ptr(a), a.stride(0), _ptr(w), w.stride(0),
-                          _ptr(bb), _ptr(g), _ptr(be), _ptr(h), h.stride(0),
-                          _ptr(z), 0 if z is None else z.stride(0),
-                          int(z_dtype == torch.float32), m, width, k_in,
-                          stream), what)
+    _check(_fn(lib, "k2_gemm_ln", a.dtype)(
+        _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb), _ptr(g),
+        _ptr(be), _ptr(h), h.stride(0), _ptr(z),
+        0 if z is None else z.stride(0), int(z_dtype == torch.float32), m,
+        width, k_in, stream), what)
     return h, z
 
 
 def _gemm_tn(lib, a, b, slices, rows, i, h, stream, what) -> torch.Tensor:
     """(i, h) f32 = a^T b with a stored (rows, i), b (rows, h), both with
-    padded rows: the K=rows sum is split into `slices` whose partials
-    are summed in slice order."""
+    padded rows and in one compute dtype: the K=rows sum is split into
+    `slices` whose partials are summed in slice order."""
     ksplit = slices[0][1] - slices[0][0]
     splits = len(slices)
     out = torch.empty((i, h), dtype=torch.float32, device=b.device)
     dst = out if splits == 1 else torch.empty(
         (splits, i, h), dtype=torch.float32, device=b.device)
-    _check(lib.k23_gemm(_DW, _ptr(a), a.stride(0), _ptr(b), b.stride(0),
-                        None, _ptr(dst), h, i, h, rows, splits, ksplit,
-                        stream), what)
+    _check(_fn(lib, "k23_gemm", b.dtype)(
+        _DW, _ptr(a), a.stride(0), _ptr(b), b.stride(0), None, _ptr(dst), h,
+        i, h, rows, splits, ksplit, stream), what)
     if splits > 1:
         _check(lib.k3_colsum(_ptr(dst), _ptr(out), splits, i * h, stream),
                what + " slice sum")
     return out
 
 
-def _cuda_params(stage_params, final_w, final_b, x):
+def _cuda_params(stage_params, final_w, final_b, x, cdt):
+    """The parameters as the kernels read them: weights in the compute
+    dtype with TMA's rows, biases and LayerNorm terms in f32."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("the chain kernels take a contiguous (B, N, D) "
                          f"float32 cloud, got {x.dtype} {tuple(x.shape)}")
@@ -387,14 +451,14 @@ def _cuda_params(stage_params, final_w, final_b, x):
         if w.dim() != 2 or w.shape[0] != prev:
             raise ValueError(f"stage weight {tuple(w.shape)} does not follow "
                              f"width {prev}")
-        layers.append((_tma_rows(w, torch.bfloat16),
+        layers.append((_tma_rows(w, cdt),
                        _aligned(b, torch.float32),
                        _aligned(g, torch.float32), _aligned(be, torch.float32)))
         prev = w.shape[1]
     if final_w.dim() != 2 or final_w.shape[0] != prev:
         raise ValueError(f"final weight {tuple(final_w.shape)} does not "
                          f"follow width {prev}")
-    fw = _tma_rows(final_w, torch.bfloat16)
+    fw = _tma_rows(final_w, cdt)
     fb = _aligned(final_b, torch.float32)
     for t in (*[t for layer in layers for t in layer], fw, fb):
         if t.device != x.device:
@@ -410,15 +474,13 @@ def _check_pool(n, kv_pool):
 def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
                   emit_features, compute_dtype, stash=True):
     """K2 (stash) or K5's forward (no stash)."""
-    if compute_dtype != torch.bfloat16:
-        raise ValueError("the chain kernels compute in bfloat16 only "
-                         f"(compute_dtype={compute_dtype})")
-    layers, fw, fb = _cuda_params(stage_params, final_w, final_b, x)
+    cdt = kernel_dtype(compute_dtype)
+    layers, fw, fb = _cuda_params(stage_params, final_w, final_b, x, cdt)
     b, n, d = x.shape
     _check_pool(n, kv_pool)
     m = b * n
     c = fw.shape[1]
-    plan = chain_plan(m, d, [w.shape[1] for w, *_ in layers], c)
+    plan = chain_plan(m, d, [w.shape[1] for w, *_ in layers], c, cdt)
     dev = x.device
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -427,15 +489,16 @@ def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
     zs = []
     for layer in layers:
         a, z = _stage_forward(lib, a, k_in, layer, m, stream,
-                              z_dtype=torch.bfloat16 if stash else None,
+                              z_dtype=plan["dtypes"]["stash"] if stash
+                              else None,
                               what="chain stage GEMM + LayerNorm")
         if stash:
             zs.append(z.unflatten(0, (b, n)))
         k_in = layer[0].shape[1]
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
-    _check(lib.k23_gemm(_FWD, _ptr(a), a.stride(0), _ptr(fw), fw.stride(0),
-                        _ptr(fb), _ptr(out), c, m, c, k_in, 1, k_in, stream),
-           "chain projection GEMM")
+    _check(_fn(lib, "k23_gemm", cdt)(
+        _FWD, _ptr(a), a.stride(0), _ptr(fw), fw.stride(0), _ptr(fb),
+        _ptr(out), c, m, c, k_in, 1, k_in, stream), "chain projection GEMM")
     result = {"zs": tuple(zs)} if stash else {}
     if emit_features:
         result["features"] = out
@@ -448,20 +511,15 @@ def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
                                   _ptr(idx), _ptr(sums), b * nw, c, kv_pool,
                                   stream), "chain window pool")
         result.update(pooled=pooled, idx=idx, sums=sums)
-    if stash:
-        chain_forward.launches += 1
-    else:
-        remat_chain_forward.launches += 1
+    _count(chain_forward if stash else remat_chain_forward, cdt)
     return result
 
 
 def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
                    dpool, idx, dsums, compute_dtype, need_dx):
     """K3 from the stash zs, or K5's backward when zs is None."""
-    if compute_dtype != torch.bfloat16:
-        raise ValueError("the chain kernels compute in bfloat16 only "
-                         f"(compute_dtype={compute_dtype})")
-    layers, fw, _fb = _cuda_params(stage_params, final_w, final_b, x)
+    cdt = kernel_dtype(compute_dtype)
+    layers, fw, _fb = _cuda_params(stage_params, final_w, final_b, x, cdt)
     b, n, d = x.shape
     _check_pool(n, kv_pool)
     dev = x.device
@@ -473,14 +531,14 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     lib = _lib()
     if max(widths + [c]) > lib.k23_max_width():
         raise ValueError(f"{kern} takes widths up to {lib.k23_max_width()}")
-    plan = chain_plan(m, d, widths, c)
+    plan = chain_plan(m, d, widths, c, cdt)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if not remat:
         for z, width in zip(zs, widths):
             if z.shape != (b, n, width) or z.device != dev:
                 raise ValueError(f"stash {tuple(z.shape)} does not match "
                                  f"({b}, {n}, {width})")
-        zs = [_tma_rows(z.reshape(m, width), torch.bfloat16)
+        zs = [_tma_rows(z.reshape(m, width), plan["dtypes"]["stash"])
               for z, width in zip(zs, widths)]
     cotangents = [("g", g, (b, n, c))]
     if kv_pool:
@@ -502,29 +560,29 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     xb, valid = _prep_x(lib, x, plan, bool(kv_pool), stream,
                         f"{kern} input")
 
-    # Seed: the projection's cotangent, in bf16, and d final_b.
+    # Seed: the projection's cotangent, in the compute dtype, and
+    # d final_b.
     nblk = -(-m // lib.k23_row_chunk())
-    gbf = _rows(m, c, torch.bfloat16, dev)
+    gbf = _rows(m, c, plan["dtypes"]["seed"], dev)
     part = torch.empty((nblk, c), dtype=torch.float32, device=dev)
-    _check(lib.k3_seed(_ptr(dpool) if kv_pool else None,
-                       _ptr(idx) if kv_pool else None,
-                       _ptr(dsums) if kv_pool else None, _ptr(valid),
-                       _ptr(g), _ptr(gbf), gbf.stride(0), _ptr(part), m, c,
-                       kv_pool, stream), f"{kern} seed")
+    _check(_fn(lib, "k3_seed", cdt)(
+        _ptr(dpool) if kv_pool else None, _ptr(idx) if kv_pool else None,
+        _ptr(dsums) if kv_pool else None, _ptr(valid), _ptr(g), _ptr(gbf),
+        gbf.stride(0), _ptr(part), m, c, kv_pool, stream), f"{kern} seed")
     dfb = torch.empty(c, dtype=torch.float32, device=dev)
     _check(lib.k3_colsum(_ptr(part), _ptr(dfb), nblk, c, stream),
            f"{kern} d final_b")
 
     hs = None
     if remat:
-        # Every stage's f32 z and bf16 h, recomputed by the forward's own
+        # Every stage's f32 z and h, recomputed by the forward's own
         # kernel, so both are bit-identical to the forward's; transient,
         # freed stage by stage below.
         zs, hs = [], []
         a, k_in = xb, d
         for layer in layers:
             a, z = _stage_forward(lib, a, k_in, layer, m, stream,
-                                  z_dtype=torch.float32,
+                                  z_dtype=plan["dtypes"]["recomputed_z"],
                                   what="K5 recompute GEMM + LayerNorm")
             zs.append(z)
             hs.append(a)
@@ -540,16 +598,17 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
         width = widths[k]
         # dh = dz_above W_above^T stays in registers: the epilogue turns
         # it into this stage's dz (and, for K3, its rebuilt h).
-        dz = _rows(m, width, torch.bfloat16, dev)
-        hout = None if remat else _rows(m, width, torch.bfloat16, dev)
+        dz = _rows(m, width, plan["dtypes"]["dz"], dev)
+        hout = None if remat else _rows(m, width, plan["dtypes"]["h"], dev)
         part = torch.empty((plan["row_tiles"], 3 * width),
                            dtype=torch.float32, device=dev)
-        _check(lib.k3_gemm_ln_bwd(
+        _check(_fn(lib, "k3_gemm_ln_bwd", cdt)(
             _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
-            w_above.stride(0), _ptr(zs[k]), zs[k].stride(0), int(remat),
-            _ptr(gm), _ptr(be), _ptr(dz), dz.stride(0), _ptr(hout),
-            0 if hout is None else hout.stride(0), _ptr(part), m, width,
-            above_w, stream), f"{kern} dh GEMM + stage backward")
+            w_above.stride(0), _ptr(zs[k]), zs[k].stride(0),
+            int(zs[k].dtype == torch.float32), _ptr(gm), _ptr(be), _ptr(dz),
+            dz.stride(0), _ptr(hout), 0 if hout is None else hout.stride(0),
+            _ptr(part), m, width, above_w, stream),
+            f"{kern} dh GEMM + stage backward")
         sums = torch.empty(3 * width, dtype=torch.float32, device=dev)
         _check(lib.k3_colsum(_ptr(part), _ptr(sums), plan["row_tiles"],
                              3 * width, stream),
@@ -571,17 +630,14 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
         dz_above, w_above, above_w = dz, w, width
     if need_dx:
         dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
-        _check(lib.k23_gemm(_DH, _ptr(dz_above), dz_above.stride(0),
-                            _ptr(w_above), w_above.stride(0), None, _ptr(dx),
-                            d, m, d, above_w, 1, above_w, stream),
-               f"{kern} dx = dz W^T")
+        _check(_fn(lib, "k23_gemm", cdt)(
+            _DH, _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
+            w_above.stride(0), None, _ptr(dx), d, m, d, above_w, 1, above_w,
+            stream), f"{kern} dx = dz W^T")
     dw0 = _gemm_tn(lib, xb, dz_above, plan["dw_slices"][0], m, d, widths[0],
                    stream, f"{kern} dW0 = x^T dz")
     dstages[0] = (dw0, *dstages[0][1:])
-    if remat:
-        remat_chain_backward.launches += 1
-    else:
-        chain_backward.launches += 1
+    _count(remat_chain_backward if remat else chain_backward, cdt)
     return dx, tuple(dstages), dfw, dfb
 
 
@@ -644,10 +700,18 @@ def remat_chain_backward(x, stage_params, final_w, final_b, *, g=None,
     return _backward_cuda(x, stage_params, final_w, final_b, None, **kw)
 
 
-chain_forward.launches = 0
-chain_backward.launches = 0
-remat_chain_forward.launches = 0
-remat_chain_backward.launches = 0
+def _count(wrapper, cdt) -> None:
+    """One launch of `wrapper`'s kernel in compute dtype cdt."""
+    if cdt == torch.float32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches += 1
+
+
+for _wrapper in (chain_forward, chain_backward, remat_chain_forward,
+                 remat_chain_backward):
+    _wrapper.launches = 0
+    _wrapper.launches_f32 = 0
 
 
 def _unflatten(flat, n_stages):

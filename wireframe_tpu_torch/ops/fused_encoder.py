@@ -14,10 +14,12 @@ Three functions over one parameter layout:
   contract, used for CPU tensors and as the kernel's oracle on the card;
 - `fused_point_encoder`: launches the hand-written CUDA kernel
   (`csrc/fused_encoder.cu` on the wgmma + TMA GEMM of
-  `csrc/hopper_gemm.cuh`) for CUDA tensors, and takes the plain version
-  only for CPU tensors.  `fused_point_encoder.launches` counts kernel
-  launches.  `k1_plan` is its launch plan, pure, so the CPU tests reach
-  everything around the kernel.
+  `csrc/hopper_gemm.cuh`) for CUDA tensors, in bf16 or f32 (the JAX
+  kernel's two compute dtypes; f32 on the GEMM's FFMA main loop), and
+  takes the plain version only for CPU tensors.
+  `fused_point_encoder.launches` counts bf16 kernel launches,
+  `.launches_f32` f32 ones.  `k1_plan` is its launch plan, pure, so the
+  CPU tests reach everything around the kernel.
 
 bf16 matmuls with f32 accumulation are written as f32 matmuls of
 bf16-rounded operands: every bf16 x bf16 product is exact in f32, so this
@@ -129,7 +131,7 @@ K1_ROW_TILE = 128   # rows of a projection tile (csrc/hopper_gemm.cuh's BM)
 
 @functools.lru_cache(maxsize=64)
 def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
-            kv_pool: int) -> Dict:
+            kv_pool: int, compute_dtype=torch.bfloat16) -> Dict:
     """What one K1 call on the card launches, from its shapes alone.
 
     The projection runs its 128-row tiles per cloud, so no tile holds rows
@@ -143,8 +145,15 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
     window that crosses a tile boundary with the (tile, slot) partials it
     takes the max of; "edges" says whether the edge slots exist at all.
     Row strides are padded for TMA and each stage's LayerNorm cluster
-    (<= 8 CTAs, so a stage wider than 2048 raises)."""
-    from wireframe_tpu_torch.ops.chain_grad import ln_cluster, pad8
+    (<= 8 CTAs, so a stage wider than 2048 raises).  For the compute
+    dtype: the main loop, tile, stage and shared-memory bytes and buffer
+    dtypes, as `chain_plan` gives them, and "peak_bytes", the device
+    memory one call allocates at its fullest: two consecutive activations
+    (the input and stage 0's h first, then each stage's h beside the
+    next's) or the last h with the projection's outputs (kv tokens,
+    partials, edge slots, pools), whichever is more, beside the rows'
+    validity."""
+    from wireframe_tpu_torch.ops.chain_grad import chain_plan, ln_cluster, pad8
 
     bm = K1_ROW_TILE
     tiles = -(-n // bm)
@@ -168,6 +177,13 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
             parts = [(k - 1, 1)] + [(j, 0) for j in range(k, tiles)
                                     if j * bm < (w + 1) * p]
             merges.append((w, parts))
+    cplan = chain_plan(b * n, d, widths, out, compute_dtype)
+    esize = 4 if cplan["dtypes"]["h"] == torch.float32 else 2
+    acts = [b * n * pad8(w) * esize for w in (d, *widths)]
+    outs = 4 * (b * (n // p) * out if p else 0) + 4 * b * tiles * 5 * out \
+        + (4 * b * tiles * 2 * out if merges else 0) + 4 * b * 4 * out
+    peak = b * n + max([x + y for x, y in zip(acts, acts[1:])]
+                       + [acts[-1] + outs])
     return {"tiles_per_cloud": tiles,
             "row_tiles": b * tiles,
             "tile_rows": spans,
@@ -177,7 +193,10 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
             "edges": bool(merges),
             "x_ld": pad8(d),
             "stage_ld": [pad8(w) for w in widths],
-            "clusters": [ln_cluster(w) for w in widths]}
+            "clusters": [ln_cluster(w) for w in widths],
+            **{k: cplan[k] for k in ("main_loop", "tile", "stage_bytes",
+                                     "smem_bytes", "dtypes")},
+            "peak_bytes": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -190,15 +209,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_encoder")
     if not getattr(lib, "_k1_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.k1_row_tile.argtypes = []
-        lib.k1_prep.argtypes = [p, i, p, i, p, i, p]
-        lib.k1_stage.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
-        lib.k1_project.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, i, i,
-                                   i, i, p]
-        lib.k1_finalize.argtypes = [p, p, p, p, i, i, i, i, p]
-        for fn in (lib.k1_row_tile, lib.k1_prep,
-                   lib.k1_stage, lib.k1_project, lib.k1_finalize):
-            fn.restype = ctypes.c_int
+        types = {"k1_row_tile": [],
+                 "k1_prep": [p, i, p, i, p, i, p],
+                 "k1_stage": [p, i, p, i, p, p, p, p, i, i, i, i, p],
+                 "k1_project": [p, i, p, i, p, p, p, i, p, p, p, i, i, i,
+                                i, i, p],
+                 "k1_finalize": [p, p, p, p, i, i, i, i, p]}
+        for name in ("k1_prep", "k1_stage", "k1_project"):
+            types[name + "_f32"] = types[name]
+        for name, args in types.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
         if lib.k1_row_tile() != K1_ROW_TILE:
             raise RuntimeError(f"csrc/hopper_gemm.cuh's row tile "
                                f"{lib.k1_row_tile()} does not match the "
@@ -221,14 +242,19 @@ def _aligned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _launch(x, stage_params, final_w, final_b, *, tile,
             return_point_features, compute_dtype, kv_pool):
-    from wireframe_tpu_torch.ops.chain_grad import _ptr, _rows, _tma_rows
+    from wireframe_tpu_torch.ops.chain_grad import (
+        _count,
+        _fn,
+        _ptr,
+        _rows,
+        _tma_rows,
+        kernel_dtype,
+    )
 
+    cdt = kernel_dtype(compute_dtype)
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("K1 takes a contiguous (B, N, D) float32 cloud, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if compute_dtype != torch.bfloat16:
-        raise ValueError("the K1 kernel computes in bfloat16 only "
-                         f"(compute_dtype={compute_dtype})")
     b, n, d = x.shape
     _check_tiling(n, tile, kv_pool)
     dev = x.device
@@ -238,37 +264,38 @@ def _launch(x, stage_params, final_w, final_b, *, tile,
         if w.dim() != 2 or w.shape[0] != prev:
             raise ValueError(f"stage weight {tuple(w.shape)} does not follow "
                              f"width {prev}")
-        layers.append((_tma_rows(w, torch.bfloat16),
+        layers.append((_tma_rows(w, cdt),
                        *(_aligned(t, torch.float32) for t in (bb, g, be))))
         prev = w.shape[1]
     if final_w.dim() != 2 or final_w.shape[0] != prev:
         raise ValueError(f"final weight {tuple(final_w.shape)} does not "
                          f"follow width {prev}")
-    fw = _tma_rows(final_w, torch.bfloat16)
+    fw = _tma_rows(final_w, cdt)
     fb = _aligned(final_b, torch.float32)
     c = fw.shape[1]
     for t in (*[t for layer in layers for t in layer], fw, fb):
         if t.device != dev:
             raise ValueError("K1 parameters must lie on the cloud's device")
     plan = k1_plan(b, n, d, tuple(w.shape[1] for w, *_ in layers), c,
-                   kv_pool)
+                   kv_pool, cdt)
 
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     m = b * n
-    a = _rows(m, d, torch.bfloat16, dev)
+    a = _rows(m, d, cdt, dev)
     valid = torch.empty(m, dtype=torch.uint8, device=dev)
-    _check(lib.k1_prep(_ptr(x), d, _ptr(a), plan["x_ld"], _ptr(valid), m,
-                       stream), "input prep")
+    _check(_fn(lib, "k1_prep", cdt)(_ptr(x), d, _ptr(a), plan["x_ld"],
+                                    _ptr(valid), m, stream), "input prep")
     k_in = d
     for w, bb, g, be in layers:
-        # Each stage's bf16 h is the only activation in device memory; the
-        # one before it is freed as soon as this launch is queued.
+        # Each stage's h is the only activation in device memory; the one
+        # before it is freed as soon as this launch is queued.
         width = w.shape[1]
-        h = _rows(m, width, torch.bfloat16, dev)
-        _check(lib.k1_stage(_ptr(a), a.stride(0), _ptr(w), w.stride(0),
-                            _ptr(bb), _ptr(g), _ptr(be), _ptr(h), h.stride(0),
-                            m, width, k_in, stream), "stage GEMM + LayerNorm")
+        h = _rows(m, width, cdt, dev)
+        _check(_fn(lib, "k1_stage", cdt)(
+            _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb), _ptr(g),
+            _ptr(be), _ptr(h), h.stride(0), m, width, k_in, stream),
+            "stage GEMM + LayerNorm")
         a, k_in = h, width
     p = kv_pool
     feats = (torch.empty((b, n, c), dtype=torch.float32, device=dev)
@@ -280,13 +307,13 @@ def _launch(x, stage_params, final_w, final_b, *, tile,
                        dtype=torch.float32, device=dev) \
         if plan["edges"] else None
     pools = torch.empty((b, 4, c), dtype=torch.float32, device=dev)
-    _check(lib.k1_project(_ptr(a), a.stride(0), _ptr(fw), fw.stride(0),
-                          _ptr(fb), _ptr(valid), _ptr(feats), c, _ptr(part),
-                          _ptr(kv), _ptr(edge), p, b, n, c, k_in, stream),
-           "projection GEMM + pools")
+    _check(_fn(lib, "k1_project", cdt)(
+        _ptr(a), a.stride(0), _ptr(fw), fw.stride(0), _ptr(fb), _ptr(valid),
+        _ptr(feats), c, _ptr(part), _ptr(kv), _ptr(edge), p, b, n, c, k_in,
+        stream), "projection GEMM + pools")
     _check(lib.k1_finalize(_ptr(part), _ptr(edge), _ptr(kv), _ptr(pools), b,
                            n, p, c, stream), "pool finalize")
-    fused_point_encoder.launches += 1
+    _count(fused_point_encoder, cdt)
     result = {"masked_mean": pools[:, 0], "masked_max": pools[:, 1],
               "mean": pools[:, 2], "max": pools[:, 3]}
     if return_point_features:
@@ -305,8 +332,9 @@ def fused_point_encoder(x: torch.Tensor,
                         kv_pool: int = 0) -> Dict[str, torch.Tensor]:
     """K1: the CUDA kernel for a CUDA cloud, the plain version for a CPU
     cloud.  Same arguments and result as `fused_point_encoder_plain`; on
-    the card it raises on anything the kernel does not take (non-bf16
-    compute, misaligned or non-contiguous input, ragged tiling)."""
+    the card it raises on anything the kernel does not take (a compute
+    dtype other than bf16 or f32, misaligned or non-contiguous input,
+    ragged tiling)."""
     kwargs = dict(tile=tile, return_point_features=return_point_features,
                   compute_dtype=compute_dtype, kv_pool=kv_pool)
     if x.device.type == "cpu":
@@ -318,3 +346,4 @@ def fused_point_encoder(x: torch.Tensor,
 
 
 fused_point_encoder.launches = 0
+fused_point_encoder.launches_f32 = 0
