@@ -56,7 +56,26 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 ragged shapes in each flavour, against the plain f32
                 versions (TF32 off), K1 array_equal to K5's forward, two
                 launches array_equal, times, bounds and K1's peak memory;
-  9. training — the full-width recipe train step (train_model, overfit
+  9. limits   — every shape the JAX kernels take, within 60 s: (a) the
+                recipe at data.max_vertices=256 (K4 on (8, 256, 256), its
+                costs in device memory) served one batch per bucket and
+                trained 5 steps at 8 x 2560 (K2, K3, K4 once per step,
+                the first 3 losses against the plain versions); (b) the
+                recipe with encoder widths (512, 1024, 4096, 1024): the
+                4096 stage runs split (its GEMM writes the f32 product,
+                the LayerNorm row kernels of layernorm_rows.cu do the
+                rest), served through K1 over the four buckets and trained
+                5 steps through K2 / K3; (c) the parity model as shipped
+                (f32) with those widths, 3 steps at 3 x 2560 through K5
+                f32 and K4; then K4 at (8, 256, 256), (4, 300, 512), (2,
+                64, 1024) and (1, 32, 16384) against its plain version
+                (random costs, ties, -0.0, a NaN row, counts 0 and R) with
+                ns per scan step; K1, K2, K3, K5 in bf16 and f32 at (8,
+                2560) with the 4096 stage and at (2, 328) with widths
+                (2304, 8192) and out 2304 against their plain versions,
+                K1 and K5's forward array_equal to K2's, two launches
+                equal; the split stage and each row kernel timed;
+ 10. training — the full-width recipe train step (train_model, overfit
                 one synthetic batch of 8 box buildings, 20 steps): finite
                 losses, K2 / K3 / K4 launched once per step each; the first
                 3 losses against the same steps with the plain versions on
@@ -69,7 +88,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 breakdown of one step and a step under CUDA sync debug
                 mode; the trained weights saved through the bridge and
                 served;
- 10. parity   — the reference-parity model (configs/default.yaml with the
+ 11. parity   — the reference-parity model (configs/default.yaml with the
                 fused bf16 encoder: MLP vertex head, remat chain, matcher
                 "device") trained 20 steps at batch 3 x 2560: K5 forward,
                 K5 backward and K4 once per step, K2 / K3 never; the first
@@ -78,7 +97,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 the memory the forward leaves for the backward, remat
                 against stash; ms per step, profile, no host sync; the
                 trained checkpoint served over all four buckets with K1;
- 11. serving  — the full-width recipe WireframePredictor (random weights
+ 12. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
                 buckets; the K1 launch count must equal the batches
@@ -86,7 +105,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 between the kernel and the plain encoder chain; serving
                 time per bucket, and a torch.profiler breakdown of one
                 batch per bucket (device busy share, K1 against the rest);
- 12. corpus   — the recipe at full width from a generated Building3D
+ 13. corpus   — the recipe at full width from a generated Building3D
                 corpus (24 train / 8 test buildings) through the CLIs:
                 `main` trains 2 epochs (K2, K3, K4 once per optimizer
                 step, finite losses, step_6 and ema/step_6), `--resume` of
@@ -99,7 +118,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 pipelined step's kept pairs in pair-table order); `test`
                 writes 8 world-frame .obj files; ms per step, clouds/s per
                 path and the host share of a pipelined chunk;
- 13. layouts  — the full-width recipe's decoder in the layouts the JAX
+ 14. layouts  — the full-width recipe's decoder in the layouts the JAX
                 package builds besides the unrolled one: fused cross K/V,
                 scanned, scanned + fused and remat, each from
                 `init_flax_params` for its own tree: served over all four
@@ -112,7 +131,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 dropout on, and the bytes autograd saves; ms per step and
                 device ops per step (tools/trace_ops) per layout beside
                 the unrolled layout's;
- 14. checkpoints — a state_dict in the reference's own layout (its
+ 15. checkpoints — a state_dict in the reference's own layout (its
                 widths, 64 slots) `torch.save`d and evaluated through
                 `evaluate --torch-checkpoint` on the corpus's test split in
                 f32 (the plain encoder), in bf16 through K1 and in f32
@@ -121,18 +140,18 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 f32 run's, the f32 K1 run's within the f32 forward atol;
                 a scanned + fused recipe checkpoint with its Adam state
                 resumed twice to the same losses;
- 15. parser   — every .xyz of the corpus phase's corpus read by the C++
+ 16. parser   — every .xyz of the corpus phase's corpus read by the C++
                 parser (`io/native`, built with g++ into build/native/)
                 and by np.loadtxt: array_equal float64 arrays, ms per
                 file of each; the library loaded and no cloud of the
                 whole run read by numpy; on one served batch of the
                 corpus's model, the adjacency ops' round trip equal to
                 (p > t) on the card;
- 16. study    — `tools.seed_study` on that corpus (seeds 0 and 1, 2
+ 17. study    — `tools.seed_study` on that corpus (seeds 0 and 1, 2
                 epochs, EMA and decoded; every subprocess on CUDA): 6
                 records, each naming the card; then `tools.study_report`
                 on them;
- 17. parallel — more than one device on the one card, within 90 s:
+ 18. parallel — more than one device on the one card, within 90 s:
                 (a) `evaluate --sharded 4` of the corpus phase's EMA
                 checkpoint, shard by shard and pipelined: counters
                 array_equal to the plain runs', K1 once per forward
@@ -159,12 +178,13 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 (c), each kernel once per step on each rank.  A rank's
                 non-zero exit fails the phase.  NCCL across two cards
                 needs a machine with two;
- 18. bench    — `wireframe_tpu_torch.bench` and its four tools at the
+ 19. bench    — `wireframe_tpu_torch.bench` and its four tools at the
                 bench's defaults (B=128 x 2560), and the recipe forward
                 with BENCH_DTYPE=float32 through K1 f32.
 Then a `kernels` JSON line (launches on the main paths, on the corpus,
-layouts, checkpoints, parallel and bench paths; the f32 kernels' under
-their own entries) and, last, the `ok` JSON line.
+layouts, checkpoints, parallel, bench and limits paths; the f32 kernels'
+and the split stages' row kernels under their own entries; K4's per
+variant) and, last, the `ok` JSON line.
 
 Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
 """
@@ -1009,7 +1029,9 @@ def chain_phase(torch, dev, card, shapes=CHAIN_SHAPES):
                   f"{exact * 100:.4f}%, within one ulp of the element "
                   f"{elem * 100:.4f}%, within one ulp of the row's max "
                   f"{within * 100:.4f}%", flush=True)
-            if within < 1.0:
+            # Counted, not from `within`: a float32 mean of N ones is
+            # N * (1 / N) on the card, which reads 1 - 2^-24 for some N.
+            if not bool((diff <= row_ulp).all()):
                 raise AssertionError(f"K2 stash z{k} off by more than one "
                                      f"ulp ({name})")
         if p:
@@ -1269,10 +1291,17 @@ F32_KEYS = ("K1", "K2", "K3", "K5 fwd", "K5 bwd")
 
 
 def reset_launches():
+    from wireframe_tpu_torch.ops import layernorm_rows
+
     for k, fn in _counters().items():
         fn.launches = 0
         if k in F32_KEYS:
             fn.launches_f32 = 0
+    # The split stages' row kernels and K4's per-variant counts.
+    for fn in (layernorm_rows.layernorm_relu_forward,
+               layernorm_rows.layernorm_relu_backward):
+        fn.launches = fn.launches_f32 = 0
+    _counters()["K4"].variant_launches.clear()
 
 
 def launch_counts():
@@ -2418,6 +2447,586 @@ def f32_phase(torch, dev, card, work):
     secs = time.perf_counter() - t0
     print(f"f32 phase: {secs:.1f} s (budget {F32_BUDGET_S:.0f} s) [{card}]",
           flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Limits: every shape the JAX kernels take
+# ---------------------------------------------------------------------------
+
+LIMITS_BUDGET_S = 60.0
+LIMITS_STEPS = 5                 # (a), (b): steps of the main path
+LIMITS_F32_STEPS = 3             # (c)
+# (c)'s losses against the plain versions: step 1 (the forward alone) at
+# the f32 phase's 1e-4; steps 2-3 at the training phase's bound.  The
+# shipped lr is 1e-3 and Adam's first update moves every weight by
+# +-lr, so a gradient within f32 summation noise of 0 (or behind a ReLU
+# gate within rounding of a tie) moves its weight 2 lr apart on the two
+# sides; with the 4096 stage's 8.4M weights a first run read 2.0e-5 at
+# step 2 and 1.4e-3 at step 3.  The gradients themselves are held
+# element by element in limits_chain.
+LIMITS_F32_RTOL = (1e-4, TRAIN_LOSS_RTOL, TRAIN_LOSS_RTOL)
+WIDE = (512, 1024, 4096, 1024)   # the recipe with a 4096-wide stage
+WIDE_SET = "model.encoder_hidden_dims=512,1024,4096,1024"
+# One cloud per bucket (2048, 4096, 8192, 16384).
+LIMITS_SIZES = (1300, 3000, 6000, 12000)
+# K4 past the shapes it once took: (B, R, C, highest count drawn).  At
+# (8, 256, 256) the costs leave shared memory; (4, 300, 512) is the warp
+# variant's widest row; (2, 64, 1024) runs the block variant; (1, 32,
+# 16384) the block variant with its state in device memory.
+LIMITS_K4 = ((8, 256, 256, 255), (4, 300, 512, 64), (2, 64, 1024, 64),
+             (1, 32, 16384, 32))
+# The chain kernels alone: (name, B, N, hidden, out, kv_pool, K1's tile).
+LIMITS_CHAIN = (("recipe with a 4096 stage", 8, 2560, WIDE, 512, 4, 512),
+                ("ragged wide", 2, 328, (2304, 8192), 2304, 4, 328))
+
+
+def limits_counts():
+    """Launches of the split stages' LayerNorm row kernels and of K4's
+    variants (`k4_plan`'s names)."""
+    from wireframe_tpu_torch.ops import layernorm_rows
+    from wireframe_tpu_torch.ops.lockstep_lsa import solve_lsa_rows
+
+    fwd = layernorm_rows.layernorm_relu_forward
+    bwd = layernorm_rows.layernorm_relu_backward
+    return {"LN rows fwd": fwd.launches, "LN rows fwd f32": fwd.launches_f32,
+            "LN rows bwd": bwd.launches, "LN rows bwd f32": bwd.launches_f32,
+            **{f"K4 {k}": v for k, v in
+               solve_lsa_rows.variant_launches.items() if v}}
+
+
+def _limits_paths(work):
+    rng = np.random.default_rng(15)
+    offset = np.array([534000.0, 6588000.0, 40.0])
+    paths = []
+    for i, n in enumerate(LIMITS_SIZES):
+        p = os.path.join(work, f"limitscloud{i}_{n}.xyz")
+        np.savetxt(p, synthetic_building(rng, n, offset), fmt="%.4f")
+        paths.append(p)
+    return paths
+
+
+def _limits_counted(label, want):
+    """The main path's counts, K1 - K5 (bf16 and f32), the row kernels and
+    K4's variants, against `want` (every other count 0)."""
+    counts = {**launch_counts(), **f32_launch_counts(), **limits_counts()}
+    expected = {**{k: 0 for k in counts}, **want}
+    print(f"limits {label}: launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts != expected:
+        raise AssertionError(f"limits {label}: launches {counts}, expected "
+                             f"{expected}")
+    return counts
+
+
+def _limits_recipe(torch, dev, card, work, tag, extra, paths, want_train):
+    """Serve one batch per bucket, then train LIMITS_STEPS steps at 8 x
+    2560, the first 3 losses against the plain versions.  Returns the
+    served and the trained launch counts."""
+    from wireframe_tpu_torch.bridge import init_flax_params
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.utils.synth import make_box_building_batch
+
+    base = ["train.overfit_one_batch=true", "train.log_every=1"]
+    cfg = load_config(RECIPE, base + extra
+                      + [f"train.num_epochs={LIMITS_STEPS}"])
+    m = cfg.model
+    print(f"limits {tag}: recipe + {extra}: encoder "
+          f"{m.encoder_hidden_dims}->{m.encoder_output_dim}, max_vertices "
+          f"{m.max_vertices}, {m.compute_dtype}, chain_backward "
+          f"{m.chain_backward}", flush=True)
+    flat = init_flax_params(m, SERVE_SEED)
+    _, k1, batches = _serve_layout(dev, card, work, f"limits {tag}", flat,
+                                   cfg, extra, paths)
+    served = _limits_counted(f"{tag} served", {
+        "K1": batches, **({"LN rows fwd": batches}
+                          if "LN rows fwd" in want_train else {})})
+    batch = make_box_building_batch(cfg, cfg.train.batch_size, seed=0)
+    t0 = time.perf_counter()
+    losses, _, _ = _train_layout(torch, dev, cfg, batch, flat)
+    secs = time.perf_counter() - t0
+    trained = _limits_counted(f"{tag} trained", want_train)
+    plain_cfg = load_config(RECIPE, base + extra + ["train.num_epochs=3"])
+    plain, _, _ = _train_layout(torch, dev, plain_cfg, batch, flat,
+                                plain=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    print(f"limits {tag}: {LIMITS_STEPS} steps at {cfg.train.batch_size} x "
+          f"{cfg.data.num_points} in {secs:.2f} s, losses {losses}; first "
+          f"3 against the plain versions {plain}: max rel diff "
+          f"{max(rel):.2e} (rtol {TRAIN_LOSS_RTOL}) [{card}]", flush=True)
+    if not all(map(math.isfinite, losses)) or max(rel) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"limits {tag}: losses differ from the plain "
+                             "run")
+    return served, trained
+
+
+def _limits_parity_f32(torch, dev, card):
+    """(c) The parity model as shipped (f32) with a 4096-wide stage, 3
+    steps at 3 x 2560 through K5 f32 (split) and K4, against the plain
+    versions (dropout off, targets next to predicted slots)."""
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.train.loop import epoch_seed, init_model
+    from wireframe_tpu_torch.utils.synth import (
+        make_box_building_batch,
+        targets_near_slots,
+    )
+
+    sets = ["model.use_pallas_encoder=true", WIDE_SET, "train.log_every=1",
+            "model.attn_dropout=0", "model.edge_dropout=0",
+            f"train.num_epochs={LIMITS_F32_STEPS}"]
+    cfg = load_config(PARITY, sets)
+    m = cfg.model
+    print(f"limits (c): parity model as shipped + {WIDE_SET}: "
+          f"{m.compute_dtype}, chain_backward {m.chain_backward}, matcher "
+          f"{cfg.train.matcher}, max_vertices {m.max_vertices}, batch "
+          f"{cfg.train.batch_size} x {cfg.data.num_points}", flush=True)
+    if m.compute_dtype != "float32" or m.chain_backward != "remat":
+        raise AssertionError("configs/default.yaml no longer ships f32 remat")
+    batch = targets_near_slots(
+        cfg, init_model(cfg, dev),
+        make_box_building_batch(cfg, cfg.train.batch_size, seed=0),
+        epoch_seed(cfg.train.seed, 0), device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    kern = _f32_losses(torch, PARITY, sets, batch, dev, plain=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = LIMITS_F32_STEPS
+    counts = _limits_counted("(c) trained", {
+        "K4": n, "K5 fwd f32": n, "K5 bwd f32": n, "LN rows fwd f32": 2 * n,
+        "LN rows bwd f32": n, "K4 warp, costs in shared memory": n})
+    plain = _f32_losses(torch, PARITY, sets, batch, dev, plain=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(kern, plain)]
+    ok = len(rel) == n and all(r <= t for r, t in zip(rel, LIMITS_F32_RTOL))
+    print(f"limits (c): {n} steps in {secs:.2f} s; losses, kernels {kern} "
+          f"vs plain versions {plain}: relative differences {rel} (limits "
+          f"{LIMITS_F32_RTOL}) {'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        raise AssertionError("limits (c): losses differ from the plain run")
+    return counts
+
+
+def limits_k4(torch, dev, card):
+    """K4 at LIMITS_K4 against its plain version (array_equal) and scipy
+    (where finite): random costs, forced ties, -0.0 among exact zeros, an
+    unclamped NaN row, counts 0 and R; ns per scan step from steps_out.
+    Returns [{timing fields}] per shape."""
+    from scipy.optimize import linear_sum_assignment
+
+    from wireframe_tpu_torch.ops.lockstep_lsa import (
+        k4_plan,
+        solve_lsa_rows,
+        solve_lsa_rows_lockstep_plain,
+    )
+
+    rng = np.random.default_rng(16)
+    timing = []
+    for b, r, c, top in LIMITS_K4:
+        shape = f"({b}, {r}, {c})"
+        counts = rng.integers(min(4, top), top + 1, size=b).astype(np.int32)
+        cases = [("random", (rng.random((b, r, c)) * 10).astype(np.float32),
+                  counts, True)]
+        if c <= 1024:
+            cases.append(("ties", (rng.integers(0, 4, (b, r, c)) * 0.5)
+                          .astype(np.float32), counts, True))
+        if (b, r, c) == (8, 256, 256):
+            zeros = (rng.integers(0, 3, (b, r, c)) * 0.5).astype(np.float32)
+            zeros[(zeros == 0) & (rng.random(zeros.shape) < 0.5)] = -0.0
+            cases.append(("-0.0 entries", zeros, counts, True))
+        if (b, r, c) in ((4, 300, 512), (2, 64, 1024)):
+            nan = (rng.random((b, r, c)) * 10).astype(np.float32)
+            nan[np.arange(b), rng.integers(0, top, size=b)] = np.nan
+            cases.append(("NaN row", nan, counts, False))
+            edge = np.array([0, top] * (b // 2), np.int32)
+            cases.append(("counts 0 and R", (rng.random((b, r, c)) * 10)
+                          .astype(np.float32), edge, True))
+        plan = k4_plan(r, c)
+        for kind, cost, cnt, finite in cases:
+            ct = torch.tensor(cost, device=dev)
+            nt = torch.tensor(cnt, device=dev)
+            got = solve_lsa_rows(ct, nt)
+            want = solve_lsa_rows_lockstep_plain(ct, nt)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            g = got.cpu().numpy()
+            worst = 0.0
+            for i, k in enumerate(cnt if finite else ()):
+                if k == 0:
+                    continue
+                rows, cols = linear_sum_assignment(cost[i, :k])
+                best = cost[i, rows, cols].sum()
+                have = cost[i, np.arange(k), g[i, :k]].sum()
+                if len(set(g[i, :k].tolist())) != k or (
+                        g[i, k:] != -1).any():
+                    raise AssertionError(f"K4 {kind} {shape}: sample {i} "
+                                         "not an assignment")
+                worst = max(worst, abs(have - best) / max(abs(best), 1e-12))
+            gap = f"{worst:.2e} (limit 1e-5)" if finite else "not checked"
+            print(f"K4 {kind} {shape} [{plan['name']}]: array_equal to plain "
+                  f"{equal}; worst relative cost gap to scipy {gap}",
+                  flush=True)
+            if not equal or worst > 1e-5:
+                raise AssertionError(f"K4 {kind} {shape} disagrees")
+        cost, cnt = cases[0][1], cases[0][2]
+        ct = torch.tensor(cost, device=dev)
+        nt = torch.tensor(cnt, device=dev)
+        steps = torch.zeros(b, dtype=torch.int32, device=dev)
+        solve_lsa_rows(ct, nt, steps_out=steps)
+        ms = cuda_ms(torch, lambda: solve_lsa_rows(ct, nt), 10)
+        plain_ms = cuda_ms(torch, lambda: solve_lsa_rows_lockstep_plain(
+            ct, nt), 1)
+        total, longest = int(steps.sum()), int(steps.max())
+        t_ops = total * c * 9 / H100_F32_FLOPS * 1e3
+        t_bytes = (cost.nbytes + cnt.nbytes + b * r * 4) / (
+            H100_BYTES_PER_S) * 1e3
+        bound = max(t_ops, t_bytes)
+        ns = ms * 1e6 / longest
+        print(f"K4 time {shape} [{plan['name']}]: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, {total} scan steps (longest sample "
+              f"{longest}): {ns:.1f} ns per scan step of the longest sample;"
+              f" bound {bound:.2e} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+              f"{bound / ms * 100:.3f}% of bound [{card}]", flush=True)
+        timing.append({"shape": f"B={b} R={r} C={c}",
+                       "variant": plan["name"], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": ("operations" if t_ops >= t_bytes
+                                    else "bytes"),
+                       "ns_per_scan_step": ns})
+    return timing
+
+
+def _limits_fwd(torch, label, dtype, got, want):
+    keys = ["pooled", "sums", "features"]
+    if dtype == torch.float32:
+        err = f32_forward_close(label, got, want, keys)
+        return max(err, f32_forward_close(
+            f"{label} stash", {f"z{k}": z for k, z in enumerate(got["zs"])},
+            {f"z{k}": z for k, z in enumerate(want["zs"])},
+            [f"z{k}" for k in range(len(got["zs"]))]))
+    err = forward_close(label, got, want, keys)
+    for k, (g, w) in enumerate(zip(got["zs"], want["zs"])):
+        g, w = g.float(), w.float()
+        ulp = bf16_ulp(torch, w.abs().amax(-1, keepdim=True))
+        off = ~((g - w).abs() <= ulp)
+        print(f"{label} z{k} (width {w.shape[-1]}): {int(off.sum())} of "
+              f"{off.numel()} elements more than one ulp of the row's max "
+              "from the plain stash", flush=True)
+        if off.any():
+            for idx in off.nonzero()[:4].tolist():
+                print(f"  at {idx}: kernel {g[tuple(idx)].item()}, plain "
+                      f"{w[tuple(idx)].item()}, the row's ulp "
+                      f"{ulp[tuple(idx[:-1])].item()}", flush=True)
+            raise AssertionError(f"{label} stash z{k} off by more than one "
+                                 "ulp")
+    return err
+
+
+def _limits_bwd(torch, label, dtype, gk, gp, remat, tied):
+    if dtype == torch.float32:
+        return f32_grads_close(torch, label, gk, gp, tied)
+    worst_max, max_at, worst_mean, mean_at, err = grad_errors(gk, gp)
+    lim = (K5_MAX_REL, K5_MEAN_REL) if remat else (K3_MAX_REL, K3_MEAN_REL)
+    ok = worst_max <= lim[0] and worst_mean <= lim[1]
+    print(f"{label}: worst max rel err {worst_max:.2e} ({max_at}; limit "
+          f"{lim[0]}), worst mean rel err {worst_mean:.2e} ({mean_at}; "
+          f"limit {lim[1]}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} disagrees")
+    return err
+
+
+def _flat_grads(r):
+    return [r[0], *[t for st in r[1] for t in st], r[2], r[3]]
+
+
+def _flat_fwd(r):
+    return [*r["zs"], r["features"], r["pooled"], r["idx"], r["sums"]]
+
+
+def limits_chain(torch, dev, card):
+    """K2, K3, K5 and K1 with split stages, bf16 and f32, at LIMITS_CHAIN
+    against their plain versions (the chain and f32 phases' bounds); K5's
+    forward and K1 array_equal to K2's; two launches equal.  Returns
+    {dtype: {"K2": max abs, ...}}."""
+    from wireframe_tpu_torch.ops.chain_grad import (
+        chain_backward,
+        chain_backward_plain,
+        chain_forward,
+        chain_forward_plain,
+        remat_chain_backward,
+        remat_chain_forward,
+    )
+    from wireframe_tpu_torch.ops.fused_encoder import (
+        fused_point_encoder,
+        fused_point_encoder_plain,
+    )
+
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        err = errs[tag] = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K5 forward": 0.0,
+                           "K5 backward": 0.0}
+        for name, b, n, hidden, out, p, tile in LIMITS_CHAIN:
+            label = f"{name} ({b}, {n}) {hidden}->{out} {tag}"
+            stages, fw, fb = recipe_encoder_params(
+                torch, rng, dev, hidden=hidden, out=out, weight_dtype=dtype)
+            x = torch.tensor(padded_clouds(rng, b, n), device=dev)
+            kw = dict(kv_pool=p, compute_dtype=dtype, emit_features=True)
+            k2 = chain_forward(x, stages, fw, fb, **kw)
+            k5 = remat_chain_forward(x, stages, fw, fb, **kw)
+            want = chain_forward_plain(x, stages, fw, fb, **kw)
+            err["K2"] = max(err["K2"], _limits_fwd(
+                torch, f"K2 {label}", dtype, k2, want))
+            k1 = fused_point_encoder(x, stages, fw, fb, tile=tile, kv_pool=p,
+                                     return_point_features=True,
+                                     compute_dtype=dtype)
+            k1p = fused_point_encoder_plain(x, stages, fw, fb, tile=tile,
+                                            kv_pool=p,
+                                            return_point_features=True,
+                                            compute_dtype=dtype)
+            close = f32_forward_close if dtype == torch.float32 \
+                else forward_close
+            err["K1"] = max(err["K1"], close(f"K1 {label}", k1, k1p,
+                                             list(k1p)))
+            again = chain_forward(x, stages, fw, fb, **kw)
+            same = {"K5 forward == K2": all(torch.equal(k5[k], k2[k])
+                                            for k in k5),
+                    "K1 features == K5": torch.equal(k1["point_features"],
+                                                     k5["features"]),
+                    "K1 kv == K5": torch.equal(k1["kv_features"],
+                                               k5["pooled"]),
+                    "K2 twice": all(torch.equal(u, v) for u, v in zip(
+                        _flat_fwd(again), _flat_fwd(k2)))}
+            print(f"limits {label}: {same}", flush=True)
+            if not all(same.values()):
+                raise AssertionError(f"limits {label}: {same}")
+            err["K5 forward"] = err["K2"]
+            del k1, k1p, again, want
+            # Cotangents; in f32 0 on the rows behind a near-tie gate and
+            # the backward held against the plain one from the kernel's
+            # own stash (see F32_GRAD_RTOL); in bf16 from one stash, as
+            # the chain phase does.
+            zs = k2["zs"]
+            tied = f32_tied_rows(torch, x, stages, zs, p) \
+                if dtype == torch.float32 else None
+            keep = (~tied[0]).float().reshape(b, n, 1) if tied else \
+                torch.ones((b, n, 1), device=dev)
+            wkeep = keep.reshape(b, n // p, p, 1)[:, :, 0]
+            cot = dict(dpool=torch.randn(k2["pooled"].shape, device=dev,
+                                         generator=gen) * wkeep,
+                       dsums=torch.randn(k2["sums"].shape, device=dev,
+                                         generator=gen) * 0.1 * wkeep,
+                       idx=k2["idx"],
+                       g=torch.randn((b, n, out), device=dev,
+                                     generator=gen) * 0.1 * keep)
+            bkw = dict(kv_pool=p, compute_dtype=dtype, **cot)
+            gp = chain_backward_plain(x, stages, fw, fb, zs, **bkw)
+            for key, fn, remat in (
+                    ("K3", lambda: chain_backward(x, stages, fw, fb, zs,
+                                                  **bkw), False),
+                    ("K5 backward", lambda: remat_chain_backward(
+                        x, stages, fw, fb, **bkw), True)):
+                ref = gp
+                if remat and dtype == torch.bfloat16:
+                    ref = chain_backward_plain(x, stages, fw, fb, None, **bkw)
+                gk = fn()
+                err[key] = max(err[key], _limits_bwd(
+                    torch, f"{key} {label}", dtype, gk, ref, remat, tied))
+                if not all(torch.equal(u, v) for u, v in zip(
+                        _flat_grads(gk), _flat_grads(fn()))):
+                    raise AssertionError(f"{key} {label}: two launches "
+                                         "differ")
+                del gk, ref
+            del x, k2, k5, zs, gp, cot, keep
+    return errs
+
+
+def _rows_bound(nbytes):
+    return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def _rows_close(torch, label, got, want, dtype, grad):
+    """A row kernel's output against its plain version: in bf16 within one
+    ulp of the row's largest magnitude (the stash check of the chain
+    phase), in f32 within the f32 phase's forward or gradient bounds.
+    Returns the largest absolute difference."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if dtype == torch.bfloat16:
+        ok = bool((err <= bf16_ulp(torch, w.abs().amax(-1, keepdim=True)))
+                  .all())
+        rule = "one bf16 ulp of the row's max"
+    elif grad:
+        ok = bool((err <= F32_GRAD_ATOL * w.abs().max()
+                   + F32_GRAD_RTOL * w.abs()).all())
+        rule = f"rtol {F32_GRAD_RTOL}, atol {F32_GRAD_ATOL} of the max"
+    else:
+        ok = bool((err <= F32_FWD_ATOL + F32_FWD_RTOL * w.abs()).all())
+        rule = f"rtol {F32_FWD_RTOL}, atol {F32_FWD_ATOL}"
+    print(f"{label}: max_abs {err.max().item():.3e} ({rule}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} disagrees")
+    return err.max().item()
+
+
+def limits_timing(torch, dev, card):
+    """At the recipe's (8, 2560) with the 4096 stage, bf16 and f32: the
+    split stage forward (GEMM to f32 z + the LayerNorm row kernel, K2's
+    stash) and backward (dh GEMM + the row kernels, K3's rebuilt h), and
+    each row kernel alone, against their plain versions, with their
+    bounds.  Returns {dtype: {"fwd": fields, "bwd": fields}}."""
+    from wireframe_tpu_torch.ops import chain_grad
+    from wireframe_tpu_torch.ops.fused_encoder import _dot, _ln
+    from wireframe_tpu_torch.ops.layernorm_rows import (
+        layernorm_relu_backward,
+        layernorm_relu_backward_plain,
+        layernorm_relu_forward,
+        layernorm_relu_forward_plain,
+    )
+
+    rng = np.random.default_rng(18)
+    m, k_in, width = 8 * 2560, 1024, 4096
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        f32 = dtype == torch.float32
+        es = 4 if f32 else 2
+        (w, bb, g, be), (wa, *_) = recipe_encoder_params(
+            torch, rng, dev, input_dim=k_in, hidden=(width, k_in),
+            weight_dtype=dtype)[0]
+        layer = (chain_grad._tma_rows(w, dtype), bb, g, be)
+        a = chain_grad._tma_rows(torch.randn((m, k_in), device=dev), dtype)
+        dza = chain_grad._tma_rows(torch.randn((m, k_in), device=dev) * 0.1,
+                                   dtype)
+        wa = chain_grad._tma_rows(wa, dtype)
+        lib = chain_grad._lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        zdt = torch.float32 if f32 else torch.bfloat16
+        stage_fwd = lambda: chain_grad._stage_forward(  # noqa: E731
+            lib, a, k_in, layer, m, stream, z_dtype=zdt, what="split stage")
+        h, z = stage_fwd()
+        plan = chain_grad.chain_plan(m, 8, (width, k_in), 512, dtype)
+        stage_bwd = lambda: chain_grad._stage_backward(  # noqa: E731
+            lib, dza, wa, k_in, z, layer, m, plan, True, stream,
+            "split stage backward")
+
+        def plain_fwd():
+            zz = _dot(a, w, dtype) + bb
+            return torch.clamp_min(_ln(zz, g, be), 0.0).to(dtype), \
+                zz.to(dtype)
+
+        def plain_bwd():
+            dh = _dot(dza, wa.t(), dtype)
+            return layernorm_relu_backward_plain(z, dh, g, be, dz_dtype=dtype,
+                                                 rebuild_h=True)
+
+        z32 = torch.empty((m, width), device=dev)
+        z32.copy_(_dot(a, w, dtype) + bb)
+        dh32 = _dot(dza, wa.t(), dtype)
+        stash = None if f32 else torch.bfloat16
+        rows_fwd = lambda: layernorm_relu_forward(  # noqa: E731
+            z32, g, be, h_dtype=dtype, stash_dtype=stash)
+        rows_bwd = lambda: layernorm_relu_backward(  # noqa: E731
+            z, dh32, g, be, dz_dtype=dtype, rebuild_h=True)
+        hk, _ = rows_fwd()
+        hp, _ = layernorm_relu_forward_plain(z32, g, be, h_dtype=dtype,
+                                             stash_dtype=stash)
+        fwd_err = _rows_close(torch, f"limits row kernel forward {tag} h",
+                              hk, hp, dtype, False)
+        # dh 0 on the rows that hold a gate within F32_TIE of a tie (the
+        # two sides may open it differently; see F32_GRAD_RTOL).
+        zf = z.float()
+        mu = zf.mean(-1, keepdim=True)
+        xhat = (zf - mu) * torch.rsqrt(((zf - mu) ** 2).mean(
+            -1, keepdim=True) + 1e-6)
+        tied = ((xhat * g + be).abs() <= F32_TIE).any(-1, keepdim=True)
+        dh32 = dh32 * (~tied).float()
+        print(f"limits row kernel backward {tag}: cotangent 0 on "
+              f"{int(tied.sum())} of {m} rows behind a gate within "
+              f"{F32_TIE} of a tie", flush=True)
+        del zf, mu, xhat
+        dzk, hbk, pk = rows_bwd()
+        dzp, hbp, pp = layernorm_relu_backward_plain(
+            z, dh32, g, be, dz_dtype=dtype, rebuild_h=True)
+        bwd_err = max(
+            _rows_close(torch, f"limits row kernel backward {tag} dz", dzk,
+                        dzp, dtype, True),
+            _rows_close(torch, f"limits row kernel backward {tag} h", hbk,
+                        hbp, dtype, False),
+            _rows_close(torch, f"limits row kernel backward {tag} column "
+                        "partials", pk, pp, torch.float32, True))
+        tiles = -(-m // 128)
+        res = {}
+        for key, fn, plain, flops, nbytes in (
+                ("split stage forward", stage_fwd, plain_fwd,
+                 2.0 * m * k_in * width,
+                 es * (m * k_in + k_in * width + 2 * m * width) + 12 * width),
+                ("split stage backward", stage_bwd, plain_bwd,
+                 2.0 * m * k_in * width,
+                 es * (m * k_in + k_in * width + 3 * m * width)
+                 + 8 * width + 4 * tiles * 3 * width),
+                ("row kernel forward", rows_fwd,
+                 lambda: layernorm_relu_forward_plain(
+                     z32, g, be, h_dtype=dtype, stash_dtype=stash),
+                 0.0, (4 + es + (0 if f32 else 2)) * m * width + 8 * width),
+                ("row kernel backward", rows_bwd,
+                 lambda: layernorm_relu_backward_plain(
+                     z, dh32, g, be, dz_dtype=dtype, rebuild_h=True),
+                 0.0, (3 * es + 4) * m * width + 8 * width
+                 + 4 * tiles * 3 * width)):
+            ms = cuda_ms(torch, fn, 10)
+            plain_ms = cuda_ms(torch, plain, 3)
+            bound, by = (_bound(flops, nbytes, f32) if flops
+                         else _rows_bound(nbytes))
+            print(f"limits {key} {tag} ({m} x {k_in} -> {width}): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}), {bound / ms * 100:.1f}% of bound;"
+                  f" library: none [{card}]", flush=True)
+            res[key] = {"shape": f"M={m} K={k_in} W={width}", "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by}
+        res["row kernel forward"]["max_abs_err"] = fwd_err
+        res["row kernel backward"]["max_abs_err"] = bwd_err
+        out[tag] = res
+        del a, dza, z32, dh32, h, z, hk, hp, dzk, dzp, hbk, hbp, pk, pp, tied
+    return out
+
+
+def limits_phase(torch, dev, card, work):
+    """Every shape the JAX kernels take, within LIMITS_BUDGET_S: (a) the
+    recipe at data.max_vertices=256 (K4's (8, 256, 256) with the costs in
+    device memory), served one batch per bucket and trained 5 steps; (b)
+    the recipe with a 4096-wide encoder stage (split: K1 serving, K2 / K3
+    training); (c) the parity model as shipped (f32) with that stage, 3
+    steps through K5 f32 and K4; then K4 at its new shapes and the chain
+    kernels with split stages alone, and the split stages and row kernels
+    timed.  Returns the fields of the kernels line."""
+    t0 = time.perf_counter()
+    paths = _limits_paths(work)
+    steps = LIMITS_STEPS
+    out = {}
+    out["a served"], out["a"] = _limits_recipe(
+        torch, dev, card, work, "(a)", ["data.max_vertices=256"], paths,
+        {"K2": steps, "K3": steps, "K4": steps,
+         "K4 warp, costs in global memory": steps})
+    out["b served"], out["b"] = _limits_recipe(
+        torch, dev, card, work, "(b)", [WIDE_SET], paths,
+        {"K2": steps, "K3": steps, "K4": steps, "LN rows fwd": steps,
+         "LN rows bwd": steps, "K4 warp, costs in shared memory": steps})
+    out["c"] = _limits_parity_f32(torch, dev, card)
+    out["K4"] = limits_k4(torch, dev, card)
+    out["chain"] = limits_chain(torch, dev, card)
+    out["timing"] = limits_timing(torch, dev, card)
+    secs = time.perf_counter() - t0
+    print(f"limits phase: {secs:.1f} s (budget {LIMITS_BUDGET_S:.0f} s) "
+          f"[{card}]", flush=True)
+    if secs > LIMITS_BUDGET_S:
+        raise AssertionError(f"the limits phase took {secs:.1f} s")
     return out
 
 
@@ -4075,7 +4684,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         built = _build.build_all(["fused_encoder", "chain_grad",
-                                  "lockstep_lsa"])
+                                  "lockstep_lsa", "layernorm_rows"])
         print(f"build: {len(built)} libraries in "
               f"{time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
         for name, (path, secs, log) in built.items():
@@ -4113,6 +4722,9 @@ def main() -> int:
 
         phase = "f32"
         f32 = f32_phase(torch, dev, card, work)
+
+        phase = "limits"
+        limits = limits_phase(torch, dev, card, work)
 
         phase = "training"
         train_launches, _ = training_phase(torch, dev, card, work)
@@ -4176,6 +4788,8 @@ def main() -> int:
             "mp_launches_per_rank": [
                 r["K1"] for r in parallel["mp_per_rank"]],
             "bench_launches": bench["K1"],
+            "limits_launches": limits["a served"]["K1"]
+            + limits["b served"]["K1"],
             "max_abs_err": k1_abs,
             "shape": f"B={b} N={n} kv_pool=4", "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
@@ -4196,8 +4810,18 @@ def main() -> int:
                             "parallel_launches": parallel[key],
                             "mp_launches_per_rank": [
                                 r[key] for r in parallel["mp_per_rank"]],
-                            "bench_launches": bench[key], **fields,
-                            "library_ms": None})
+                            "bench_launches": bench[key],
+                            "limits_launches": sum(
+                                limits[p].get(key, 0)
+                                for p in ("a", "b", "c")),
+                            **fields, "library_ms": None})
+        # K4's variants (lockstep_lsa.k4_plan) on the limits paths, and its
+        # new shapes alone.
+        kernels[-1]["limits_variant_launches"] = {
+            k[3:]: sum(limits[p].get(k, 0) for p in ("a", "b", "c"))
+            for k in sorted({k for p in ("a", "b", "c") for k in limits[p]
+                             if k.startswith("K4 ")})}
+        kernels[-1]["limits_shapes"] = limits["K4"]
         for key, count, name, replaces in (
                 ("forward", "K5 fwd", "chain forward, remat (K5)",
                  "wireframe_tpu/ops/pallas_chain_grad.py:159"),
@@ -4242,7 +4866,34 @@ def main() -> int:
                 "launches": launched,
                 "checkpoints_launches": ckpts.get(key, 0),
                 "bench_launches": bench.get(key, 0),
+                "limits_launches": limits["c"].get(key, 0),
                 **fields, "library_ms": None})
+        # The split stages' LayerNorm row kernels: launches on the limits
+        # paths ((b) served and trained in bf16, (c) trained in f32), times
+        # at (8 x 2560, 4096) beside the whole split stage's.
+        timing = limits["timing"]
+        for key, name, part, launched, replaces in (
+                ("LN rows fwd", "LayerNorm rows forward, split stage",
+                 "forward", limits["b served"]["LN rows fwd"]
+                 + limits["b"]["LN rows fwd"], "pallas_chain_grad.py:264"),
+                ("LN rows bwd", "LayerNorm rows backward, split stage",
+                 "backward", limits["b"]["LN rows bwd"],
+                 "pallas_chain_grad.py:400"),
+                ("LN rows fwd f32",
+                 "LayerNorm rows forward, split stage, float32", "forward",
+                 limits["c"]["LN rows fwd f32"], "pallas_chain_grad.py:159"),
+                ("LN rows bwd f32",
+                 "LayerNorm rows backward, split stage, float32", "backward",
+                 limits["c"]["LN rows bwd f32"], "pallas_chain_grad.py:400")):
+            tag = "f32" if key.endswith("f32") else "bf16"
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"{src}layernorm_rows.cu",
+                "replaces": f"wireframe_tpu/ops/{replaces}",
+                "launches": launched,
+                **timing[tag][f"row kernel {part}"],
+                "split_stage": timing[tag][f"split stage {part}"],
+                "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:
         traceback.print_exc()

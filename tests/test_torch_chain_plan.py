@@ -22,6 +22,7 @@ from wireframe_tpu_torch.ops.chain_grad import (
     ln_cluster,
     pad8,
     split_k,
+    stage_mode,
 )
 
 SHAPES = {
@@ -45,8 +46,20 @@ def test_one_cluster_per_stage_within_the_portable_limit(name):
 
 @pytest.mark.parametrize("width", [0, MAX_CLUSTER * BN + 1, 4096])
 def test_a_stage_wider_than_a_cluster_is_refused(width):
+    """No cluster takes a stage of width 0 or wider than 8 x 256 columns.
+    Width 0 is no stage at all; a wider stage runs split instead (the GEMM
+    writes its f32 product, the LayerNorm row kernels normalize it)."""
     with pytest.raises(ValueError, match="cluster"):
         ln_cluster(width)
+    if width == 0:
+        with pytest.raises(ValueError, match="width >= 1"):
+            stage_mode(width)
+        return
+    plan = chain_plan(2 * 64, 8, (512, width), 300)
+    assert stage_mode(width) == "split"
+    assert plan["modes"] == [("cluster", 2), "split"]
+    assert plan["clusters"] == [2, None]
+    assert plan["stage_ld"] == [512, pad8(width)]
 
 
 @pytest.mark.parametrize("name", list(SHAPES))

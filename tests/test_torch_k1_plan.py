@@ -16,6 +16,7 @@ import torch
 
 from wireframe_tpu_torch.models import encoder as encoder_module
 from wireframe_tpu_torch.models.encoder import PointNetEncoder
+from wireframe_tpu_torch.ops.chain_grad import ln_cluster
 from wireframe_tpu_torch.ops.fused_encoder import K1_ROW_TILE, k1_plan
 
 FULL = (512, 1024, 2048, 1024)
@@ -136,8 +137,17 @@ def test_every_routed_kv_pool_is_taken(monkeypatch, tile):
 
 @pytest.mark.parametrize("widths", [(512, 4096), (4096,), (2049, 8)])
 def test_a_stage_wider_than_a_cluster_is_refused(widths):
-    with pytest.raises(ValueError, match="cluster"):
-        k1_plan(3, 2048, 8, widths, 512, 4)
+    """A stage wider than 8 x 256 columns is refused a cluster and runs
+    split (its f32 z in device memory, then the LayerNorm row kernel), so
+    the plan takes it; narrower stages keep their clusters."""
+    plan = k1_plan(3, 2048, 8, widths, 512, 4)
+    for w, mode, ctas in zip(widths, plan["modes"], plan["clusters"]):
+        if w > 2048:
+            assert mode == "split" and ctas is None
+            with pytest.raises(ValueError, match="cluster"):
+                ln_cluster(w)
+        else:
+            assert mode == ("cluster", ctas) == ("cluster", -(-w // 256))
 
 
 def test_strides_and_clusters():

@@ -116,7 +116,9 @@ def test_parity_three_steps_match_make_train_step():
     _three_steps_match(PARITY, PARITY_SMALL)
 
 
-def _three_steps_match(config, overrides):
+def _three_steps_match(config, overrides, steps=STEPS):
+    """`steps` (three) steps of both packages: every step's metrics, then
+    the params, EMA and Adam moments."""
     jcfg = jax_load_config(config, overrides)
     cfg = load_config(config, overrides)
     b, n, d = 2, 64, jcfg.model.input_dim
@@ -162,7 +164,7 @@ def _three_steps_match(config, overrides):
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     jb = {k: jnp.asarray(v) for k, v in jbatch.items()}
     lr_sum = 0.0
-    for i in range(STEPS):
+    for i in range(steps):
         lr_sum += step.optimizer.lr(state.step)
         state, got = step(state, tbatch, torch.Generator().manual_seed(i))
         jstate, want = jstep(jstate, jb, jax.random.PRNGKey(i))
@@ -171,7 +173,7 @@ def _three_steps_match(config, overrides):
         for key, w in want.items():
             np.testing.assert_allclose(float(got[key]), float(w), rtol=rtol,
                                        atol=1e-6, err_msg=f"{key} step {i}")
-    assert state.step == int(jstate.step) == STEPS
+    assert state.step == int(jstate.step) == steps
     assert lr_sum > 0
 
     tol = 2 * lr_sum + 1e-6
@@ -188,7 +190,7 @@ def _three_steps_match(config, overrides):
             np.testing.assert_allclose(got_e[k], want_e[k], rtol=0,
                                        atol=tol, err_msg=k)
     moved = max(np.abs(got_p[k] - flat[k]).max() for k in flat)
-    assert moved > 0.5 * step.optimizer.lr(STEPS - 1)
+    assert moved > 0.5 * step.optimizer.lr(steps - 1)
 
     adam = jstate.opt_state[2]
     for name, mine, theirs, floor in (("mu", state.mu, adam.mu, 1e-7),

@@ -40,6 +40,10 @@
 //     the stash, K3, or the f32 z, K5): f32 dh is never written; dz, the
 //     rebuilt h (K3) and per-row-tile column partials of d gamma, d beta,
 //     d b are;
+//   - a stage wider than a cluster (W > 8 x 256) runs split instead: z
+//     (forward) or dh (backward) goes through k23_gemm's STORE epilogue to
+//     device memory in f32, and layernorm_rows.cu's row kernels do the
+//     LayerNorm, forward or backward, with the same outputs;
 //   - k23_gemm: the plain products: the projection (+ bias), dx = dz W0^T
 //     and dW = h^T dz (split over the rows, per-slice partials);
 //   - k23_prep_x: x in the compute dtype (as x.astype(cdt)) with a padded
@@ -70,7 +74,7 @@ namespace {
 
 constexpr int ROW_THREADS = 256;
 constexpr int ROW_CHUNK = 32;          // rows per k3_seed block
-constexpr int MAX_COLS_PER_THREAD = 8; // widths up to 2048
+constexpr int MAX_COLS_PER_THREAD = 8; // 2048 columns per k3_seed block
 constexpr int POOL_THREADS = 128;
 
 // Masked window pool of the features F (B*N, C) over windows of p
@@ -111,7 +115,7 @@ __global__ void window_pool_kernel(const float* __restrict__ F,
 //           (+ gfeat[n, c] when the flavour returns features)
 // Written in the compute dtype T (row stride ldg) for both GEMMs; block
 // column partials of the f32 sum for d final_b.  One block per ROW_CHUNK
-// rows.
+// rows and ROW_THREADS * MAX_COLS_PER_THREAD columns (blockIdx.y).
 template <typename T>
 __global__ void seed_kernel(const float* __restrict__ dpool,
                             const int* __restrict__ idx,
@@ -122,6 +126,7 @@ __global__ void seed_kernel(const float* __restrict__ dpool,
                             float* __restrict__ part, int M, int C, int p) {
     const int r0 = blockIdx.x * ROW_CHUNK;
     const int r1 = min(M, r0 + ROW_CHUNK);
+    const int cbase = blockIdx.y * ROW_THREADS * MAX_COLS_PER_THREAD;
     float acc[MAX_COLS_PER_THREAD];
 #pragma unroll
     for (int j = 0; j < MAX_COLS_PER_THREAD; ++j) acc[j] = 0.0f;
@@ -136,7 +141,7 @@ __global__ void seed_kernel(const float* __restrict__ dpool,
         }
 #pragma unroll
         for (int j = 0; j < MAX_COLS_PER_THREAD; ++j) {
-            const int c = threadIdx.x + j * ROW_THREADS;
+            const int c = cbase + threadIdx.x + j * ROW_THREADS;
             if (c >= C) break;
             float g = 0.0f;
             if (p > 0) {
@@ -154,7 +159,7 @@ __global__ void seed_kernel(const float* __restrict__ dpool,
     }
 #pragma unroll
     for (int j = 0; j < MAX_COLS_PER_THREAD; ++j) {
-        const int c = threadIdx.x + j * ROW_THREADS;
+        const int c = cbase + threadIdx.x + j * ROW_THREADS;
         if (c < C) part[(size_t)blockIdx.x * C + c] = acc[j];
     }
 }
@@ -175,11 +180,13 @@ template <typename T>
 int seed(const float* dpool, const int* idx, const float* dsums,
          const uint8_t* valid, const float* gfeat, void* g, int ldg,
          float* part, int M, int C, int p, cudaStream_t stream) {
-    if (C > ROW_THREADS * MAX_COLS_PER_THREAD || ldg < C)
-        return (int)cudaErrorInvalidValue;
-    seed_kernel<T><<<(M + ROW_CHUNK - 1) / ROW_CHUNK, ROW_THREADS, 0,
-                     stream>>>(dpool, idx, dsums, valid, gfeat,
-                               static_cast<T*>(g), ldg, part, M, C, p);
+    constexpr int COLS = ROW_THREADS * MAX_COLS_PER_THREAD;
+    if (C < 1 || ldg < C) return (int)cudaErrorInvalidValue;
+    seed_kernel<T><<<dim3((M + ROW_CHUNK - 1) / ROW_CHUNK,
+                          (C + COLS - 1) / COLS),
+                     ROW_THREADS, 0, stream>>>(dpool, idx, dsums, valid,
+                                               gfeat, static_cast<T*>(g),
+                                               ldg, part, M, C, p);
     return (int)cudaGetLastError();
 }
 
@@ -189,8 +196,8 @@ extern "C" {
 
 // The GEMM tile (which: 0 rows, 1 columns, 2 depth) of the bf16 and of
 // the f32 main loop, the shared memory a GEMM launch takes, the widest
-// stage a cluster covers, and the rows per k3_seed block, for the
-// caller's plan.
+// stage a cluster covers (a wider one runs split), and the rows per
+// k3_seed block, for the caller's plan.
 int k23_tile(int which) {
     return which == 0 ? hgemm::BM : (which == 1 ? hgemm::BN : hgemm::BK);
 }
@@ -198,7 +205,7 @@ int k23_tile_f32(int which) {
     return which == 0 ? hgemm::BM : (which == 1 ? hgemm::BN : hgemm::BK_F32);
 }
 int k23_smem_bytes() { return hgemm::SMEM_BYTES; }
-int k23_max_width() { return hgemm::MAX_CLUSTER * hgemm::BN; }
+int k23_max_fused_width() { return hgemm::MAX_CLUSTER * hgemm::BN; }
 int k23_row_chunk() { return ROW_CHUNK; }
 
 // Each function below has an `_f32` twin with the same arguments whose

@@ -32,6 +32,10 @@
 //               2048); f32 z never reaches device memory.  It is K5's
 //               forward stage (the same kernel with a null z), so K1's h
 //               equals K5's bit for bit;
+//   k1_gemm_z   a stage wider than 2048 (split): z = h W + b in f32 to
+//               device memory (the GEMM's STORE epilogue), then
+//               layernorm_rows.cu's forward row kernel writes h; K5's
+//               forward runs the same two kernels on such a stage;
 //   k1_project  the projection with the POOL epilogue: f = acc + b, per
 //               (cloud, 128-row tile) partial pools and the kv windows
 //               straight to kv_features; the (B, N, 512) f32 features
@@ -40,7 +44,8 @@
 //   k1_finalize per cloud, the tiles' partials summed in tile order, and
 //               the kv windows that cross a tile boundary merged from the
 //               tiles' edge partials.
-// Seven launches a call, no float atomics: runs repeat bit for bit.
+// Seven launches a call (one more per split stage), no float atomics:
+// runs repeat bit for bit.
 // Stages run one after another rather than a whole chain per CTA: a
 // 128-row tile of the 2048-wide stage is 512 KB in bf16, more than twice
 // a CTA's 227 KB of shared memory, and each tile would re-read all 10.5 MB
@@ -112,8 +117,8 @@ extern "C" {
 // The GEMM's row tile, for the caller's plan.
 int k1_row_tile() { return hgemm::BM; }
 
-// k1_prep, k1_stage and k1_project each have an `_f32` twin with the
-// same arguments whose operands and h are f32.
+// k1_prep, k1_stage, k1_gemm_z and k1_project each have an `_f32` twin
+// with the same arguments whose operands and h are f32.
 
 // The cloud in the compute dtype and each row's validity; see
 // hgemm::prep_x.
@@ -139,6 +144,21 @@ int k1_stage_f32(const void* A, int lda, const void* W, int ldw,
                  void* H, int ldh, int M, int N, int K, cudaStream_t stream) {
     return hgemm::gemm_ln_fwd(A, lda, W, ldw, bias, gamma, beta, H, ldh,
                               nullptr, 0, 0, M, N, K, true, stream);
+}
+
+// A split stage's product: Z (f32, row stride ldz) = A W + b; see
+// hgemm::gemm_store.
+int k1_gemm_z(const void* A, int lda, const void* W, int ldw,
+              const float* bias, float* Z, int ldz, int M, int N, int K,
+              cudaStream_t stream) {
+    return hgemm::gemm_store(hgemm::FWD, A, lda, W, ldw, bias, Z, ldz, M, N,
+                             K, 1, K, false, stream);
+}
+int k1_gemm_z_f32(const void* A, int lda, const void* W, int ldw,
+                  const float* bias, float* Z, int ldz, int M, int N, int K,
+                  cudaStream_t stream) {
+    return hgemm::gemm_store(hgemm::FWD, A, lda, W, ldw, bias, Z, ldz, M, N,
+                             K, 1, K, true, stream);
 }
 
 // The projection and its pools; see hgemm::gemm_pool.

@@ -45,6 +45,9 @@
 // a cluster of ceil(W / 256) <= 8 CTAs along N (the portable limit); row
 // partial sums go through distributed shared memory and every CTA adds
 // the cluster's partials in rank order, so results repeat bit for bit.
+// A wider stage does not use LN_FWD / LN_BWD: its product goes through
+// STORE to device memory in f32 and layernorm_rows.cu's row kernels
+// normalize it (forward) or take its LayerNorm backward.
 // The LayerNorm epilogues put the accumulator into an f32 tile in the
 // (then free) ring and work on it by rows, so they hold few registers
 // beside it and store 16 contiguous bytes a lane.

@@ -35,9 +35,13 @@ CUDA tensors, each counting its kernel launches: `.launches` in bf16,
 `.launches_f32` in f32.  The kernels compute in the JAX kernels' two
 dtypes (`kernel_dtype`): bf16 operands on the wgmma main loop, or f32
 operands, h, stash and dz on an FFMA main loop in full f32 (`chain_plan`
-says which).  Products of `compute_dtype` operands with f32 accumulation
-are written as f32 products of rounded operands (exact products, f32
-sums), as in `ops.fused_encoder`.
+says which).  A stage of width <= 2048 runs its LayerNorm in its GEMM's
+epilogue across a cluster of ceil(W / 256) CTAs; a wider stage runs
+split (the GEMM writes its f32 product, `ops.layernorm_rows` does the
+LayerNorm), so every width the JAX kernels take runs on the card.
+Products of `compute_dtype` operands with f32 accumulation are written as
+f32 products of rounded operands (exact products, f32 sums), as in
+`ops.fused_encoder`.
 """
 
 from __future__ import annotations
@@ -48,6 +52,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from wireframe_tpu_torch.ops.fused_encoder import _aligned, _dot, _ln
+from wireframe_tpu_torch.ops.layernorm_rows import (
+    layernorm_relu_backward,
+    layernorm_relu_forward,
+)
 
 def _valid_rows(x: torch.Tensor) -> torch.Tensor:
     """(B, N, D) -> (B, N) bool, |sum of the raw row| > 1e-9."""
@@ -256,13 +264,26 @@ def pad8(n: int) -> int:
 
 
 def ln_cluster(width: int) -> int:
-    """CTAs of one fused LayerNorm stage's cluster: ceil(width / BN)."""
+    """CTAs of one fused LayerNorm stage's cluster: ceil(width / BN), for
+    a stage that runs in cluster mode (`stage_mode`)."""
     cs = -(-width // BN)
     if not 1 <= cs <= MAX_CLUSTER:
         raise ValueError(f"a chain stage of width {width} needs {cs} CTAs "
                          f"of {BN} columns; a cluster holds 1 to "
                          f"{MAX_CLUSTER}")
     return cs
+
+
+def stage_mode(width: int):
+    """How a stage of `width` columns runs its LayerNorm on the card:
+    ("cluster", ctas), fused into its GEMM's epilogue across a cluster of
+    ceil(width / 256) CTAs, up to 8 x 256 columns; "split" beyond (the
+    GEMM writes the f32 product and `ops.layernorm_rows` normalizes)."""
+    if width < 1:
+        raise ValueError(f"a chain stage needs a width >= 1, got {width}")
+    if width > MAX_CLUSTER * BN:
+        return "split"
+    return ("cluster", ln_cluster(width))
 
 
 def split_k(rows: int, i: int, h: int, sms: int = _SMS, bk: int = BK
@@ -281,7 +302,8 @@ def chain_plan(m: int, d: int, widths: Sequence[int], out: int,
                compute_dtype=torch.bfloat16) -> Dict:
     """What one chain call launches, from its shapes alone: the row
     tiles, the padded row strides (elements) of x, each stage's buffers
-    and the projection cotangent, each stage's cluster, the K-slices of
+    and the projection cotangent, each stage's mode (`stage_mode`) and
+    cluster (None for a split stage), the K-slices of
     every dW product (x^T dz0, h_k^T dz_k+1, ..., h_last^T g); and for the
     compute dtype the main loop ("wgmma" for bf16, "ffma" for f32), its
     tile (rows, columns, depth of a stage), the bytes of a ring stage and
@@ -293,11 +315,16 @@ def chain_plan(m: int, d: int, widths: Sequence[int], out: int,
     bk = BK_F32 if f32 else BK
     esize = 4 if f32 else 2
     dims = [d, *widths, out]
+    if out < 1:
+        raise ValueError(f"the chain's output width must be >= 1, got {out}")
+    modes = [stage_mode(w) for w in widths]
     return {"row_tiles": -(-m // BM),
             "x_ld": pad8(d),
             "stage_ld": [pad8(w) for w in widths],
             "out_ld": pad8(out),
-            "clusters": [ln_cluster(w) for w in widths],
+            "modes": modes,
+            "clusters": [None if mode == "split" else mode[1]
+                         for mode in modes],
             "dw_slices": [split_k(m, i, o, bk=bk)
                           for i, o in zip(dims[:-1], dims[1:])],
             "main_loop": "ffma" if f32 else "wgmma",
@@ -334,7 +361,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("chain_grad")
     if not getattr(lib, "_k23_typed", False):
         types = {"k23_tile": [_I], "k23_tile_f32": [_I],
-                 "k23_smem_bytes": [], "k23_max_width": [],
+                 "k23_smem_bytes": [], "k23_max_fused_width": [],
                  "k23_row_chunk": [],
                  "k2_window_pool": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
                  "k3_colsum": [_P, _P, _I, ctypes.c_longlong, _P]}
@@ -346,13 +373,15 @@ def _lib() -> ctypes.CDLL:
         tiles = {"bf16": tuple(lib.k23_tile(k) for k in range(3)),
                  "f32": tuple(lib.k23_tile_f32(k) for k in range(3))}
         want = {"bf16": (BM, BN, BK), "f32": (BM, BN, BK_F32)}
-        if (tiles != want or lib.k23_max_width() != MAX_CLUSTER * BN
+        if (tiles != want
+                or lib.k23_max_fused_width() != MAX_CLUSTER * BN
                 or lib.k23_smem_bytes() != smem_bytes()):
             raise RuntimeError(
-                f"csrc/hopper_gemm.cuh's tiles {tiles}, widest stage "
-                f"{lib.k23_max_width()} and {lib.k23_smem_bytes()} bytes of "
-                f"shared memory do not match the plan's {want}, "
-                f"{MAX_CLUSTER * BN} and {smem_bytes()}")
+                f"csrc/hopper_gemm.cuh's tiles {tiles}, widest fused stage "
+                f"{lib.k23_max_fused_width()} and {lib.k23_smem_bytes()} "
+                f"bytes of shared memory do not match the plan's {want}, "
+                f"{MAX_CLUSTER * BN} (wider stages run split) and "
+                f"{smem_bytes()}")
         lib._k23_typed = True
     return lib
 
@@ -404,13 +433,25 @@ def _prep_x(lib, x, plan, need_valid, stream, what):
 
 
 def _stage_forward(lib, a, k_in, layer, m, stream, *, z_dtype, what):
-    """One stage's fused GEMM + LayerNorm: (h, z) with h in the operand
-    dtype of a, and z the stash (bf16, or f32 in f32), the f32 z or None
-    (z_dtype None).  K2, K5's forward and K5's recompute all come through
-    here, so their h and z agree bit for bit."""
+    """One stage's GEMM + LayerNorm: (h, z) with h in the operand dtype of
+    a, and z the stash (bf16, or f32 in f32), the f32 z or None (z_dtype
+    None).  K2, K5's forward and K5's recompute all come through here, so
+    their h and z agree bit for bit.  A stage in cluster mode is one fused
+    launch; a split stage's GEMM writes the f32 z (which is the z itself
+    when z_dtype is f32) and `layernorm_relu_forward` does the rest."""
     w, bb, g, be = layer
     width = w.shape[1]
     dev = a.device
+    if stage_mode(width) == "split":
+        z32 = _rows(m, width, torch.float32, dev)
+        _check(_fn(lib, "k23_gemm", a.dtype)(
+            _FWD, _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb),
+            _ptr(z32), z32.stride(0), m, width, k_in, 1, k_in, stream),
+            what + " (split: GEMM)")
+        stash = z_dtype if z_dtype not in (None, torch.float32) else None
+        h, z = layernorm_relu_forward(z32, g, be, h_dtype=a.dtype,
+                                      stash_dtype=stash)
+        return h, z32 if z_dtype == torch.float32 else z
     h = _rows(m, width, a.dtype, dev)
     z = None if z_dtype is None else _rows(m, width, z_dtype, dev)
     _check(_fn(lib, "k2_gemm_ln", a.dtype)(
@@ -419,6 +460,39 @@ def _stage_forward(lib, a, k_in, layer, m, stream, *, z_dtype, what):
         0 if z is None else z.stride(0), int(z_dtype == torch.float32), m,
         width, k_in, stream), what)
     return h, z
+
+
+def _stage_backward(lib, dz_above, w_above, above_w, z, layer, m, plan,
+                    rebuild_h, stream, what):
+    """One stage's backward from the cotangent of the product above it
+    (dh = dz_above W_above^T) and the stage's z: (dz, the rebuilt h or
+    None, per-row-tile column partials of d gamma | d beta | d b).  In
+    cluster mode dh stays in the fused epilogue's registers; a split
+    stage's GEMM writes the f32 dh and `layernorm_relu_backward` does the
+    rest."""
+    _w, _bb, gm, be = layer
+    width = _w.shape[1]
+    dev = dz_above.device
+    cdt = plan["dtypes"]["dz"]
+    if stage_mode(width) == "split":
+        dh = _rows(m, width, torch.float32, dev)
+        _check(_fn(lib, "k23_gemm", cdt)(
+            _DH, _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
+            w_above.stride(0), None, _ptr(dh), dh.stride(0), m, width,
+            above_w, 1, above_w, stream), what + " (split: dh GEMM)")
+        return layernorm_relu_backward(z, dh, gm, be, dz_dtype=cdt,
+                                       rebuild_h=rebuild_h)
+    dz = _rows(m, width, cdt, dev)
+    hout = _rows(m, width, plan["dtypes"]["h"], dev) if rebuild_h else None
+    part = torch.empty((plan["row_tiles"], 3 * width), dtype=torch.float32,
+                       device=dev)
+    _check(_fn(lib, "k3_gemm_ln_bwd", cdt)(
+        _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
+        w_above.stride(0), _ptr(z), z.stride(0),
+        int(z.dtype == torch.float32), _ptr(gm), _ptr(be), _ptr(dz),
+        dz.stride(0), _ptr(hout), 0 if hout is None else hout.stride(0),
+        _ptr(part), m, width, above_w, stream), what)
+    return dz, hout, part
 
 
 def _gemm_tn(lib, a, b, slices, rows, i, h, stream, what) -> torch.Tensor:
@@ -528,10 +602,8 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     widths = [w.shape[1] for w, *_ in layers]
     remat = zs is None
     kern = "K5" if remat else "K3"
-    lib = _lib()
-    if max(widths + [c]) > lib.k23_max_width():
-        raise ValueError(f"{kern} takes widths up to {lib.k23_max_width()}")
     plan = chain_plan(m, d, widths, c, cdt)
+    lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if not remat:
         for z, width in zip(zs, widths):
@@ -594,23 +666,12 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     dz_above, w_above, above_w = gbf, fw, c
     dx = None
     for k in reversed(range(n_stages)):
-        w, _bb, gm, be = layers[k]
         width = widths[k]
-        # dh = dz_above W_above^T stays in registers: the epilogue turns
-        # it into this stage's dz (and, for K3, its rebuilt h).
-        dz = _rows(m, width, plan["dtypes"]["dz"], dev)
-        hout = None if remat else _rows(m, width, plan["dtypes"]["h"], dev)
-        part = torch.empty((plan["row_tiles"], 3 * width),
-                           dtype=torch.float32, device=dev)
-        _check(_fn(lib, "k3_gemm_ln_bwd", cdt)(
-            _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
-            w_above.stride(0), _ptr(zs[k]), zs[k].stride(0),
-            int(zs[k].dtype == torch.float32), _ptr(gm), _ptr(be), _ptr(dz),
-            dz.stride(0), _ptr(hout), 0 if hout is None else hout.stride(0),
-            _ptr(part), m, width, above_w, stream),
-            f"{kern} dh GEMM + stage backward")
+        dz, hout, part = _stage_backward(
+            lib, dz_above, w_above, above_w, zs[k], layers[k], m, plan,
+            not remat, stream, f"{kern} dh GEMM + stage backward")
         sums = torch.empty(3 * width, dtype=torch.float32, device=dev)
-        _check(lib.k3_colsum(_ptr(part), _ptr(sums), plan["row_tiles"],
+        _check(lib.k3_colsum(_ptr(part), _ptr(sums), part.shape[0],
                              3 * width, stream),
                f"{kern} LayerNorm / bias gradients")
         dgamma, dbeta, db = sums[:width], sums[width:2 * width], \
@@ -627,7 +688,7 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
         else:
             dstages[k + 1] = (dw_above, *dstages[k + 1][1:])
         dstages[k] = (None, db, dgamma, dbeta)
-        dz_above, w_above, above_w = dz, w, width
+        dz_above, w_above, above_w = dz, layers[k][0], width
     if need_dx:
         dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
         _check(_fn(lib, "k23_gemm", cdt)(

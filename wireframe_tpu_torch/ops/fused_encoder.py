@@ -144,16 +144,19 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
     a later tile.  "merges" lists, as the finalize kernel walks them, every
     window that crosses a tile boundary with the (tile, slot) partials it
     takes the max of; "edges" says whether the edge slots exist at all.
-    Row strides are padded for TMA and each stage's LayerNorm cluster
-    (<= 8 CTAs, so a stage wider than 2048 raises).  For the compute
-    dtype: the main loop, tile, stage and shared-memory bytes and buffer
-    dtypes, as `chain_plan` gives them, and "peak_bytes", the device
-    memory one call allocates at its fullest: two consecutive activations
-    (the input and stage 0's h first, then each stage's h beside the
-    next's) or the last h with the projection's outputs (kv tokens,
-    partials, edge slots, pools), whichever is more, beside the rows'
-    validity."""
-    from wireframe_tpu_torch.ops.chain_grad import chain_plan, ln_cluster, pad8
+    Row strides are padded for TMA.  Each stage's "modes" entry says how
+    it runs its LayerNorm (`chain_grad.stage_mode`): ("cluster", ctas) in
+    its GEMM's epilogue across a cluster of ceil(W / 256) <= 8 CTAs, or
+    "split" for a stage wider than 2048 (its f32 z in device memory, then
+    the LayerNorm row kernel); "clusters" the CTAs (None when split).  For
+    the compute dtype: the main loop, tile, stage and shared-memory bytes
+    and buffer dtypes, as `chain_plan` gives them, and "peak_bytes", the
+    device memory one call allocates at its fullest: two consecutive
+    activations (the input and stage 0's h first, then each stage's h
+    beside the next's; a split stage's f32 z beside both) or the last h
+    with the projection's outputs (kv tokens, partials, edge slots, pools),
+    whichever is more, beside the rows' validity."""
+    from wireframe_tpu_torch.ops.chain_grad import chain_plan, pad8
 
     bm = K1_ROW_TILE
     tiles = -(-n // bm)
@@ -180,9 +183,11 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
     cplan = chain_plan(b * n, d, widths, out, compute_dtype)
     esize = 4 if cplan["dtypes"]["h"] == torch.float32 else 2
     acts = [b * n * pad8(w) * esize for w in (d, *widths)]
+    split_z = [b * n * pad8(w) * 4 if mode == "split" else 0
+               for w, mode in zip(widths, cplan["modes"])]
     outs = 4 * (b * (n // p) * out if p else 0) + 4 * b * tiles * 5 * out \
         + (4 * b * tiles * 2 * out if merges else 0) + 4 * b * 4 * out
-    peak = b * n + max([x + y for x, y in zip(acts, acts[1:])]
+    peak = b * n + max([x + y + z for x, y, z in zip(acts, acts[1:], split_z)]
                        + [acts[-1] + outs])
     return {"tiles_per_cloud": tiles,
             "row_tiles": b * tiles,
@@ -193,7 +198,8 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
             "edges": bool(merges),
             "x_ld": pad8(d),
             "stage_ld": [pad8(w) for w in widths],
-            "clusters": [ln_cluster(w) for w in widths],
+            "modes": cplan["modes"],
+            "clusters": cplan["clusters"],
             **{k: cplan[k] for k in ("main_loop", "tile", "stage_bytes",
                                      "smem_bytes", "dtypes")},
             "peak_bytes": peak}
@@ -212,10 +218,11 @@ def _lib() -> ctypes.CDLL:
         types = {"k1_row_tile": [],
                  "k1_prep": [p, i, p, i, p, i, p],
                  "k1_stage": [p, i, p, i, p, p, p, p, i, i, i, i, p],
+                 "k1_gemm_z": [p, i, p, i, p, p, i, i, i, i, p],
                  "k1_project": [p, i, p, i, p, p, p, i, p, p, p, i, i, i,
                                 i, i, p],
                  "k1_finalize": [p, p, p, p, i, i, i, i, p]}
-        for name in ("k1_prep", "k1_stage", "k1_project"):
+        for name in ("k1_prep", "k1_stage", "k1_gemm_z", "k1_project"):
             types[name + "_f32"] = types[name]
         for name, args in types.items():
             fn = getattr(lib, name)
@@ -250,6 +257,7 @@ def _launch(x, stage_params, final_w, final_b, *, tile,
         _tma_rows,
         kernel_dtype,
     )
+    from wireframe_tpu_torch.ops.layernorm_rows import layernorm_relu_forward
 
     cdt = kernel_dtype(compute_dtype)
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
@@ -287,15 +295,25 @@ def _launch(x, stage_params, final_w, final_b, *, tile,
     _check(_fn(lib, "k1_prep", cdt)(_ptr(x), d, _ptr(a), plan["x_ld"],
                                     _ptr(valid), m, stream), "input prep")
     k_in = d
-    for w, bb, g, be in layers:
-        # Each stage's h is the only activation in device memory; the one
-        # before it is freed as soon as this launch is queued.
+    for (w, bb, g, be), mode in zip(layers, plan["modes"]):
+        # Each stage's h is the only activation in device memory (with a
+        # split stage's f32 z while it runs); the one before it is freed as
+        # soon as this stage's launches are queued.
         width = w.shape[1]
-        h = _rows(m, width, cdt, dev)
-        _check(_fn(lib, "k1_stage", cdt)(
-            _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb), _ptr(g),
-            _ptr(be), _ptr(h), h.stride(0), m, width, k_in, stream),
-            "stage GEMM + LayerNorm")
+        if mode == "split":
+            z = _rows(m, width, torch.float32, dev)
+            _check(_fn(lib, "k1_gemm_z", cdt)(
+                _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb),
+                _ptr(z), z.stride(0), m, width, k_in, stream),
+                "stage GEMM (split)")
+            h, _ = layernorm_relu_forward(z, g, be, h_dtype=cdt)
+            del z
+        else:
+            h = _rows(m, width, cdt, dev)
+            _check(_fn(lib, "k1_stage", cdt)(
+                _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb),
+                _ptr(g), _ptr(be), _ptr(h), h.stride(0), m, width, k_in,
+                stream), "stage GEMM + LayerNorm")
         a, k_in = h, width
     p = kv_pool
     feats = (torch.empty((b, n, c), dtype=torch.float32, device=dev)

@@ -3,8 +3,11 @@
 Port of `wireframe_tpu/ops/pallas_lsa.py`.  The wireframe loss solves one
 assignment of real targets to prediction slots per sample per train step;
 on the card the whole batch is one launch of the hand-written CUDA kernel
-(`csrc/lockstep_lsa.cu`, one warp per sample, up to 128 columns held in
-its registers), so the train step needs no host round trip.
+(`csrc/lockstep_lsa.cu`), so the train step needs no host round trip.  It
+takes every (B, R, C) with R <= C, as the JAX kernel does: `k4_plan`
+names the variant a shape runs (one warp per sample with the columns in
+registers up to C = 512, a block of warps beyond) and where its costs and
+state live.
 
 - `solve_lsa_rows_lockstep_plain`: a line-for-line PyTorch copy of the
   JAX body `_lockstep_solve`: the batch advances in lockstep under masks
@@ -12,7 +15,8 @@ its registers), so the train step needs no host round trip.
   path and the kernel's oracle on the card.
 - `solve_lsa_rows`: the wrapper.  CPU tensors take the plain version;
   CUDA tensors launch the kernel (or it raises).  `solve_lsa_rows.launches`
-  counts kernel launches.
+  counts kernel launches, `.variant_launches` the same per
+  `k4_plan(...)["name"]`.
 
 Ties resolve as in the JAX code: in the Dijkstra scan the lowest-index
 UNASSIGNED column at the exact frontier minimum wins, otherwise the
@@ -23,7 +27,7 @@ lowest index.  Costs must be finite and non-negative, with R <= C and
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -157,23 +161,99 @@ def solve_lsa_rows_lockstep_plain(cost: torch.Tensor,
                            num_rows.to(torch.int32).reshape(-1, 1))
 
 
+# ---------------------------------------------------------------------------
+# The launch plan (pure: shapes in, variant out; csrc/lockstep_lsa.cu's
+# plan_for computes the same and the library is checked against it)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448      # shared memory one H100 block can use
+WARP_MAX_COLS = 32 * 16  # the warp variant's widest row: 16 columns a lane
+BLOCK_COLS_PER_WARP = 256
+BLOCK_MAX_WARPS = 32
+BLOCK_FIXED = 2 * BLOCK_MAX_WARPS * 8 + BLOCK_MAX_WARPS * 4
+
+
+def k4_plan(r: int, c: int) -> Dict:
+    """What K4 launches for an (R, C) problem, from the shape alone.
+
+    "variant": "warp" (one warp per sample, lane l owning columns l + 32 k
+    for k < "cols_per_thread" in registers) up to C = 512, else "block"
+    (min(32, ceil(C / 256)) warps per sample, thread t owning columns
+    t + "threads" k); "costs": "shared" while the (R, C) costs fit in
+    shared memory beside the block's other arrays, else "global" (each
+    scan step reads its cost row from device memory); "state": where the
+    column and row state live ("registers" for the warp variant; "shared"
+    or, past ~12,000 columns, "global": a per-sample scratch area of
+    "scratch_bytes"); "smem_bytes": the launch's dynamic shared memory;
+    "name": the variant's key in `solve_lsa_rows.variant_launches`."""
+    if not 0 <= r <= c:
+        raise ValueError(f"K4 needs 0 <= rows <= cols; got ({r}, {c})")
+    if c <= WARP_MAX_COLS:
+        cpl = next(k for k in (2, 4, 8, 16) if c <= 32 * k)
+        arrays = c * 4 * 3 + r * 4 * 2
+        shared = r * c * 4 + arrays <= SMEM_LIMIT
+        plan = {"variant": "warp", "threads": 32, "cols_per_thread": cpl,
+                "costs": "shared" if shared else "global",
+                "state": "registers",
+                "smem_bytes": r * c * 4 + arrays if shared else arrays,
+                "scratch_bytes": 0}
+    else:
+        warps = min(BLOCK_MAX_WARPS, -(-c // BLOCK_COLS_PER_WARP))
+        threads = 32 * warps
+        state = -(-(c * 17) // 16) * 16 + r * 12
+        state_shared = BLOCK_FIXED + state <= SMEM_LIMIT
+        costs_shared = state_shared and (
+            BLOCK_FIXED + state + r * c * 4 <= SMEM_LIMIT)
+        plan = {"variant": "block", "threads": threads,
+                "cols_per_thread": -(-c // threads),
+                "costs": "shared" if costs_shared else "global",
+                "state": "shared" if state_shared else "global",
+                "smem_bytes": BLOCK_FIXED + (state if state_shared else 0)
+                + (r * c * 4 if costs_shared else 0),
+                "scratch_bytes": 0 if state_shared else state}
+    plan["name"] = (f"{plan['variant']}, costs in {plan['costs']} memory"
+                    + ("" if plan["variant"] == "warp"
+                       else f", state in {plan['state']} memory"))
+    return plan
+
+
+# Shapes at which the library's plan is held to k4_plan when it loads:
+# each variant, cost and state placement, and their edges.
+_PROBES = ((40, 40), (40, 64), (40, 128), (0, 129), (256, 256), (300, 512),
+           (238, 238), (239, 239), (64, 513), (64, 1024), (8, 2048),
+           (1000, 1000), (16, 13000), (32, 16384))
+_FIELDS = ("variant", "threads", "cols_per_thread", "costs", "state",
+           "smem_bytes", "scratch_bytes")
+
+
+def _c_plan(lib, r, c) -> Dict:
+    raw = [lib.k4_plan(r, c, k) for k in range(len(_FIELDS))]
+    block = raw[0] == 1
+    return {"variant": "block" if block else "warp", "threads": raw[1],
+            "cols_per_thread": raw[2],
+            "costs": "shared" if raw[3] else "global",
+            "state": ("shared" if raw[4] else "global") if block
+            else "registers", "smem_bytes": raw[5], "scratch_bytes": raw[6]}
+
+
 def _lib() -> ctypes.CDLL:
     from wireframe_tpu_torch.ops import _build
 
     lib = _build.load("lockstep_lsa")
     if not getattr(lib, "_k4_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.k4_lsa.argtypes = [p, p, p, p, i, i, i, p]
+        lib.k4_lsa.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.k4_lsa.restype = ctypes.c_int
-        lib.k4_smem_bytes.argtypes = [i, i]
-        lib.k4_smem_bytes.restype = ctypes.c_size_t
-        lib.k4_max_cols.argtypes = []
-        lib.k4_max_cols.restype = ctypes.c_int
+        lib.k4_plan.argtypes = [i, i, i]
+        lib.k4_plan.restype = ctypes.c_longlong
+        for r, c in _PROBES:
+            want = {k: k4_plan(r, c)[k] for k in _FIELDS}
+            if _c_plan(lib, r, c) != want:
+                raise RuntimeError(
+                    f"csrc/lockstep_lsa.cu plans ({r}, {c}) as "
+                    f"{_c_plan(lib, r, c)}; k4_plan says {want}")
         lib._k4_typed = True
     return lib
-
-
-_MAX_SMEM = 227 * 1024   # shared memory one H100 block can use
 
 
 def _launch(cost, num_rows, steps_out):
@@ -182,13 +262,8 @@ def _launch(cost, num_rows, steps_out):
     if num_rows.device != dev:
         raise ValueError("num_rows must lie on the cost's device")
     b, r, c = cost.shape
+    plan = k4_plan(r, c)
     lib = _lib()
-    if c > lib.k4_max_cols():
-        raise ValueError(f"K4 keeps a warp's columns in registers, up to "
-                         f"{lib.k4_max_cols()}; got C={c}")
-    if lib.k4_smem_bytes(r, c) > _MAX_SMEM:
-        raise ValueError(f"K4 keeps a ({r}, {c}) problem in shared memory; "
-                         f"it needs {lib.k4_smem_bytes(r, c)} bytes")
     cost = cost.float().contiguous()
     nr = num_rows.to(torch.int32).contiguous()
     out = torch.empty((b, r), dtype=torch.int32, device=dev)
@@ -196,13 +271,18 @@ def _launch(cost, num_rows, steps_out):
                                   != torch.int32 or steps_out.device != dev):
         raise ValueError("steps_out must be a (B,) int32 tensor on the "
                          "cost's device")
+    scratch = (torch.empty(b * plan["scratch_bytes"], dtype=torch.uint8,
+                           device=dev) if plan["scratch_bytes"] else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.k4_lsa(cost.data_ptr(), nr.data_ptr(), out.data_ptr(),
                      steps_out.data_ptr() if steps_out is not None else None,
+                     None if scratch is None else scratch.data_ptr(),
                      b, r, c, stream)
     if err:
         raise RuntimeError(f"K4 launch failed: cudaError_t {err}")
     solve_lsa_rows.launches += 1
+    solve_lsa_rows.variant_launches[plan["name"]] = \
+        solve_lsa_rows.variant_launches.get(plan["name"], 0) + 1
     return out
 
 
@@ -220,3 +300,4 @@ def solve_lsa_rows(cost: torch.Tensor, num_rows: torch.Tensor,
 
 
 solve_lsa_rows.launches = 0
+solve_lsa_rows.variant_launches = {}

@@ -47,7 +47,7 @@ from wireframe_tpu_torch.config import RECIPE_YAML
 from wireframe_tpu_torch.utils.profiling import staged_clouds
 
 REPO = Path(__file__).resolve().parents[2]
-LIBRARIES = ("fused_encoder", "chain_grad", "lockstep_lsa")
+LIBRARIES = ("fused_encoder", "chain_grad", "lockstep_lsa", "layernorm_rows")
 
 
 def _timed(fn):
