@@ -54,8 +54,12 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 2560), (3, 16384), (128, 2560) and ragged shapes, K2 / K3
                 f32 at (8, 2560), K5 f32 at (3, 2560) and (128, 2560) and
                 ragged shapes in each flavour, against the plain f32
-                versions (TF32 off), K1 array_equal to K5's forward, two
-                launches array_equal, times, bounds and K1's peak memory;
+                versions (TF32 off), every f32 plan on the 3xTF32 loop,
+                K1 array_equal to K5's forward, two launches array_equal,
+                at every shape the time, % of the 3xTF32 bound and largest
+                error beside the FFMA loop's, K1's peak memory, and per
+                chain shape the widest stage's bare product, the STORE
+                GEMM beside torch.matmul in f32;
   9. limits   — every shape the JAX kernels take, within 60 s: (a) the
                 recipe at data.max_vertices=256 (K4 on (8, 256, 256), its
                 costs in device memory) served one batch per bucket and
@@ -820,7 +824,7 @@ def chain_bound_ms(b, n, d, hidden, out, kv_pool, backward, f32=False):
     m = b * n
     esize = 4 if f32 else 2
     stash = esize * m * sum(hidden)
-    kv = 3 * 4 * m // kv_pool * out
+    kv = 3 * 4 * m // kv_pool * out if kv_pool else 0
     weights = esize * macs + 4 * (3 * sum(hidden) + out)
     if backward:
         flops = 4.0 * m * macs
@@ -1877,9 +1881,11 @@ def profile_train_step(torch, step, state, batch, gen, card, kernels,
 # ---------------------------------------------------------------------------
 
 # The f32 kernels against their plain f32 versions (TF32 off, so the plain
-# products run in full f32).  Both compute
-# in f32 with f32 sums and differ only in summation order (~1e-6 relative
-# over a 2048-term sum):
+# products run in full f32).  The kernels multiply in 3xTF32 (each
+# product f32-exact but lo(A) lo(B), ~2^-22) and the tensor cores round
+# each partial sum toward zero, ~1.5e-5 relative over a 2048-term sum
+# (the main loop moves its sums into f32 every 2048 terms); the plain
+# versions sum in f32 (~1e-6):
 # - every forward output: rtol 1e-4, atol 1e-4; the window argmax equal
 #   wherever a window's top two values differ by more than the atol;
 # - every gradient: rtol 1e-3 elementwise and atol 2e-4 of the tensor's
@@ -1931,6 +1937,110 @@ F32_K1_SHAPES = (
     (128, 2560, FULL, 512, 4, 512), (2, 200, (40, 72), 36, 4, 200),
     (2, 200, (40, 72), 36, 0, 200), (2, 200, (40, 72), 36, 5, 200),
     (2, 328, (600, 1100), 300, 41, 328))
+
+
+# The largest |kernel - plain| of each f32 kernel at each shape of
+# F32_CHAIN_SHAPES and F32_K1_SHAPES as the FFMA main loop (full f32 fmaf,
+# the loop the 3xTF32 one replaced) read it on an NVIDIA H100 80GB HBM3 at
+# 700 W, running this script's f32_chain and f32_k1 from the commit
+# before the replacement: forward outputs and stash (K2, K5 forward, K1)
+# or every gradient (K3, K5 backward).  The inputs are seeded, so the
+# figures repeat run to run.  Printed beside the 3xTF32 loop's figure.
+FFMA_MAX_ABS = {
+    "K2 recipe": 5.96e-06,
+    "K5 forward recipe": 5.96e-06,
+    "K3 recipe": 0.00177,
+    "K5 backward recipe": 0.00177,
+    "K2 parity features": 3.338e-06,
+    "K5 forward parity features": 3.338e-06,
+    "K3 parity features": 0.0001259,
+    "K5 backward parity features": 0.0001259,
+    "K2 bench parity features": 4.053e-06,
+    "K5 forward bench parity features": 4.053e-06,
+    "K5 backward bench parity features": 0.005081,
+    "K2 ragged kv": 1.192e-06,
+    "K5 forward ragged kv": 1.192e-06,
+    "K3 ragged kv": 1.526e-05,
+    "K5 backward ragged kv": 1.526e-05,
+    "K2 ragged features": 7.153e-07,
+    "K5 forward ragged features": 7.153e-07,
+    "K3 ragged features": 1.24e-05,
+    "K5 backward ragged features": 1.24e-05,
+    "K2 ragged slim": 1.431e-06,
+    "K5 forward ragged slim": 1.431e-06,
+    "K3 ragged slim": 5.722e-06,
+    "K5 backward ragged slim": 5.722e-06,
+    "K2 ragged cluster": 4.053e-06,
+    "K5 forward ragged cluster": 4.053e-06,
+    "K3 ragged cluster": 9.155e-05,
+    "K5 backward ragged cluster": 9.155e-05,
+    "K1 B=3 N=2560 kv_pool 4": 3.338e-06,
+    "K1 B=3 N=16384 kv_pool 4": 5.722e-06,
+    "K1 B=128 N=2560 kv_pool 4": 4.292e-06,
+    "K1 B=2 N=200 kv_pool 4": 9.537e-07,
+    "K1 B=2 N=200 kv_pool 0": 1.431e-06,
+    "K1 B=2 N=200 kv_pool 5": 1.907e-06,
+    "K1 B=2 N=328 kv_pool 41": 3.457e-06,
+}
+
+
+def ffma_figure(key):
+    v = FFMA_MAX_ABS.get(key)
+    return "not measured" if v is None else f"{v:.3e}"
+
+
+def f32_yardstick(torch, dev, card, name, m, hidden):
+    """The widest stage's bare product (m, K) x (K, W) at an f32 chain
+    shape: the kernels' STORE GEMM in f32 (3xTF32) beside torch.matmul in
+    f32 with TF32 off (the yardstick; the port never calls it), both held
+    to the float64 product."""
+    from wireframe_tpu_torch.ops import chain_grad as cg
+
+    k = max(range(len(hidden)), key=lambda i: hidden[i])
+    kk, w_out = (8, *hidden)[k], hidden[k]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    h = cg._rows(m, kk, torch.float32, dev).normal_(generator=gen)
+    w = cg._rows(kk, w_out, torch.float32, dev).normal_(generator=gen)
+    c = torch.empty(m, w_out, device=dev)
+    lib = cg._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def gemm():
+        err = lib.k23_gemm_f32(0, h.data_ptr(), h.stride(0), w.data_ptr(),
+                               w.stride(0), None, c.data_ptr(), w_out, m,
+                               w_out, kk, 1, kk, stream)
+        if err:
+            raise RuntimeError(f"f32 STORE GEMM: cudaError_t {err}")
+        return c
+
+    exact = h.double() @ w.double()
+    scale = exact.abs().max().item()
+    rel = {"3xTF32 GEMM": gemm(), "torch.matmul f32": torch.matmul(h, w)}
+    rel = {k: (v.double() - exact).abs().max().item() / scale
+           for k, v in rel.items()}
+    del exact
+    ms = cuda_ms(torch, gemm, 10)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(h, w), 10)
+    flops = 2.0 * m * kk * w_out
+    bound = flops / H100_3XTF32_FLOPS * 1e3
+    print(f"f32 yardstick {name}: the widest stage's product M={m} K={kk} "
+          f"N={w_out}: 3xTF32 STORE GEMM {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms * 100:.1f}% of the "
+          f"3xTF32 bound), torch.matmul f32, TF32 off {lib_ms:.4f} ms "
+          f"({flops / lib_ms / 1e9:.1f} TFLOP/s); largest error against "
+          f"float64 / its largest magnitude: {rel['3xTF32 GEMM']:.2e} and "
+          f"{rel['torch.matmul f32']:.2e} [{card}]", flush=True)
+    if not rel["3xTF32 GEMM"] <= F32_FWD_RTOL:
+        raise AssertionError(f"f32 yardstick {name}: the GEMM is off by "
+                             f"{rel['3xTF32 GEMM']:.2e}")
+    del h, w, c
+
+
+def f32_plan_is_3xtf32(label, plan):
+    if plan["main_loop"] != "3xtf32" or plan["split"] is None:
+        raise AssertionError(f"{label}: the f32 plan runs "
+                             f"{plan['main_loop']}, not the 3xTF32 loop")
 
 
 def f32_params(torch, rng, dev, hidden, out):
@@ -2024,12 +2134,15 @@ def f32_k1(torch, dev, card):
     from wireframe_tpu_torch.ops.fused_encoder import (
         fused_point_encoder,
         fused_point_encoder_plain,
+        k1_plan,
     )
 
     rng = np.random.default_rng(12)
     f32 = torch.float32
     timing, max_abs = {}, 0.0
     for b, n, hidden, out, p, tile in F32_K1_SHAPES:
+        f32_plan_is_3xtf32(f"K1 f32 B={b} N={n}",
+                           k1_plan(b, n, 8, hidden, out, p, f32))
         stages, fw, fb = f32_params(torch, rng, dev, hidden, out)
         x = torch.tensor(padded_clouds(rng, b, n), device=dev)
         kw = dict(tile=tile, compute_dtype=f32, kv_pool=p)
@@ -2038,8 +2151,9 @@ def f32_k1(torch, dev, card):
                                   return_point_features=feats, **kw)
         want = fused_point_encoder_plain(x, stages, fw, fb,
                                          return_point_features=feats, **kw)
-        max_abs = max(max_abs, f32_forward_close(
-            f"K1 f32 B={b} N={n} kv_pool {p}", got, want, list(want)))
+        err = f32_forward_close(f"K1 f32 B={b} N={n} kv_pool {p}", got,
+                                want, list(want))
+        max_abs = max(max_abs, err)
         del want
         if b > 1:
             for key in ("masked_mean", "masked_max") + (
@@ -2064,8 +2178,6 @@ def f32_k1(torch, dev, card):
                 raise AssertionError(f"K1 f32 B={b} N={n}: {same}")
             del k5, again
         del got
-        if b * n < 3 * 2560:
-            continue
         call = lambda: fused_point_encoder(x, stages, fw, fb, **kw)  # noqa
         if (b, n) == (3, 16384):
             torch.cuda.synchronize()
@@ -2087,14 +2199,17 @@ def f32_k1(torch, dev, card):
         bound, bound_by = k1_bound_ms(b, n, 8, hidden, out, p, f32=True)
         simt = 2.0 * b * n * sum(i * o for i, o in zip(
             (8, *hidden), (*hidden, out))) / H100_F32_FLOPS * 1e3
-        timing[(b, n)] = {"shape": f"B={b} N={n} kv_pool={p}", "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bound,
-                          "bound_by": bound_by}
-        print(f"K1 f32 time B={b} N={n}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}, "
+        if b * n >= 3 * 2560:
+            timing[(b, n)] = {"shape": f"B={b} N={n} kv_pool={p}",
+                              "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound, "bound_by": bound_by}
+        key = f"K1 B={b} N={n} kv_pool {p}"
+        print(f"K1 f32 time B={b} N={n} kv_pool {p}: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}, "
               f"3xTF32), {bound / ms * 100:.1f}% of bound; FP32 SIMT "
-              f"ceiling {simt:.3f} ms ({simt / ms * 100:.1f}%) [{card}]",
-              flush=True)
+              f"ceiling {simt:.3f} ms ({simt / ms * 100:.1f}%); largest "
+              f"|kernel - plain| {err:.3e} (FFMA main loop: "
+              f"{ffma_figure(key)}) [{card}]", flush=True)
         del x
     return timing, max_abs
 
@@ -2111,6 +2226,7 @@ def f32_chain(torch, dev, card):
         chain_backward_plain,
         chain_forward,
         chain_forward_plain,
+        chain_plan,
         remat_chain_backward,
         remat_chain_forward,
     )
@@ -2121,6 +2237,8 @@ def f32_chain(torch, dev, card):
     f32 = torch.float32
     result = {}
     for name, b, n, hidden, out, p, emit in F32_CHAIN_SHAPES:
+        f32_plan_is_3xtf32(f"f32 chain {name}",
+                           chain_plan(b * n, 8, hidden, out, f32))
         stages, fw, fb = f32_params(torch, rng, dev, hidden, out)
         x = torch.tensor(padded_clouds(rng, b, n), device=dev)
         kw = dict(kv_pool=p, compute_dtype=f32, emit_features=emit)
@@ -2207,52 +2325,66 @@ def f32_chain(torch, dev, card):
                   f"{yard[0]:.2e} ({yard[1]}), worst mean rel err "
                   f"{yard[2]:.2e} ({yard[3]}); the backwards repeat bit "
                   f"for bit", flush=True)
-        if name in ("recipe", "parity features", "bench parity features"):
-            timed = (("K2", lambda: chain_forward(x, stages, fw, fb, **kw),
-                      lambda: chain_forward_plain(x, stages, fw, fb, **kw),
-                      False, fwd_abs),
-                     ("K3", lambda: chain_backward(x, stages, fw, fb, zs,
-                                                   **bkw),
-                      lambda: chain_backward_plain(x, stages, fw, fb, zs,
-                                                   **bkw), True,
-                      bwd_abs.get("K3")))
-            if name != "recipe":
-                timed = (("K5 forward", lambda: remat_chain_forward(
-                    x, stages, fw, fb, **kw), lambda: chain_forward_plain(
-                        x, stages, fw, fb, stash=False, **kw), False,
-                    fwd_abs),
-                    ("K5 backward", lambda: remat_chain_backward(
-                        x, stages, fw, fb, **bkw),
-                     lambda: chain_backward_plain(x, stages, fw, fb, None,
-                                                  **bkw), True,
-                     bwd_abs["K5 backward"]))
-            for label, fn, plain, backward, err in timed:
-                ms = cuda_ms(torch, fn, 10)
-                plain_ms = cuda_ms(torch, plain, 3)
-                if label.startswith("K5"):
-                    bound, bound_by = k5_bound_ms(b, n, 8, hidden, out, p,
-                                                  emit, backward, f32=True)
-                else:
-                    bound, bound_by = chain_bound_ms(b, n, 8, hidden, out,
-                                                     p, backward, f32=True)
-                macs = sum(i * o for i, o in zip((8, *hidden),
-                                                 (*hidden, out)))
-                ops = 2.0 * b * n * macs * (
-                    (3 if label.startswith("K5") else 2) if backward else 1)
-                simt = ops / H100_F32_FLOPS * 1e3
-                print(f"{label} f32 time {name} ({b}, {n}): kernel "
-                      f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                      f"{bound:.4f} ms ({bound_by}, 3xTF32), "
-                      f"{bound / ms * 100:.1f}% of bound; FP32 SIMT ceiling "
-                      f"{simt:.3f} ms ({simt / ms * 100:.1f}%); library: "
-                      f"none [{card}]", flush=True)
-                if name != "bench parity features":
-                    result[label] = {
-                        "shape": f"B={b} N={n} kv_pool={p}"
-                        + ("" if emit else " slim"), "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": bound_by, "max_abs_err": err}
-        del x, got, k5, zs, cot, tied, keep
+        # Every shape timed: K2 / K3 where the shape has kv windows (the
+        # stash flavour; K3 up to (8, 2560)), K5 always.
+        timed = []
+        if p:
+            timed.append(("K2", lambda: chain_forward(x, stages, fw, fb,
+                                                      **kw),
+                          lambda: chain_forward_plain(x, stages, fw, fb,
+                                                      **kw), False, fwd_abs))
+        if "K3" in bwd_abs and p:
+            timed.append(("K3", lambda: chain_backward(x, stages, fw, fb, zs,
+                                                       **bkw),
+                          lambda: chain_backward_plain(x, stages, fw, fb, zs,
+                                                       **bkw), True,
+                          bwd_abs["K3"]))
+        timed += [("K5 forward", lambda: remat_chain_forward(
+            x, stages, fw, fb, **kw), lambda: chain_forward_plain(
+                x, stages, fw, fb, stash=False, **kw), False, fwd_abs),
+                  ("K5 backward", lambda: remat_chain_backward(
+                      x, stages, fw, fb, **bkw),
+                   lambda: chain_backward_plain(x, stages, fw, fb, None,
+                                                **bkw), True,
+                   bwd_abs["K5 backward"])]
+        for label, fn, plain, backward, err in timed:
+            ms = cuda_ms(torch, fn, 10)
+            plain_ms = cuda_ms(torch, plain, 3)
+            if label.startswith("K5"):
+                bound, bound_by = k5_bound_ms(b, n, 8, hidden, out, p,
+                                              emit, backward, f32=True)
+            else:
+                bound, bound_by = chain_bound_ms(b, n, 8, hidden, out,
+                                                 p, backward, f32=True)
+            macs = sum(i * o for i, o in zip((8, *hidden),
+                                             (*hidden, out)))
+            ops = 2.0 * b * n * macs * (
+                (3 if label.startswith("K5") else 2) if backward else 1)
+            simt = ops / H100_F32_FLOPS * 1e3
+            print(f"{label} f32 time {name} ({b}, {n}): kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound:.4f} ms ({bound_by}, 3xTF32), "
+                  f"{bound / ms * 100:.1f}% of bound; FP32 SIMT ceiling "
+                  f"{simt:.3f} ms ({simt / ms * 100:.1f}%); largest "
+                  f"|kernel - plain| {err:.3e} (FFMA main loop: "
+                  f"{ffma_figure(f'{label} {name}')}); library: none "
+                  f"[{card}]", flush=True)
+            if (name, label) in (("recipe", "K2"), ("recipe", "K3"),
+                                 ("parity features", "K5 forward"),
+                                 ("parity features", "K5 backward")):
+                result[label] = {
+                    "shape": f"B={b} N={n} kv_pool={p}"
+                    + ("" if emit else " slim"), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "max_abs_err": err}
+        # Where the time goes: the K3 / K5 backward by kernel.
+        for label, fn, *_ in timed:
+            if name in ("recipe", "parity features") and label in (
+                    "K3", "K5 backward"):
+                chain_breakdown(torch, card, f"{label} f32 {name} ({b}, "
+                                f"{n})", fn)
+        del x, got, k5, zs, cot, tied, keep, timed
+        f32_yardstick(torch, dev, card, name, b * n, hidden)
     return result
 
 
@@ -2565,6 +2697,7 @@ def _limits_parity_f32(torch, dev, card):
     steps at 3 x 2560 through K5 f32 (split) and K4, against the plain
     versions (dropout off, targets next to predicted slots)."""
     from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.ops.chain_grad import chain_plan
     from wireframe_tpu_torch.train.loop import epoch_seed, init_model
     from wireframe_tpu_torch.utils.synth import (
         make_box_building_batch,
@@ -2582,6 +2715,9 @@ def _limits_parity_f32(torch, dev, card):
           f"{cfg.train.batch_size} x {cfg.data.num_points}", flush=True)
     if m.compute_dtype != "float32" or m.chain_backward != "remat":
         raise AssertionError("configs/default.yaml no longer ships f32 remat")
+    f32_plan_is_3xtf32("limits (c)", chain_plan(
+        cfg.train.batch_size * cfg.data.num_points, m.input_dim,
+        tuple(m.encoder_hidden_dims), m.encoder_output_dim, torch.float32))
     batch = targets_near_slots(
         cfg, init_model(cfg, dev),
         make_box_building_batch(cfg, cfg.train.batch_size, seed=0),
@@ -2754,6 +2890,7 @@ def limits_chain(torch, dev, card):
         chain_backward_plain,
         chain_forward,
         chain_forward_plain,
+        chain_plan,
         remat_chain_backward,
         remat_chain_forward,
     )
@@ -2772,6 +2909,9 @@ def limits_chain(torch, dev, card):
                            "K5 backward": 0.0}
         for name, b, n, hidden, out, p, tile in LIMITS_CHAIN:
             label = f"{name} ({b}, {n}) {hidden}->{out} {tag}"
+            if dtype == torch.float32:
+                f32_plan_is_3xtf32(label, chain_plan(b * n, 8, hidden, out,
+                                                     dtype))
             stages, fw, fb = recipe_encoder_params(
                 torch, rng, dev, hidden=hidden, out=out, weight_dtype=dtype)
             x = torch.tensor(padded_clouds(rng, b, n), device=dev)

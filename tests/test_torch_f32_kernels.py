@@ -2,13 +2,15 @@
 
 K1 (`ops.fused_encoder`) and K2 / K3 / K5 (`ops.chain_grad`) compute on
 the card in bfloat16 (the wgmma main loop of `csrc/hopper_gemm.cuh`) or
-in float32 (its FFMA main loop), the two dtypes the JAX kernels take.
+in float32 (its 3xTF32 wgmma main loop), the two dtypes the JAX kernels
+take.
 `kernel_dtype` is the one gate: every CUDA wrapper passes its
 `compute_dtype` through it before it touches the card, so float16 raises
 with one message everywhere.  `chain_plan` and `k1_plan` say, from the
 shapes and the dtype alone, which main loop, tile and buffer dtypes a call
 uses; the bf16 plans are the ones the kernels ran before f32 existed, and
-the f32 plan fits the same shared memory.  The kernels themselves run
+the f32 plan (three ring stages beside two split tiles of B) fits the
+same launch's shared memory.  The kernels themselves run
 only on the card (`python3 chip_smoke.py`, phase "f32"); their plain
 versions are held to the JAX kernels in f32 by tests/test_torch_
 {chain_grad,encoder,train,parity}.py.
@@ -26,13 +28,17 @@ from wireframe_tpu_torch.ops.chain_grad import (
     BK_F32,
     BM,
     BN,
+    F32_SPLIT,
+    KS,
     SMEM_LIMIT,
     STAGES,
+    STAGES_F32,
     chain_plan,
     kernel_dtype,
     pad8,
     smem_bytes,
     split_k,
+    split_tile_bytes,
 )
 from wireframe_tpu_torch.ops.fused_encoder import k1_plan
 
@@ -178,23 +184,42 @@ def test_bf16_plans_are_unchanged(name):
             == slices
         assert plan["main_loop"] == "wgmma" and plan["tile"] == (BM, BN, BK)
         assert plan["stage_bytes"] == 48 * 1024
+        assert (plan["stages"], plan["split_bytes"], plan["split"]) == (
+            STAGES, 0, None)
         assert set(plan["dtypes"].values()) == {torch.bfloat16,
                                                 torch.float32}
         assert plan["dtypes"]["recomputed_z"] == torch.float32
 
 
 @pytest.mark.parametrize("name", list(SHAPES))
-def test_f32_plan_runs_the_ffma_loop_in_the_same_shared_memory(name):
+def test_f32_plan_runs_the_3xtf32_loop(name):
     m, d, widths, out = SHAPES[name]
     plan = chain_plan(m, d, widths, out, torch.float32)
-    assert plan["main_loop"] == "ffma"
+    assert plan["main_loop"] == "3xtf32"
     assert plan["tile"] == (BM, BN, BK_F32) == (128, 256, 32)
     # A ring stage: 128 x 32 of A and 32 x 256 of B in f32 = 48 KB, the
-    # bf16 stage's bytes, so the 4-stage ring and the epilogue overlay
-    # carry over.
+    # bf16 stage's bytes, as TMA brings the operands; three of them, then
+    # two split tiles of B (256 rows of 16 hi + 16 lo TF32 values, one
+    # 128-byte swizzle row each): 144 + 64 KB, past the bf16 ring and
+    # epilogue overlay, so the launch's shared memory grows to fit it.
     assert plan["stage_bytes"] == (128 * 32 + 32 * 256) * 4 == 48 * 1024
-    assert STAGES * plan["stage_bytes"] == 192 * 1024
+    assert plan["stages"] == STAGES_F32 == 3
+    assert plan["split_bytes"] == 2 * split_tile_bytes() == 2 * 256 * 32 * 4
+    assert STAGES_F32 * plan["stage_bytes"] + plan["split_bytes"] \
+        == 208 * 1024
     assert plan["smem_bytes"] == smem_bytes() <= SMEM_LIMIT == 232448
+    # Every form's A is split in registers; B, which TF32 wgmma reads only
+    # K-major from shared memory, into a K-major split tile there, and
+    # transposed where TMA brings it MN-major (W of z = h W, dz of
+    # dW = h^T dz).  No operand is copied in device memory.
+    assert plan["split"] == F32_SPLIT
+    assert {f: s["A"][1] for f, s in plan["split"].items()} == {
+        "FWD": "registers", "DH": "registers", "DW": "registers"}
+    assert {f: s["B"] for f, s in plan["split"].items()} == {
+        "FWD": ("MN-major", "shared, transposed"),
+        "DH": ("K-major", "shared"),
+        "DW": ("MN-major", "shared, transposed")}
+    assert plan["split"]["DW"]["A"][0] == "MN-major"
     assert set(plan["dtypes"].values()) == {torch.float32}
     # 16-byte row strides for TMA, in f32 elements.
     for ld, width in [(plan["x_ld"], d), (plan["out_ld"], out)] + list(
@@ -218,9 +243,15 @@ def test_plans_match_the_header_constants():
     const = {k: int(v) for k, v in re.findall(
         r"constexpr int (\w+) = (\d+);", text)}
     assert (const["BM"], const["BN"], const["BK"], const["BK_F32"],
-            const["STAGES"]) == (BM, BN, BK, BK_F32, STAGES)
+            const["STAGES"], const["STAGES_F32"], const["KS"]) == (
+                BM, BN, BK, BK_F32, STAGES, STAGES_F32, KS)
     assert const["MAX_CLUSTER"] == chain_grad.MAX_CLUSTER
-    assert smem_bytes() == 205888
+    assert 2 * const["KS"] == const["BK_F32"]
+    assert const["FLUSH_STAGES"] * const["BK_F32"] == \
+        chain_grad.F32_FLUSH_K == 2048
+    # 1024 to align + the f32 area (3 x 48 KB + 2 x 32 KB) + the cluster
+    # exchange slots + the mbarriers.
+    assert smem_bytes() == 1024 + 212992 + 2048 + 64 == 216128
 
 
 @pytest.mark.parametrize("dtype, limit", [(torch.bfloat16, 0.35e9),
@@ -233,7 +264,7 @@ def test_k1_peak_bytes_at_the_largest_bucket(dtype, limit):
     esize = 4 if dtype == torch.float32 else 2
     assert plan["peak_bytes"] == 49152 * (1024 + 2048) * esize + 49152
     assert plan["peak_bytes"] <= limit
-    assert plan["main_loop"] == ("ffma" if esize == 4 else "wgmma")
+    assert plan["main_loop"] == ("3xtf32" if esize == 4 else "wgmma")
     assert plan["dtypes"]["h"] == dtype
 
 

@@ -27,7 +27,7 @@ figure is a target for the port.
 
 Env knobs (bench.py's): BENCH_BATCH (128), BENCH_POINTS (2560),
 BENCH_DTYPE (bfloat16 | float32; the fused encoder's kernels compute in
-either, float32 on their FFMA main loop; mfu stays against the bf16
+either, float32 on their 3xTF32 main loop; mfu stays against the bf16
 peak, as bench.py's), BENCH_ITERS (30),
 BENCH_LAT_ITERS (20), BENCH_TRAIN=1 (time the train step instead),
 BENCH_PALLAS (1: the fused encoder kernels), BENCH_BUCKETS=2048,4096,...

@@ -17,15 +17,16 @@
 //      z; then K3's stage backward on the f32 z).
 // Each in the JAX kernels' two compute dtypes: bf16 operands (the
 // functions below) and f32 operands (the `_f32` functions: f32 h, stash
-// and dz, FFMA main loop; see hopper_gemm.cuh), f32 accumulation in both.
+// and dz, 3xTF32 main loop; see hopper_gemm.cuh), f32 accumulation in
+// both.
 //
 // What bounds it on this card: operations.  The forward is the same
 // 10.49 MFLOP per point as K1, K3 twice that (dW and dh) and K5's
 // backward three times (recompute, dW, dh), while the stash is 2 B per
 // activation (189 MB at B=8, N=2560): ~0.06 ms at 3.35 TB/s against
 // ~0.22 ms of bf16 tensor-core time for the forward.  In f32 the stash
-// doubles (377.5 MB, ~0.11 ms) and the forward's operations take ~3.2 ms
-// at the FP32 SIMT rate.
+// doubles (377.5 MB, ~0.11 ms) and the forward's operations take ~1.3 ms
+// as three TF32 products each (494.7 / 3 TFLOP/s).
 //
 // Design: every product goes through the wgmma + TMA GEMM of
 // hopper_gemm.cuh, which keeps what the Pallas kernel keeps in VMEM out

@@ -10,14 +10,15 @@
 // bias + LayerNorm output, not zeros), the valid count, and the optional
 // kv window masked max over `p` consecutive rows (an empty window gives 0).
 // The same in f32 (compute_dtype=float32, the `_f32` functions): f32
-// operands and h, f32 accumulation (hopper_gemm.cuh's FFMA main loop).
+// operands and h, f32 accumulation (hopper_gemm.cuh's 3xTF32 main loop).
 //
 // What bounds it on this card: operations.  The chain is
 //   2 * (8*512 + 512*1024 + 1024*2048 + 2048*1024 + 1024*512)
 //   = 10.49 MFLOP per point
 // against ~32 B of input per point plus 10.5 MB of bf16 weights read once,
 // far above the H100's ~295 FLOP/B ridge point, so the tensor cores are the
-// limit (989 TFLOP/s bf16 dense); in f32 the FP32 SIMT rate (67 TFLOP/s).
+// limit (989 TFLOP/s bf16 dense); in f32 the same tensor cores in TF32,
+// three products each (494.7 / 3 TFLOP/s of f32 work).
 //
 // Design: every product goes through the warp-specialised wgmma + TMA
 // GEMM of hopper_gemm.cuh, stage by stage, so the only activation in
@@ -40,7 +41,9 @@
 //               (cloud, 128-row tile) partial pools and the kv windows
 //               straight to kv_features; the (B, N, 512) f32 features
 //               only when the caller asks for them (then equal to K5's
-//               forward features bit for bit);
+//               forward features bit for bit) or, in f32, when the last
+//               stage is wider than 2048 (the main loop's flushes park
+//               their sums there);
 //   k1_finalize per cloud, the tiles' partials summed in tile order, and
 //               the kv windows that cross a tile boundary merged from the
 //               tiles' edge partials.

@@ -4,10 +4,11 @@
 // thread-block cluster.
 //
 //   C (M, N) = op(A) (M, K) @ op(B) (K, N), f32 accumulate; operands bf16
-//   (wgmma main loop) or f32 (FFMA main loop, F32 = 1; see below)
+//   (wgmma main loop) or f32 (3xTF32 wgmma main loop, F32 = 1; see below)
 //
-// Three operand forms, each read as it is stored (wgmma's transpose bits
-// for 16-bit operands; no transposing copy):
+// Three operand forms, each brought in by TMA as it is stored (bf16:
+// wgmma's transpose bits; f32: the split pass below; no transposing copy
+// in device memory):
 //   FWD  z  = h W:     A = h (M, K) K-major; B = W stored (K, N), MN-major;
 //   DH   dh = dz W^T:  A = dz (M, K) K-major; B = W stored (N, K), K-major;
 //   DW   dW = h^T dz:  A = h stored (K, M), MN-major; B = dz stored (K, N),
@@ -53,16 +54,23 @@
 // beside it and store 16 contiguous bytes a lane.
 //
 // f32 operands (F32 = 1, the JAX kernels' compute_dtype=float32): wgmma
-// takes f32 only as TF32 (10 mantissa bits), so the same ring, at 32 of
-// depth a stage (128 x 32 + 32 x 256 floats: the same 48 KB), feeds a
-// SIMT main loop of fmaf in full f32, each sum over k in order.  Consumer
-// thread t holds tile rows t / 16 + 16 i (i < 8) and 16 columns, read as
-// float4 along n (MN-major B) or along k (K-major B); the 128-byte
-// swizzle spreads those reads over the banks.  The sums then go through
-// the f32 tile in the freed ring into the wgmma accumulator's layout, so
-// every epilogue runs unchanged.  The f32 stash needs no z tile: in f32
-// it is z = acc + b itself, written from the f32 tile (LN_FWD), and read
-// back from device memory (LN_BWD with ZF32), as K5's recomputed z is.
+// takes f32 only as TF32 (10 mantissa bits), so each operand is split,
+// x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a product is
+// lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B) on the tensor cores (3xTF32,
+// f32-accurate; lo(A) lo(B) ~ 2^-22 relative is dropped), in the same
+// accumulator layout as bf16, so every epilogue runs unchanged.  TMA
+// brings f32 stages 32 deep (128 x 32 + 32 x 256 floats: a bf16 stage's
+// 48 KB) into a ring of 3.  TF32 wgmma reads B only from shared memory
+// and only K-major, so for each half stage (16 k) the 256 consumer
+// threads split B's rows into a K-major hi | lo tile (two of them, 32 KB
+// each, after the ring), transposing an MN-major B on the way, while the
+// tensor cores work on the other tile; A is split into registers
+// (wgmma's register-A form, which has no majorness).  The tensor cores
+// round each sum toward zero, so a STORE launch moves its accumulator
+// into C every 2048 k (DW's K runs over the point rows).  The f32 stash
+// needs no z tile: in f32 it is z = acc + b itself, written from the f32
+// tile (LN_FWD), and read back from device memory (LN_BWD with ZF32), as
+// K5's recomputed z is.
 //
 // POOL runs its row tiles per cloud (blockIdx.y = cloud * tiles + tile), so
 // no tile holds rows of two clouds: TMA loads a whole 128-row box from the
@@ -84,7 +92,8 @@
 // callers pad their buffers' rows to multiples of 8 elements.
 //
 // What bounds it: operations (a 128 x 256 x 64 bf16 step reads 48 KB for
-// 2 M multiply-adds; an f32 step 48 KB for 1 M, at the FP32 SIMT rate).
+// 2 M multiply-adds; an f32 step 48 KB for 1 M, each three TF32 ones at
+// the dense TF32 rate: 494.7 / 3 TFLOP/s of f32 work).
 
 #pragma once
 
@@ -106,18 +115,26 @@ constexpr int BN = 256;
 constexpr int BK = 64;
 constexpr int BK_F32 = 32;                        // f32 depth of a stage
 constexpr int STAGES = 4;
+constexpr int STAGES_F32 = 3;                     // f32 ring stages
+constexpr int KS = 16;                            // k of an f32 split tile
+constexpr int FLUSH_STAGES = 64;                  // f32: 2048 k a sum
 constexpr int CONSUMERS = 2;                      // warpgroups, 64 rows each
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int A_BYTES = BM * BK * 2;              // 16 KB
 constexpr int B_BYTES = BK * BN * 2;              // 32 KB
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int RING_BYTES = STAGES * STAGE_BYTES;  // 192 KB
+// f32: 3 ring stages, then two split tiles of B (256 rows of KS hi and KS
+// lo floats: 32 KB each).
+constexpr int SPLIT_BYTES = BN * 2 * KS * 4;
+constexpr int AREA_F32 = STAGES_F32 * STAGE_BYTES + 2 * SPLIT_BYTES;
 constexpr int MAX_CLUSTER = 8;
 constexpr int TILE_LD = BN + 8;                   // f32 epilogue tile rows
 constexpr int ZT_LD = BN + 8;                     // bf16 z tile rows
 constexpr int ZTILE = BM * TILE_LD * 4;           // z tile after the f32 one
 constexpr int EPI_BYTES = ZTILE + BM * ZT_LD * 2;
-constexpr int AREA_BYTES = RING_BYTES > EPI_BYTES ? RING_BYTES : EPI_BYTES;
+constexpr int AREA_BF16 = RING_BYTES > EPI_BYTES ? RING_BYTES : EPI_BYTES;
+constexpr int AREA_BYTES = AREA_BF16 > AREA_F32 ? AREA_BF16 : AREA_F32;
 constexpr int RED_FLOATS = 4 * BM;                // exchange slots
 constexpr int SMEM_BYTES = 1024 + AREA_BYTES + RED_FLOATS * 4 +
                            2 * STAGES * 8;
@@ -125,6 +142,9 @@ static_assert(3 * 8 * BN * 4 <= ZTILE, "column partials");
 static_assert(SMEM_BYTES <= 232448, "shared memory");
 static_assert(BM * BK_F32 * 4 == A_BYTES && BK_F32 * BN * 4 == B_BYTES,
               "an f32 stage fills a bf16 stage's bytes");
+static_assert(2 * KS == BK_F32 && 2 * KS * 4 == 128,
+              "a split tile row is one 128-byte swizzle row");
+static_assert((STAGES_F32 * STAGE_BYTES) % 1024 == 0, "split tile alignment");
 
 enum { FWD = 0, DH = 1, DW = 2 };
 enum { STORE = 0, LN_FWD = 1, LN_BWD = 2, POOL = 3 };
@@ -455,152 +475,208 @@ __device__ __forceinline__ float bcast(float v, int lane) {
 }
 
 // ---------------------------------------------------------------------------
-// The f32 main loop (F32 = 1)
+// The f32 main loop (F32 = 1): 3xTF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
 // Byte offset of 16-byte chunk `chunk` (0..7) of 128-byte row `row` in a
-// TMA box written with the 128-byte swizzle (1024-byte aligned box).
+// tile written with the 128-byte swizzle (1024-byte aligned).
 __device__ __forceinline__ int swz(int row, int chunk) {
     return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
-__device__ __forceinline__ float lane4(const float4& v, int e) {
-    return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+// x = hi + lo + O(2^-22 |x|): hi is x rounded to TF32 (10 mantissa bits,
+// the bits the tensor core reads), lo the exact remainder x - hi rounded
+// to TF32 in turn.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
 }
 
-// The 16 B values of thread column tx at depth k of an MN-major B stage:
-// columns 4 tx + 64 jj + e, in boxes of 32 columns x 32 rows of k.
-__device__ __forceinline__ void b_row_mn(const uint8_t* b, int k, int tx,
-                                         float (&bv)[16]) {
+__device__ __forceinline__ void fence_view_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// d (64 x 256, f32) += A (64 x 8) B (8 x 256), TF32: A from registers in
+// the m64k8 fragment layout (warp w of the warpgroup, lane l: rows
+// 16 w + l / 4 and + 8, columns l % 4 and + 4, as a0 (r, c), a1 (r + 8, c),
+// a2 (r, c + 4), a3 (r + 8, c + 4)); B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128],
+                                                     const uint32_t* a,
+                                                     uint64_t db) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %133, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+        " {%128, %129, %130, %131}, %132, p, 1, 1;\n\t}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// One half of f32 ring stage s (KS = 16 of its 32 k, half h) made ready
+// for the tensor cores:
+//   - B: consumer thread t (0..255) splits tile row n = t, its 16 k, into
+//     row n of the split tile `sp`: chunks 0-3 hold hi, chunks 4-7 lo
+//     (128 bytes a row, 128-byte swizzle, K-major as TF32 wgmma reads B).
+//     An MN-major stage (FWD's W, DW's dz: boxes of 32 n x 32 k) is
+//     transposed on the way, a warp reading one 128-byte row of a box per
+//     k (no bank conflicts);
+//   - A: the thread's m64k8 fragments of its warpgroup's 64 rows, both
+//     k8 steps, split into hi / lo registers; read from the K-major box
+//     (128 m x 32 k) or, for DW, the MN-major boxes (32 m x 32 k).
+// TMA zero-fills past the tensor, so ragged edges split to zeros.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void tf32x3_prep(const uint8_t* a, int h,
+                                            uint8_t* sp, int r,
+                                            uint32_t (&ah)[8],
+                                            uint32_t (&al)[8]) {
+    const uint8_t* b = a + A_BYTES;
+    const int n = threadIdx.x;
+    float x[KS];
+    if (B_MN) {
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            b + (tx / 8 + 2 * jj) * 4096 + swz(k, tx & 7));
-        bv[4 * jj] = v.x; bv[4 * jj + 1] = v.y;
-        bv[4 * jj + 2] = v.z; bv[4 * jj + 3] = v.w;
+        for (int i = 0; i < KS; ++i)
+            x[i] = *reinterpret_cast<const float*>(
+                b + (n >> 5) * 4096 + swz(KS * h + i, (n & 31) >> 2) +
+                (n & 3) * 4);
+    } else {
+#pragma unroll
+        for (int c = 0; c < KS / 4; ++c) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                b + swz(n, KS / 4 * h + c));
+            x[4 * c] = v.x; x[4 * c + 1] = v.y;
+            x[4 * c + 2] = v.z; x[4 * c + 3] = v.w;
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < KS / 4; ++c) {
+        uint4 hi, lo;
+        split_tf32(x[4 * c], hi.x, lo.x);
+        split_tf32(x[4 * c + 1], hi.y, lo.y);
+        split_tf32(x[4 * c + 2], hi.z, lo.z);
+        split_tf32(x[4 * c + 3], hi.w, lo.w);
+        *reinterpret_cast<uint4*>(sp + swz(n, c)) = hi;
+        *reinterpret_cast<uint4*>(sp + swz(n, KS / 4 + c)) = lo;
+    }
+    // A: rows r, r + 8 (r = the fragment row of lane / 4), k = 8 j + l % 4
+    // (+ 4) of this half.
+    const int kq = threadIdx.x & 3;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+        const int m = r + 8 * (e & 1);
+        const int k = KS * h + 8 * (e >> 2) + kq + 4 * ((e >> 1) & 1);
+        const float v =
+            A_MN ? *reinterpret_cast<const float*>(
+                       a + (m >> 5) * 4096 + swz(k, (m & 31) >> 2) +
+                       (m & 3) * 4)
+                 : *reinterpret_cast<const float*>(a + swz(m, k >> 2) +
+                                                   (k & 3) * 4);
+        split_tf32(v, ah[e], al[e]);
     }
 }
 
-// acc[16 i + j] += sum over the stages' k, in order, of A[row i][k] *
-// B[k][col j] in f32 fmaf, for tile rows ty + 16 i and columns col j of
-// ffma_col<B_MN>.  Stage s holds A at ring + s * STAGE_BYTES: (128 m, 32 k)
-// K-major, or 4 boxes of (32 k, 32 m) MN-major; B after it: 8 boxes of
-// (32 k, 32 n) MN-major, or (256 n, 32 k) K-major.  Each consumer warp
-// frees a stage once its reads of it are done.
-template <bool A_MN, bool B_MN>
-__device__ __forceinline__ void ffma_main_loop(float (&acc)[128],
-                                               const uint8_t* ring,
-                                               uint64_t* full,
-                                               uint64_t* empty, int nk,
-                                               int lane) {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// The six TF32 products of a half stage on the accumulator: per k8 step,
+// lo(A) hi(B) and hi(A) lo(B) first, then hi(A) hi(B) (the small terms
+// join the sum before the large one; lo(A) lo(B), ~2^-22 relative, is
+// dropped).  Fragments ah / al: k8 step j in elements 4 j .. 4 j + 3.
+__device__ __forceinline__ void tf32x3_mma(float (&acc)[128],
+                                           const uint32_t (&ah)[8],
+                                           const uint32_t (&al)[8],
+                                           const uint8_t* sp) {
+    const uint32_t b = smem_u32(sp);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        const uint64_t bhi = make_desc(b + 32 * j, 0, 1024);
+        const uint64_t blo = make_desc(b + 64 + 32 * j, 0, 1024);
+        wgmma_m64n256k8_tf32(acc, al + 4 * j, bhi);
+        wgmma_m64n256k8_tf32(acc, ah + 4 * j, blo);
+        wgmma_m64n256k8_tf32(acc, ah + 4 * j, bhi);
+    }
+    wgmma_commit();
+}
+
+// acc += the stages' A B in 3xTF32, k in order.  Half stage u (k 16 u ..
+// 16 u + 15 of the call's slice) runs on split tile u % 2 and fragment
+// set u % 2: while the tensor cores take half u, the consumers split half
+// u + 1 into the other tile and set; then both warpgroups wait for their
+// products and meet (the other tile is rewritten only after both are
+// done with it).  Each consumer warp frees a ring stage once it has
+// split both halves.  (Waiting only for half u - 1 instead, with a
+// second meeting before the split, ran slower on the H100.)
+// The tensor cores round each product's sum into the accumulator toward
+// zero, so their error grows with the length of the sum, ~1e-5 of the
+// largest output at 1024 k (chip_smoke.py's f32 yardstick) and past the
+// gradient bound over a dW slice of 81,920 rows.  So every FLUSH_STAGES
+// stages `flush` moves acc into the launch's f32 output with f32 adds
+// (round to nearest) and zeroes it: no tensor-core sum is longer than
+// 2048 k.
+template <bool A_MN, bool B_MN, typename Flush>
+__device__ __forceinline__ void tf32x3_main_loop(float (&acc)[128],
+                                                 uint8_t* ring,
+                                                 uint64_t* full,
+                                                 uint64_t* empty, int nk,
+                                                 int r, int lane,
+                                                 Flush&& flush) {
+    uint8_t* split = ring + STAGES_F32 * STAGE_BYTES;
+    uint32_t ah0[8], al0[8], ah1[8], al1[8];
+    if (nk == 0) return;
+    mbar_wait(&full[0], 0);
+    tf32x3_prep<A_MN, B_MN>(ring, 0, split, r, ah0, al0);
+    fence_view_async();
+    consumer_bar();
     for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % STAGES;
-        mbar_wait(&full[s], (kt / STAGES) & 1);
+        const int s = kt % STAGES_F32;
         const uint8_t* a = ring + s * STAGE_BYTES;
-        const uint8_t* b = a + A_BYTES;
-        if (!A_MN) {
-#pragma unroll 2
-            for (int kq = 0; kq < BK_F32 / 4; ++kq) {
-                float4 av[8];
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-                    av[i] = *reinterpret_cast<const float4*>(
-                        a + swz(ty + 16 * i, kq));
-                if (B_MN) {
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        float bv[16];
-                        b_row_mn(b, 4 * kq + e, tx, bv);
-#pragma unroll
-                        for (int i = 0; i < 8; ++i) {
-                            const float ai = lane4(av[i], e);
-#pragma unroll
-                            for (int j = 0; j < 16; ++j)
-                                acc[16 * i + j] =
-                                    fmaf(ai, bv[j], acc[16 * i + j]);
-                        }
-                    }
-                } else {
-#pragma unroll
-                    for (int j = 0; j < 16; ++j) {
-                        const float4 bv = *reinterpret_cast<const float4*>(
-                            b + swz(tx + 16 * j, kq));
-#pragma unroll
-                        for (int i = 0; i < 8; ++i) {
-                            float c = acc[16 * i + j];
-                            c = fmaf(av[i].x, bv.x, c);
-                            c = fmaf(av[i].y, bv.y, c);
-                            c = fmaf(av[i].z, bv.z, c);
-                            acc[16 * i + j] = fmaf(av[i].w, bv.w, c);
-                        }
-                    }
-                }
-            }
-        } else {
-#pragma unroll 4
-            for (int k = 0; k < BK_F32; ++k) {
-                float ai[8], bv[16];
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const int m = ty + 16 * i;
-                    ai[i] = *reinterpret_cast<const float*>(
-                        a + (m / 32) * 4096 + swz(k, (m & 31) / 4) +
-                        (m & 3) * 4);
-                }
-                b_row_mn(b, k, tx, bv);
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int j = 0; j < 16; ++j)
-                        acc[16 * i + j] = fmaf(ai[i], bv[j], acc[16 * i + j]);
-            }
-        }
+        tf32x3_mma(acc, ah0, al0, split);
+        tf32x3_prep<A_MN, B_MN>(a, 1, split + SPLIT_BYTES, r, ah1, al1);
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[s]);
-    }
-}
-
-// Tile column of the f32 main loop's accumulator column j (< 16) for
-// consumer thread column tx.
-template <bool B_MN>
-__device__ __forceinline__ int ffma_col(int tx, int j) {
-    return B_MN ? 4 * tx + 64 * (j / 4) + j % 4 : tx + 16 * j;
-}
-
-// The f32 main loop's sums into the wgmma accumulator's layout (rows r,
-// r + 8, columns 8 j + 2 q + e), through the f32 tile in the freed ring.
-template <bool B_MN>
-__device__ __forceinline__ void ffma_to_fragment(float (&acc)[128],
-                                                 float* tile, int r, int q) {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    consumer_bar();                 // both warpgroups are done with the ring
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        float* row = tile + (ty + 16 * i) * TILE_LD;
-        if (B_MN) {
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj)
-                *reinterpret_cast<float4*>(row + ffma_col<true>(tx, 4 * jj)) =
-                    make_float4(acc[16 * i + 4 * jj], acc[16 * i + 4 * jj + 1],
-                                acc[16 * i + 4 * jj + 2],
-                                acc[16 * i + 4 * jj + 3]);
-        } else {
-#pragma unroll
-            for (int j = 0; j < 16; ++j)
-                row[ffma_col<false>(tx, j)] = acc[16 * i + j];
+        fence_view_async();
+        wgmma_wait<0>();
+        fence_acc(acc);
+        consumer_bar();
+        tf32x3_mma(acc, ah1, al1, split + SPLIT_BYTES);
+        if (kt + 1 < nk) {
+            const int s1 = (kt + 1) % STAGES_F32;
+            mbar_wait(&full[s1], ((kt + 1) / STAGES_F32) & 1);
+            tf32x3_prep<A_MN, B_MN>(ring + s1 * STAGE_BYTES, 0, split, r,
+                                    ah0, al0);
+            fence_view_async();
         }
+        wgmma_wait<0>();
+        fence_acc(acc);
+        consumer_bar();
+        if ((kt + 1) % FLUSH_STAGES == 0 && kt + 1 < nk) flush();
     }
-    consumer_bar();
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const float2 v = *reinterpret_cast<const float2*>(
-                tile + (r + 8 * h) * TILE_LD + 8 * j + 2 * q);
-            acc[4 * j + 2 * h] = v.x;
-            acc[4 * j + 2 * h + 1] = v.y;
-        }
 }
 
 // An element of the operand type from f32 (bf16: round to nearest even).
@@ -630,6 +706,7 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
     constexpr bool B_MN = FORM != DH;
     constexpr int SYNCS = EPI == LN_FWD ? 3 : (EPI == LN_BWD ? 4 : 0);
     constexpr int KB = F32 ? BK_F32 : BK;           // depth of a stage
+    constexpr int NS = F32 ? STAGES_F32 : STAGES;   // ring stages
     constexpr int MNB = F32 ? 32 : 64;              // MN-major box width
     constexpr int BOX_BYTES = MNB * KB * (F32 ? 4 : 2);
 
@@ -656,8 +733,8 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
         if (threadIdx.x == CONSUMERS * 128) {
             for (int kt = 0; kt < nk; ++kt) {
-                const int s = kt % STAGES;
-                mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+                const int s = kt % NS;
+                mbar_wait(&empty[s], ((kt / NS) & 1) ^ 1);
                 mbar_expect_tx(&full[s], STAGE_BYTES);
                 const int k0 = kbeg + kt * KB;
                 uint8_t* a = ring + s * STAGE_BYTES;
@@ -693,9 +770,75 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    // Fragment coordinates: tile rows r, r + 8; columns 8 j + 2 q (+1).
+    const int q = lane & 3;
+    const int r = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+
+    // STORE: acc (+ bias) to C.  In f32, a flush (see tf32x3_main_loop)
+    // parks acc in the launch's own f32 output of the tile's shape (C;
+    // H for LN_FWD; DZ for LN_BWD; the features for POOL, which then needs
+    // them), first adding what the earlier flushes left there, 32 loads in
+    // flight at a time; the epilogue adds the parked sum back to acc, so
+    // every form sums a K the same way (K1's features stay K5's).
+    float* const park =
+        EPI == STORE ? p.C + (FORM == DW ? blockIdx.z * p.c_split : 0)
+        : EPI == LN_FWD ? static_cast<float*>(p.H)
+        : EPI == LN_BWD ? static_cast<float*>(p.DZ)
+                        : p.C;
+    const int ldp = EPI == LN_FWD ? p.ldh : (EPI == LN_BWD ? p.lddz : p.ldc);
+    // POOL: only the cloud's rows of the tile (the box runs past its end).
+    const int prow = EPI == POOL
+                         ? min(BM, p.rows - (int)(blockIdx.y % p.tiles) * BM)
+                         : BM;
+    const bool rv[2] = {m0 + r < M && r < prow,
+                        m0 + r + 8 < M && r + 8 < prow};
+    auto store_acc = [&](bool with_bias) {
+        const bool aligned = ((ldp | (int)(p.c_split & 1)) & 1) == 0;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+            const int c = n0 + 8 * j + 2 * q;
+            if (c >= N) continue;
+            const bool pair = c + 1 < N;
+            float b0 = 0.0f, b1 = 0.0f;
+            if (with_bias && p.bias != nullptr) {
+                b0 = p.bias[c];
+                b1 = pair ? p.bias[c + 1] : 0.0f;
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                if (rv[h])
+                    store_f32x2(park + (size_t)(m0 + r + 8 * h) * ldp + c,
+                                acc[4 * j + 2 * h] + b0,
+                                acc[4 * j + 2 * h + 1] + b1, pair, aligned);
+        }
+    };
+    auto add_c = [&]() {
+#pragma unroll
+        for (int jb = 0; jb < 32; jb += 8) {
+            float old[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                const int j = jb + i / 4, h = (i / 2) & 1, e = i & 1;
+                const int c = n0 + 8 * j + 2 * q + e;
+                old[i] = rv[h] && c < N
+                             ? park[(size_t)(m0 + r + 8 * h) * ldp + c]
+                             : 0.0f;
+            }
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[4 * jb + i] += old[i];
+        }
+    };
+    bool flushed = false;
 
     if constexpr (F32) {
-        ffma_main_loop<A_MN, B_MN>(acc, ring, full, empty, nk, lane);
+        tf32x3_main_loop<A_MN, B_MN>(
+            acc, ring, full, empty, nk, r, lane, [&]() {
+                if (flushed) add_c();
+                store_acc(false);
+                flushed = true;
+#pragma unroll
+                for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+            });
     } else {
         for (int kt = 0; kt < nk; ++kt) {
             const int s = kt % STAGES;
@@ -725,33 +868,11 @@ wgmma_chain_kernel(const __grid_constant__ Params p) {
         if (nk > 0 && lane == 0) mbar_arrive(&empty[(nk - 1) % STAGES]);
     }
 
-    // Fragment coordinates: tile rows r, r + 8; columns 8 j + 2 q (+1).
-    const int q = lane & 3;
-    const int r = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
-    if constexpr (F32)
-        ffma_to_fragment<B_MN>(acc, reinterpret_cast<float*>(ring), r, q);
+
+    if (flushed) add_c();
 
     if (EPI == STORE) {
-        const bool rv[2] = {m0 + r < M, m0 + r + 8 < M};
-        float* C = p.C + (FORM == DW ? blockIdx.z * p.c_split : 0);
-        const bool aligned = ((p.ldc | (int)(p.c_split & 1)) & 1) == 0;
-#pragma unroll
-        for (int j = 0; j < 32; ++j) {
-            const int c = n0 + 8 * j + 2 * q;
-            if (c >= N) continue;
-            const bool pair = c + 1 < N;
-            float b0 = 0.0f, b1 = 0.0f;
-            if (p.bias != nullptr) {
-                b0 = p.bias[c];
-                b1 = pair ? p.bias[c + 1] : 0.0f;
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-                if (rv[h])
-                    store_f32x2(C + (size_t)(m0 + r + 8 * h) * p.ldc + c,
-                                acc[4 * j + 2 * h] + b0,
-                                acc[4 * j + 2 * h + 1] + b1, pair, aligned);
-        }
+        store_acc(true);
         return;
     }
 
@@ -1333,15 +1454,18 @@ inline int gemm_ln_bwd(const void* A, int lda, const void* W, int ldw,
 // (cloud, 128-row tile) into pool; kv window maxima over kvp rows (kv
 // null: none), with the partials of windows that cross a tile boundary in
 // edge (needed when kvp does not divide 128 and a cloud has two tiles or
-// more); F (f32, row stride ldf) the features when not null.
+// more); F (f32, row stride ldf) the features when not null (needed in
+// f32 when K > 2048: the flushes park their sums there).
 inline int gemm_pool(const void* A, int lda, const void* W, int ldw,
                      const float* bias, const uint8_t* valid, float* F,
                      int ldf, float* pool, float* kv, float* edge, int kvp,
                      int clouds, int rows, int N, int K, bool f32,
                      cudaStream_t stream) {
     const int tiles = (rows + BM - 1) / BM;
+    // f32 past FLUSH_STAGES stages parks its partial sums in F.
     if (clouds < 1 || rows < 1 || N < 1 || K < 1 || bias == nullptr ||
         valid == nullptr || pool == nullptr || (F != nullptr && ldf < N) ||
+        (f32 && F == nullptr && K > FLUSH_STAGES * BK_F32) ||
         (kv != nullptr &&
          (kvp < 1 || rows % kvp ||
           (edge == nullptr && tiles > 1 && BM % kvp != 0))))

@@ -34,10 +34,11 @@ for CPU tensors and launch the CUDA kernels (`csrc/chain_grad.cu`) for
 CUDA tensors, each counting its kernel launches: `.launches` in bf16,
 `.launches_f32` in f32.  The kernels compute in the JAX kernels' two
 dtypes (`kernel_dtype`): bf16 operands on the wgmma main loop, or f32
-operands, h, stash and dz on an FFMA main loop in full f32 (`chain_plan`
-says which).  A stage of width <= 2048 runs its LayerNorm in its GEMM's
-epilogue across a cluster of ceil(W / 256) CTAs; a wider stage runs
-split (the GEMM writes its f32 product, `ops.layernorm_rows` does the
+operands, h, stash and dz on a 3xTF32 wgmma main loop (each operand split
+into TF32 hi + lo, hi*hi + hi*lo + lo*hi summed in f32: f32-accurate;
+`chain_plan` says which).  A stage of width <= 2048 runs its LayerNorm in
+its GEMM's epilogue across a cluster of ceil(W / 256) CTAs; a wider stage
+runs split (the GEMM writes its f32 product, `ops.layernorm_rows` does the
 LayerNorm), so every width the JAX kernels take runs on the card.
 Products of `compute_dtype` operands with f32 accumulation are written as
 f32 products of rounded operands (exact products, f32 sums), as in
@@ -227,8 +228,11 @@ def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
 # ---------------------------------------------------------------------------
 
 BM, BN, BK = 128, 256, 64   # the wgmma tile of csrc/hopper_gemm.cuh
-BK_F32 = 32                 # the FFMA main loop's depth a stage (f32)
-STAGES = 4                  # ring stages
+BK_F32 = 32                 # the 3xTF32 main loop's depth a stage (f32)
+STAGES = 4                  # ring stages (bf16)
+STAGES_F32 = 3              # ring stages (f32), beside two split tiles
+KS = 16                     # k of an f32 split tile: 16 hi + 16 lo a row
+F32_FLUSH_K = 2048          # f32: the longest sum the tensor cores keep
 MAX_CLUSTER = 8             # CTAs of a LayerNorm cluster (portable limit)
 _SPLIT_ROWS = 512           # least rows per K-slice of a split h^T dz
 _SMS = 132                  # H100 SXM streaming multiprocessors
@@ -245,16 +249,41 @@ def kernel_dtype(compute_dtype) -> torch.dtype:
     return compute_dtype
 
 
+# The 3xTF32 main loop, per form: how TMA brings each f32 operand into
+# the ring (as stored: "K-major" or "MN-major") and where it is split
+# into TF32 hi + lo.  A is split into registers (wgmma's register-A
+# form has no majorness); B, which wgmma reads only from shared memory
+# and only K-major in TF32, is split into a K-major hi | lo tile there,
+# transposed on the way when it arrives MN-major.  No operand is copied
+# in device memory.
+F32_SPLIT = {
+    "FWD": {"A": ("K-major", "registers"),
+            "B": ("MN-major", "shared, transposed")},
+    "DH": {"A": ("K-major", "registers"), "B": ("K-major", "shared")},
+    "DW": {"A": ("MN-major", "registers"),
+           "B": ("MN-major", "shared, transposed")},
+}
+
+
+def split_tile_bytes() -> int:
+    """Bytes of one f32 split tile: B's 256 rows of KS TF32 hi and KS lo
+    values, K-major, as the 3xTF32 main loop hands them to wgmma."""
+    return BN * 2 * KS * 4
+
+
 def smem_bytes() -> int:
     """Dynamic shared memory of one GEMM launch, as csrc/hopper_gemm.cuh
-    reckons it: the ring, or the epilogue's f32 tile and bf16 z tile where
-    those are larger, the cluster exchange slots and the ring's
-    mbarriers, and 1024 bytes to align the ring.  The same for both main
-    loops: an f32 stage (BK_F32 deep) fills a bf16 stage's bytes."""
+    reckons it: the largest of the bf16 ring, the epilogue's f32 tile and
+    bf16 z tile, and the f32 ring (STAGES_F32 stages of BK_F32, each a
+    bf16 stage's bytes) with its two split tiles; the cluster exchange
+    slots and the ring's mbarriers, and 1024 bytes to align the ring.
+    One size for every launch of either main loop."""
     tile_ld = BN + 8
-    ring = STAGES * (BM * BK + BK * BN) * 2
+    stage = (BM * BK + BK * BN) * 2
     epilogue = BM * tile_ld * 4 + BM * tile_ld * 2
-    return 1024 + max(ring, epilogue) + 4 * BM * 4 + 2 * STAGES * 8
+    f32 = STAGES_F32 * stage + 2 * split_tile_bytes()
+    return 1024 + max(STAGES * stage, epilogue, f32) + 4 * BM * 4 \
+        + 2 * STAGES * 8
 
 
 def pad8(n: int) -> int:
@@ -305,11 +334,14 @@ def chain_plan(m: int, d: int, widths: Sequence[int], out: int,
     and the projection cotangent, each stage's mode (`stage_mode`) and
     cluster (None for a split stage), the K-slices of
     every dW product (x^T dz0, h_k^T dz_k+1, ..., h_last^T g); and for the
-    compute dtype the main loop ("wgmma" for bf16, "ffma" for f32), its
-    tile (rows, columns, depth of a stage), the bytes of a ring stage and
-    of a launch's shared memory, and the dtype of each buffer: x, h, the
-    stash, the cotangents dz and the seed in the compute dtype, K5's
-    recomputed z in f32."""
+    compute dtype the main loop ("wgmma" for bf16, "3xtf32" for f32: wgmma
+    on TF32 hi / lo parts), its tile (rows, columns, depth of a stage),
+    the ring's stages, the bytes of a ring stage, of the f32 split tiles
+    and of a launch's shared memory, where each operand of each form
+    (FWD z = h W, DH dh = dz W^T, DW dW = h^T dz) is read and, in f32,
+    split ("split"), and the dtype of each buffer: x, h, the stash, the
+    cotangents dz and the seed in the compute dtype, K5's recomputed z in
+    f32."""
     cdt = kernel_dtype(compute_dtype)
     f32 = cdt == torch.float32
     bk = BK_F32 if f32 else BK
@@ -327,10 +359,13 @@ def chain_plan(m: int, d: int, widths: Sequence[int], out: int,
                          for mode in modes],
             "dw_slices": [split_k(m, i, o, bk=bk)
                           for i, o in zip(dims[:-1], dims[1:])],
-            "main_loop": "ffma" if f32 else "wgmma",
+            "main_loop": "3xtf32" if f32 else "wgmma",
             "tile": (BM, BN, bk),
+            "stages": STAGES_F32 if f32 else STAGES,
             "stage_bytes": (BM * bk + bk * BN) * esize,
+            "split_bytes": 2 * split_tile_bytes() if f32 else 0,
             "smem_bytes": smem_bytes(),
+            "split": F32_SPLIT if f32 else None,
             "dtypes": {"x": cdt, "h": cdt, "stash": cdt, "dz": cdt,
                        "seed": cdt, "recomputed_z": torch.float32}}
 

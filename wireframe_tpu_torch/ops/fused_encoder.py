@@ -15,7 +15,7 @@ Three functions over one parameter layout:
 - `fused_point_encoder`: launches the hand-written CUDA kernel
   (`csrc/fused_encoder.cu` on the wgmma + TMA GEMM of
   `csrc/hopper_gemm.cuh`) for CUDA tensors, in bf16 or f32 (the JAX
-  kernel's two compute dtypes; f32 on the GEMM's FFMA main loop), and
+  kernel's two compute dtypes; f32 on the GEMM's 3xTF32 main loop), and
   takes the plain version only for CPU tensors.
   `fused_point_encoder.launches` counts bf16 kernel launches,
   `.launches_f32` f32 ones.  `k1_plan` is its launch plan, pure, so the
@@ -154,9 +154,15 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
     device memory one call allocates at its fullest: two consecutive
     activations (the input and stage 0's h first, then each stage's h
     beside the next's; a split stage's f32 z beside both) or the last h
-    with the projection's outputs (kv tokens, partials, edge slots, pools),
-    whichever is more, beside the rows' validity."""
-    from wireframe_tpu_torch.ops.chain_grad import chain_plan, pad8
+    with the projection's outputs (kv tokens, partials, edge slots, pools;
+    in f32 after a stage wider than F32_FLUSH_K also the f32 features, in
+    which the projection parks its partial sums), whichever is more,
+    beside the rows' validity."""
+    from wireframe_tpu_torch.ops.chain_grad import (
+        F32_FLUSH_K,
+        chain_plan,
+        pad8,
+    )
 
     bm = K1_ROW_TILE
     tiles = -(-n // bm)
@@ -186,7 +192,8 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
     split_z = [b * n * pad8(w) * 4 if mode == "split" else 0
                for w, mode in zip(widths, cplan["modes"])]
     outs = 4 * (b * (n // p) * out if p else 0) + 4 * b * tiles * 5 * out \
-        + (4 * b * tiles * 2 * out if merges else 0) + 4 * b * 4 * out
+        + (4 * b * tiles * 2 * out if merges else 0) + 4 * b * 4 * out \
+        + (4 * b * n * out if esize == 4 and widths[-1] > F32_FLUSH_K else 0)
     peak = b * n + max([x + y + z for x, y, z in zip(acts, acts[1:], split_z)]
                        + [acts[-1] + outs])
     return {"tiles_per_cloud": tiles,
@@ -200,8 +207,9 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
             "stage_ld": [pad8(w) for w in widths],
             "modes": cplan["modes"],
             "clusters": cplan["clusters"],
-            **{k: cplan[k] for k in ("main_loop", "tile", "stage_bytes",
-                                     "smem_bytes", "dtypes")},
+            **{k: cplan[k] for k in ("main_loop", "tile", "stages",
+                                     "stage_bytes", "split_bytes",
+                                     "smem_bytes", "split", "dtypes")},
             "peak_bytes": peak}
 
 
@@ -250,6 +258,7 @@ def _aligned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def _launch(x, stage_params, final_w, final_b, *, tile,
             return_point_features, compute_dtype, kv_pool):
     from wireframe_tpu_torch.ops.chain_grad import (
+        F32_FLUSH_K,
         _count,
         _fn,
         _ptr,
@@ -316,8 +325,11 @@ def _launch(x, stage_params, final_w, final_b, *, tile,
                 stream), "stage GEMM + LayerNorm")
         a, k_in = h, width
     p = kv_pool
+    # In f32 past F32_FLUSH_K the projection parks its partial sums in the
+    # features, so it gets them whether asked for or not.
     feats = (torch.empty((b, n, c), dtype=torch.float32, device=dev)
-             if return_point_features else None)
+             if return_point_features or (
+                 cdt == torch.float32 and k_in > F32_FLUSH_K) else None)
     kv = torch.empty((b, n // p, c), dtype=torch.float32, device=dev) \
         if p else None
     part = torch.empty(plan["partials"], dtype=torch.float32, device=dev)
