@@ -78,7 +78,12 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 2560) with the 4096 stage and at (2, 328) with widths
                 (2304, 8192) and out 2304 against their plain versions,
                 K1 and K5's forward array_equal to K2's, two launches
-                equal; the split stage and each row kernel timed;
+                equal; the split stage and each row kernel timed, each
+                row kernel shown to be one kernel launch a call, beside
+                the LayerNorm-alone yardsticks (layer_norm and
+                native_layer_norm_backward in f32: not the same
+                function); each row kernel against its plain version at
+                ROWS_RAGGED (ragged tails, column chunks);
  10. training — the full-width recipe train step (train_model, overfit
                 one synthetic batch of 8 box buildings, 20 steps): finite
                 losses, K2 / K3 / K4 launched once per step each; the first
@@ -3014,6 +3019,175 @@ def _rows_close(torch, label, got, want, dtype, grad):
     return err.max().item()
 
 
+# The row kernels alone at ragged shapes, against their plain versions:
+# a width that is not a multiple of 8 (a tail of 4 bf16), a width whose
+# units do not fill the last warp, an odd width (tails of 3), and a row
+# past 8192 columns that streams in column chunks.
+ROWS_RAGGED = ((1000, 4100), (656, 2312), (333, 2051), (300, 20002))
+
+
+def _tie_free(torch, z, dh, g, be):
+    """dh with 0 on the rows that hold a gate within F32_TIE of a tie
+    (the two sides may open it differently; see F32_GRAD_RTOL), and the
+    number of such rows."""
+    zf = z.float()
+    mu = zf.mean(-1, keepdim=True)
+    xhat = (zf - mu) * torch.rsqrt(((zf - mu) ** 2).mean(
+        -1, keepdim=True) + 1e-6)
+    tied = ((xhat * g + be).abs() <= F32_TIE).any(-1, keepdim=True)
+    return dh * (~tied).float(), int(tied.sum())
+
+
+def limits_rows_ragged(torch, dev, card):
+    """Each row kernel at ROWS_RAGGED in bf16 and f32 (the bf16 backward
+    from the kernel's own stash and from the f32 z) against its plain
+    version, within `_rows_close`'s bounds, two launches equal.  Returns
+    {dtype: {"forward": largest error, "backward": largest error}}."""
+    from wireframe_tpu_torch.ops.chain_grad import _rows
+    from wireframe_tpu_torch.ops.layernorm_rows import (
+        layernorm_relu_backward,
+        layernorm_relu_backward_plain,
+        layernorm_relu_forward,
+        layernorm_relu_forward_plain,
+        rows_plan,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    errs = {tag: {"forward": 0.0, "backward": 0.0} for tag in ("bf16", "f32")}
+    for m, w in ROWS_RAGGED:
+        z = _rows(m, w, torch.float32, dev)
+        z.copy_(torch.randn((m, w), device=dev, generator=gen) * 2 + 0.5)
+        dh = _rows(m, w, torch.float32, dev)
+        dh.copy_(torch.randn((m, w), device=dev, generator=gen) * 0.1)
+        g = 1 + 0.1 * torch.randn(w, device=dev, generator=gen)
+        be = 0.1 * torch.randn(w, device=dev, generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            stash = None if dtype == torch.float32 else torch.bfloat16
+            label = f"limits row kernels ({m}, {w}) {tag}"
+            print(f"{label}: forward {rows_plan(m, w, dtype, 'fwd')['mode']},"
+                  f" backward {rows_plan(m, w, dtype, 'bwd')['mode']}",
+                  flush=True)
+            hk, sk = layernorm_relu_forward(z, g, be, h_dtype=dtype,
+                                            stash_dtype=stash)
+            hp, sp = layernorm_relu_forward_plain(z, g, be, h_dtype=dtype,
+                                                  stash_dtype=stash)
+            err = errs[tag]
+            err["forward"] = max(err["forward"], _rows_close(
+                torch, f"{label} forward h", hk, hp, dtype, False))
+            if sk is not None and not torch.equal(sk, sp):
+                raise AssertionError(f"{label}: the stash is not z rounded")
+            twice = [torch.equal(hk, layernorm_relu_forward(
+                z, g, be, h_dtype=dtype, stash_dtype=stash)[0])]
+            for zz in ((z,) if sk is None else (sk, z)):
+                src = "f32 z" if zz.dtype == torch.float32 else "stash"
+                d0, tied = _tie_free(torch, zz, dh, g, be)
+                d = _rows(m, w, torch.float32, dev)
+                d.copy_(d0)
+                rebuild = zz is sk or dtype == torch.float32
+                got = layernorm_relu_backward(zz, d, g, be, dz_dtype=dtype,
+                                              rebuild_h=rebuild)
+                want = layernorm_relu_backward_plain(
+                    zz, d, g, be, dz_dtype=dtype, rebuild_h=rebuild)
+                blabel = f"{label} backward from the {src}"
+                err["backward"] = max(
+                    err["backward"],
+                    _rows_close(torch, f"{blabel} dz ({tied} tied rows "
+                                "without cotangent)", got[0], want[0], dtype,
+                                True),
+                    _rows_close(torch, f"{blabel} column partials", got[2],
+                                want[2], torch.float32, True))
+                if rebuild:
+                    err["backward"] = max(err["backward"], _rows_close(
+                        torch, f"{blabel} h", got[1], want[1], dtype, False))
+                again = layernorm_relu_backward(zz, d, g, be, dz_dtype=dtype,
+                                                rebuild_h=rebuild)
+                twice.append(all(u is None and v is None or torch.equal(u, v)
+                                 for u, v in zip(got, again)))
+            if not all(twice):
+                raise AssertionError(f"{label}: two launches differ")
+            # Times: the forward with K2's stash, the backward from the
+            # stash (bf16) or the f32 z with the rebuilt h (K3).
+            zb = z if sk is None else sk
+            es = 4 if dtype == torch.float32 else 2
+            for part, fn, nbytes in (
+                    ("forward", lambda: layernorm_relu_forward(
+                        z, g, be, h_dtype=dtype, stash_dtype=stash),
+                     (4 + es + (0 if sk is None else 2)) * m * w + 8 * w),
+                    ("backward", lambda: layernorm_relu_backward(
+                        zb, d, g, be, dz_dtype=dtype, rebuild_h=True),
+                     (3 * es + 4) * m * w + 8 * w
+                     + 4 * -(-m // 128) * 3 * w)):
+                ms = cuda_ms(torch, fn, 10)
+                bound = _rows_bound(nbytes)[0]
+                print(f"{label} {part}: kernel {ms:.4f} ms, bound "
+                      f"{bound:.4f} ms (bytes), {bound / ms * 100:.1f}% of "
+                      f"bound [{card}]", flush=True)
+    print(f"limits row kernels at {list(ROWS_RAGGED)}: largest errors "
+          f"{errs}; two launches equal [{card}]", flush=True)
+    return errs
+
+
+def rows_launches_per_call(torch, dev, card, m=2048, w=4096):
+    """The kernels that one call of each row-kernel wrapper launches
+    (forward bf16 and f32, backward bf16 and f32), as the library counts
+    its launches: one each, or AssertionError."""
+    from wireframe_tpu_torch.ops.chain_grad import _rows
+    from wireframe_tpu_torch.ops.layernorm_rows import (
+        kernels_launched,
+        layernorm_relu_backward,
+        layernorm_relu_forward,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    z = _rows(m, w, torch.float32, dev)
+    z.copy_(torch.randn((m, w), device=dev, generator=gen))
+    g = torch.ones(w, device=dev)
+    be = torch.zeros(w, device=dev)
+    _, stash = layernorm_relu_forward(z, g, be, h_dtype=torch.bfloat16,
+                                      stash_dtype=torch.bfloat16)
+    calls = {
+        "forward bf16": lambda: layernorm_relu_forward(
+            z, g, be, h_dtype=torch.bfloat16, stash_dtype=torch.bfloat16),
+        "forward f32": lambda: layernorm_relu_forward(
+            z, g, be, h_dtype=torch.float32),
+        "backward bf16": lambda: layernorm_relu_backward(
+            stash, z, g, be, dz_dtype=torch.bfloat16, rebuild_h=True),
+        "backward f32": lambda: layernorm_relu_backward(
+            z, z, g, be, dz_dtype=torch.float32, rebuild_h=False)}
+    counts = {}
+    for name, fn in calls.items():
+        before = kernels_launched()
+        fn()
+        counts[name] = kernels_launched() - before
+    torch.cuda.synchronize()
+    print(f"limits row kernels: kernel launches in one call of each "
+          f"wrapper {counts} [{card}]", flush=True)
+    if set(counts.values()) != {1}:
+        raise AssertionError(f"row kernel launches per call: {counts}")
+    return counts
+
+
+def layernorm_alone(torch, z32, dh32, g, be):
+    """The LayerNorm-alone yardsticks at the row kernels' shape: one
+    `torch.nn.functional.layer_norm` (f32, eps 1e-6, affine) and one
+    `torch.ops.aten.native_layer_norm_backward`, with the bytes each moves
+    (input and output once: forward z, out; backward dh, z, dx, and
+    d gamma, d beta).  Neither is the row kernels' function (no ReLU, no
+    stash, no tie rule, no tile partials); the port never calls them."""
+    m, w = z32.shape
+    zc, dc = z32.contiguous(), dh32.contiguous()
+    _, mean, rstd = torch.ops.aten.native_layer_norm(zc, [w], g, be, 1e-6)
+    fwd = cuda_ms(torch, lambda: torch.nn.functional.layer_norm(
+        zc, (w,), g, be, 1e-6), 10)
+    bwd = cuda_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
+        dc, zc, [w], mean, rstd, g, be, [True, True, True]), 10)
+    return {"forward": (fwd, 8 * m * w + 8 * w),
+            "backward": (bwd, 12 * m * w + 8 * m + 16 * w)}
+
+
 def limits_timing(torch, dev, card):
     """At the recipe's (8, 2560) with the 4096 stage, bf16 and f32: the
     split stage forward (GEMM to f32 z + the LayerNorm row kernel, K2's
@@ -3029,9 +3203,12 @@ def limits_timing(torch, dev, card):
         layernorm_relu_forward_plain,
     )
 
+    from wireframe_tpu_torch.ops.layernorm_rows import occupancy, rows_plan
+
     rng = np.random.default_rng(18)
     m, k_in, width = 8 * 2560, 1024, 4096
     out = {}
+    alone = None
     for dtype in (torch.bfloat16, torch.float32):
         tag = "f32" if dtype == torch.float32 else "bf16"
         f32 = dtype == torch.float32
@@ -3078,18 +3255,10 @@ def limits_timing(torch, dev, card):
                                              stash_dtype=stash)
         fwd_err = _rows_close(torch, f"limits row kernel forward {tag} h",
                               hk, hp, dtype, False)
-        # dh 0 on the rows that hold a gate within F32_TIE of a tie (the
-        # two sides may open it differently; see F32_GRAD_RTOL).
-        zf = z.float()
-        mu = zf.mean(-1, keepdim=True)
-        xhat = (zf - mu) * torch.rsqrt(((zf - mu) ** 2).mean(
-            -1, keepdim=True) + 1e-6)
-        tied = ((xhat * g + be).abs() <= F32_TIE).any(-1, keepdim=True)
-        dh32 = dh32 * (~tied).float()
+        dh32, tied = _tie_free(torch, z, dh32, g, be)
         print(f"limits row kernel backward {tag}: cotangent 0 on "
-              f"{int(tied.sum())} of {m} rows behind a gate within "
-              f"{F32_TIE} of a tie", flush=True)
-        del zf, mu, xhat
+              f"{tied} of {m} rows behind a gate within {F32_TIE} of a "
+              "tie", flush=True)
         dzk, hbk, pk = rows_bwd()
         dzp, hbp, pp = layernorm_relu_backward_plain(
             z, dh32, g, be, dz_dtype=dtype, rebuild_h=True)
@@ -3100,6 +3269,17 @@ def limits_timing(torch, dev, card):
                         hbp, dtype, False),
             _rows_close(torch, f"limits row kernel backward {tag} column "
                         "partials", pk, pp, torch.float32, True))
+        for direction, zdt in (("fwd", None), ("bwd", z.dtype)):
+            rplan = rows_plan(m, width, dtype, direction, zdt)
+            print(f"limits row kernel {direction} {tag} plan: "
+                  + ", ".join(f"{k} {rplan[k]}" for k in (
+                      "mode", "threads", "ring", "rows_per_cta", "cluster",
+                      "grid", "smem_bytes", "ctas_per_sm"))
+                  + f"; the runtime fits {occupancy(rplan, dtype, zdt)} "
+                  + ("clusters on the card" if direction == "bwd"
+                     else "blocks an SM"), flush=True)
+        if alone is None:
+            alone = layernorm_alone(torch, z32, dh32, g, be)
         tiles = -(-m // 128)
         res = {}
         for key, fn, plain, flops, nbytes in (
@@ -3123,17 +3303,31 @@ def limits_timing(torch, dev, card):
             plain_ms = cuda_ms(torch, plain, 3)
             bound, by = (_bound(flops, nbytes, f32) if flops
                          else _rows_bound(nbytes))
-            print(f"limits {key} {tag} ({m} x {k_in} -> {width}): kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}), {bound / ms * 100:.1f}% of bound;"
-                  f" library: none [{card}]", flush=True)
+            yard = ""
             res[key] = {"shape": f"M={m} K={k_in} W={width}", "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": by}
+            if key.startswith("row kernel"):
+                lms, lbytes = alone[key.split()[-1]]
+                yard = (f"LayerNorm alone — not the same function (f32 "
+                        f"torch call): {lms:.4f} ms, "
+                        f"{lbytes / H100_BYTES_PER_S * 1e3 / lms * 100:.1f}% "
+                        f"of its own {lbytes / 1e6:.1f} MB at 3.35 TB/s")
+                res[key]["layernorm_alone_ms"] = lms
+            print(f"limits {key} {tag} ({m} x {k_in} -> {width}): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}), {bound / ms * 100:.1f}% of bound;"
+                  f" library: {yard or 'none'} [{card}]", flush=True)
         res["row kernel forward"]["max_abs_err"] = fwd_err
         res["row kernel backward"]["max_abs_err"] = bwd_err
         out[tag] = res
-        del a, dza, z32, dh32, h, z, hk, hp, dzk, dzp, hbk, hbp, pk, pp, tied
+        del a, dza, z32, dh32, h, z, hk, hp, dzk, dzp, hbk, hbp, pk, pp
+    ragged = limits_rows_ragged(torch, dev, card)
+    rows_launches_per_call(torch, dev, card)
+    for tag in out:
+        for part in ("forward", "backward"):
+            out[tag][f"row kernel {part}"]["ragged_max_abs_err"] = \
+                ragged[tag][part]
     return out
 
 

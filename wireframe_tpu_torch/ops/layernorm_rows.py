@@ -14,24 +14,55 @@ writes its f32 product (z forward, dh backward) and the row kernels of
   of K5's recompute) and the f32 dh: dz and optionally the rebuilt h in
   the compute dtype, and per-128-row-tile column partials of d gamma,
   d beta and d b (shape (ceil(M / 128), 3 W)), which the caller sums in
-  tile order as it sums the fused epilogue's.
+  tile order as it sums the fused epilogue's.  One launch.
 
-Each takes its plain version (`*_plain`, the arithmetic of
+Both are bound by bytes (8 B an element forward; 10 B backward in bf16,
+16 B in f32), so each reads every input byte from device memory once and
+moves 16 bytes at a time: rows staged in shared memory by 16-byte
+`cp.async` copies in a ring, 16-byte stores, gamma and beta loaded once a
+block, the backward's 128-row tile split over a thread-block cluster
+whose CTAs add their column partials in rank order.  `rows_plan` names
+what a call launches; rows wider than 8192 columns stream through the
+same kernels in column chunks.  Every sum runs in a fixed order (no float
+atomics) and the variance is centred.
+
+Each wrapper takes its plain version (`*_plain`, the arithmetic of
 `chain_grad.chain_forward_plain` / `chain_backward_plain` for one stage)
-for CPU tensors and launches the kernels for CUDA tensors, counting
-`.launches` (bf16) or `.launches_f32` (f32).  `chain_grad.chain_plan`
-and `fused_encoder.k1_plan` name the stages that run split.
+for CPU tensors and launches its kernel for CUDA tensors, counting
+`.launches` (bf16) or `.launches_f32` (f32); a CUDA tensor that the
+kernel does not take raises.  `chain_grad.chain_plan` and
+`fused_encoder.k1_plan` name the stages that run split.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 ROW_TILE = 128          # rows of a backward partial (the GEMM's row tile)
 LN_EPS = 1e-6
+# The kernels' constants (`csrc/layernorm_rows.cu`, checked at load).
+VEC = 8                 # columns a unit: 16 bytes of bf16, 32 of f32
+UNITS = 2               # units a thread takes of each staged chunk
+MAX_THREADS = 512       # resident rows up to VEC * UNITS * 512 = 8192
+CHUNK_THREADS = 256     # wider rows: chunks of VEC * UNITS * 256 columns
+MAX_RING = 4
+MAX_CLUSTER = 8
+SMEM_LIMIT = 232448     # dynamic shared memory a block may have
+RESIDENT_MAX = VEC * UNITS * MAX_THREADS
+FWD_ROWS = 8            # rows a forward block takes
+MAX_WARPS = MAX_THREADS // 32
+# One H100 SXM, for the plan's occupancy estimate: SMs, and per SM the
+# shared memory (228 KB, 1 KB of it kept per block), threads, blocks and
+# registers.  Registers a thread are taken at ptxas's count rounded up:
+# the backward at its launch bound's ceiling (128 at 512 threads), the
+# forward at 64 (59); `ln_rows_occupancy` asks the runtime on the card.
+SMS = 132
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+SM_THREADS, SM_BLOCKS, SM_REGS = 2048, 32, 65536
+ASSUMED_REGS = {"fwd": 64, "bwd": 128}
 
 
 def _stats(z: torch.Tensor):
@@ -80,8 +111,105 @@ def layernorm_relu_backward_plain(z, dh, gamma, beta, *, dz_dtype,
 
 
 # ---------------------------------------------------------------------------
+# The launch plan
+# ---------------------------------------------------------------------------
+
+def smem_bytes(direction: str, z_size: int, threads: int, ring: int,
+               rows: int, w: int) -> int:
+    """Dynamic shared memory of one block, as `csrc/layernorm_rows.cu`'s
+    `layout` places it: gamma | beta (resident rows), the ring of `ring`
+    slots (a slot: the stage's z and, backward, its f32 dh), the
+    backward's column-partial exchange (3 chunk floats, on the ring's
+    bytes when resident), the backward's per-row statistics (column
+    chunks) and the block sums' scratch."""
+    bwd = direction == "bwd"
+    chunk = VEC * UNITS * threads
+    resident = w <= chunk
+    slot = chunk * (z_size + 4 if bwd else 4)
+    ring_b, part_b = ring * slot, 3 * chunk * 4 if bwd else 0
+    out = 2 * chunk * 4 if resident else 0
+    out += max(ring_b, part_b) if resident else ring_b + part_b
+    if bwd and not resident:
+        out += rows * 16
+    return out + 2 * MAX_WARPS * 2 * 4
+
+
+def rows_plan(m: int, w: int, dtype, direction: str,
+              z_dtype=None) -> Dict:
+    """What one row-kernel call launches for (M, W) in compute dtype
+    `dtype` (bf16 or f32), `direction` "fwd" or "bwd", from the shape
+    alone.  `z_dtype` is the backward's z (default: the bf16 stash in
+    bf16, the f32 z in f32).
+
+    "mode": "registers" (forward) or "shared memory" (backward) while a
+    whole row fits one stage (W <= 8192): it comes from device memory
+    once and is reduced where the mode says; "column chunks" beyond,
+    streaming chunks of "chunk_cols" columns (forward: each row read
+    twice; backward: z three times, dh twice).  "threads" a block (each
+    thread "units" units of 8 columns a stage), "rows_per_cta",
+    "rows_per_stage" (1), "ring" (stages in shared memory; the deepest
+    that keeps "ctas_per_sm" at its best), "cluster" (backward: the CTAs
+    of one 128-row tile), "grid" (CTAs), "smem_bytes" (dynamic shared
+    memory), "ctas_per_sm" (estimated from shared memory, threads and
+    assumed registers) and "waves" (grid over 132 SMs at that count);
+    backward also "part", the column partials' shape."""
+    if m < 1 or w < 1:
+        raise ValueError(f"the row kernels need M, W >= 1; got ({m}, {w})")
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction is 'fwd' or 'bwd', not {direction!r}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the row kernels compute in bf16 or f32, not "
+                         f"{dtype}")
+    bwd = direction == "bwd"
+    if z_dtype is None:
+        z_dtype = dtype
+    if bwd and z_dtype not in (torch.bfloat16, torch.float32) or (
+            bwd and dtype == torch.float32 and z_dtype != torch.float32):
+        raise ValueError(f"the backward reads a bf16 or f32 z (f32 for f32 "
+                         f"dz); got {z_dtype} for {dtype}")
+    z_size = 2 if bwd and z_dtype == torch.bfloat16 else 4
+    if w <= RESIDENT_MAX:
+        threads = 32 * -(-w // (32 * VEC * UNITS))
+        mode = "shared memory" if bwd else "registers"
+    else:
+        threads = CHUNK_THREADS
+        mode = "column chunks"
+    chunk = VEC * UNITS * threads
+    cluster = MAX_CLUSTER if bwd else 1
+    rows = ROW_TILE // cluster if bwd else FWD_ROWS
+    best = None
+    for ring in range(2, MAX_RING + 1):
+        smem = smem_bytes(direction, z_size, threads, ring, rows, w)
+        if smem > SMEM_LIMIT:
+            break
+        per_sm = min(SM_THREADS // threads, SM_BLOCKS,
+                     SM_SMEM // (smem + BLOCK_RESERVED),
+                     SM_REGS // (threads * ASSUMED_REGS[direction]))
+        if best is None or per_sm >= best[2]:
+            best = (ring, smem, per_sm)
+    ring, smem, per_sm = best
+    grid = cluster * -(-m // ROW_TILE) if bwd else -(-m // rows)
+    plan = {"direction": direction, "mode": mode, "threads": threads,
+            "units": UNITS, "unit_cols": VEC, "chunk_cols": chunk,
+            "chunks": -(-w // chunk), "rows_per_cta": rows,
+            "rows_per_stage": 1, "ring": ring, "cluster": cluster,
+            "grid": grid, "smem_bytes": smem, "ctas_per_sm": per_sm,
+            "waves": grid / (SMS * per_sm)}
+    if bwd:
+        plan["part"] = (-(-m // ROW_TILE), 3 * w)
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
+
+# The library's constants (`ln_rows_const`) and the plans at which its
+# shared-memory layout is held to `smem_bytes` when it loads.
+_CONSTS = (ROW_TILE, VEC, UNITS, MAX_THREADS, CHUNK_THREADS, MAX_RING,
+           MAX_CLUSTER, SMEM_LIMIT)
+_PROBE_WIDTHS = (2049, 2304, 4096, 4100, 8192, 8193, 12288, 65536)
+
 
 def _lib() -> ctypes.CDLL:
     from wireframe_tpu_torch.ops import _build
@@ -91,17 +219,59 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         for sfx in ("", "_f32"):
             fn = getattr(lib, "ln_rows_fwd" + sfx)
-            fn.argtypes = [p, i, p, p, p, i, p, i, i, i, p]
+            fn.argtypes = [p, i, p, p, p, i, p, i, i, i, i, i, i, i, p]
             fn.restype = i
             fn = getattr(lib, "ln_rows_bwd" + sfx)
-            fn.argtypes = [p, i, i, p, i, p, p, p, p, i, p, i, p, i, i, p]
+            fn.argtypes = [p, i, i, p, i, p, p, p, i, p, i, p, i, i, i, i,
+                           i, i, i, p]
             fn.restype = i
-        lib.ln_rows_tile.argtypes, lib.ln_rows_tile.restype = [], i
-        if lib.ln_rows_tile() != ROW_TILE:
-            raise RuntimeError(f"csrc/layernorm_rows.cu's row tile "
-                               f"{lib.ln_rows_tile()} is not {ROW_TILE}")
+        lib.ln_rows_const.argtypes, lib.ln_rows_const.restype = [i], i
+        lib.ln_rows_smem.argtypes = [i, i, i, i, i, i]
+        lib.ln_rows_smem.restype = i
+        lib.ln_rows_occupancy.argtypes = [i, i, i, i, i, i, i]
+        lib.ln_rows_occupancy.restype = i
+        lib.ln_rows_launched.argtypes = []
+        lib.ln_rows_launched.restype = ctypes.c_longlong
+        got = tuple(lib.ln_rows_const(k) for k in range(len(_CONSTS)))
+        if got != _CONSTS:
+            raise RuntimeError(f"csrc/layernorm_rows.cu's constants {got} "
+                               f"are not ops/layernorm_rows.py's {_CONSTS}")
+        for w in _PROBE_WIDTHS:
+            for dt, direction, zdt in (
+                    (torch.bfloat16, "fwd", None),
+                    (torch.float32, "fwd", None),
+                    (torch.bfloat16, "bwd", torch.bfloat16),
+                    (torch.bfloat16, "bwd", torch.float32),
+                    (torch.float32, "bwd", torch.float32)):
+                pl = rows_plan(20480, w, dt, direction, zdt)
+                zs = 2 if zdt == torch.bfloat16 else 4
+                c_smem = lib.ln_rows_smem(
+                    int(direction == "bwd"), zs, pl["threads"], pl["ring"],
+                    pl["rows_per_cta"], w)
+                if c_smem != pl["smem_bytes"]:
+                    raise RuntimeError(
+                        f"csrc/layernorm_rows.cu lays out {c_smem} bytes of "
+                        f"shared memory for {direction} W={w}; rows_plan "
+                        f"says {pl['smem_bytes']}")
         lib._ln_typed = True
     return lib
+
+
+def kernels_launched() -> int:
+    """The kernels the row-kernel library has launched in this process
+    (the wrappers' `.launches` count calls; this counts launches)."""
+    return _lib().ln_rows_launched()
+
+
+def occupancy(plan: Dict, dtype, z_dtype=None) -> int:
+    """What the runtime on the card says fits at once for `plan`: forward
+    blocks per SM, or backward clusters on the card."""
+    bwd = plan["direction"] == "bwd"
+    z32 = (z_dtype or dtype) == torch.float32
+    m = plan["part"][0] * ROW_TILE if bwd else 1
+    return _lib().ln_rows_occupancy(
+        int(bwd), int(dtype == torch.float32), int(z32), m,
+        plan["threads"], plan["cluster"], plan["smem_bytes"])
 
 
 def _check_rows(what, t, m, w, dtypes):
@@ -112,11 +282,28 @@ def _check_rows(what, t, m, w, dtypes):
                          f"{t.dtype} {tuple(t.shape)} {t.stride()}")
 
 
+def row_args(what, t: Optional[torch.Tensor]):
+    """(pointer, row stride) of a row-major buffer the kernels read or
+    write 16 bytes at a time: its start and every row 16-byte aligned, or
+    ValueError; (None, 0) for None."""
+    if t is None:
+        return None, 0
+    if t.data_ptr() % 16 or t.stride(0) * t.element_size() % 16:
+        raise ValueError(
+            f"{what}: the row kernels take rows that start 16-byte aligned "
+            f"(a multiple of {16 // t.element_size()} {t.dtype} elements "
+            f"apart); got a start {t.data_ptr() % 16} bytes past 16 and "
+            f"rows {t.stride(0)} elements apart")
+    return t.data_ptr(), t.stride(0)
+
+
 def _params(gamma, beta, w, dev):
     for t in (gamma, beta):
         if t.shape != (w,) or t.device != dev:
             raise ValueError(f"LayerNorm terms must be ({w},) on {dev}")
-    return [t.to(torch.float32).contiguous() for t in (gamma, beta)]
+    out = [t.to(torch.float32).contiguous() for t in (gamma, beta)]
+    # The kernels copy them 16 bytes at a time.
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in out]
 
 
 def layernorm_relu_forward(z: torch.Tensor, gamma: torch.Tensor,
@@ -149,14 +336,16 @@ def layernorm_relu_forward(z: torch.Tensor, gamma: torch.Tensor,
                          f"bf16 h; got {h_dtype}, {stash_dtype}")
     dev = z.device
     g, b = _params(gamma, beta, w, dev)
+    zp = row_args("z", z)
     h = _rows(m, w, h_dtype, dev)
     stash = None if stash_dtype is None else _rows(m, w, stash_dtype, dev)
+    plan = rows_plan(m, w, h_dtype, "fwd")
     f32 = h_dtype == torch.float32
     lib = _lib()
     _check(getattr(lib, "ln_rows_fwd" + ("_f32" if f32 else ""))(
-        z.data_ptr(), z.stride(0), g.data_ptr(), b.data_ptr(), h.data_ptr(),
-        h.stride(0), None if stash is None else stash.data_ptr(),
-        0 if stash is None else stash.stride(0), m, w,
+        *zp, g.data_ptr(), b.data_ptr(), *row_args("h", h),
+        *row_args("stash", stash), m, w, plan["threads"],
+        plan["rows_per_cta"], plan["ring"], plan["smem_bytes"],
         torch.cuda.current_stream(dev).cuda_stream), "LayerNorm rows forward")
     _count(layernorm_relu_forward, h_dtype)
     return h, stash
@@ -194,19 +383,19 @@ def layernorm_relu_backward(z: torch.Tensor, dh: torch.Tensor,
     if dh.device != dev:
         raise ValueError("dh must lie on z's device")
     g, b = _params(gamma, beta, w, dev)
+    zp, dhp = row_args("z", z), row_args("dh", dh)
     dz = _rows(m, w, dz_dtype, dev)
     h = _rows(m, w, dz_dtype, dev) if rebuild_h else None
-    stats = torch.empty((m, 4), dtype=torch.float32, device=dev)
-    part = torch.empty((-(-m // ROW_TILE), 3 * w), dtype=torch.float32,
-                       device=dev)
+    plan = rows_plan(m, w, dz_dtype, "bwd", z.dtype)
+    part = torch.empty(plan["part"], dtype=torch.float32, device=dev)
     f32 = dz_dtype == torch.float32
     lib = _lib()
     _check(getattr(lib, "ln_rows_bwd" + ("_f32" if f32 else ""))(
-        z.data_ptr(), z.stride(0), int(z.dtype == torch.float32),
-        dh.data_ptr(), dh.stride(0), g.data_ptr(), b.data_ptr(),
-        stats.data_ptr(), dz.data_ptr(), dz.stride(0),
-        None if h is None else h.data_ptr(), 0 if h is None else h.stride(0),
-        part.data_ptr(), m, w, torch.cuda.current_stream(dev).cuda_stream),
+        zp[0], zp[1], int(z.dtype == torch.float32), *dhp, g.data_ptr(),
+        b.data_ptr(), *row_args("dz", dz), *row_args("h", h),
+        part.data_ptr(), m, w, plan["threads"], plan["rows_per_cta"],
+        plan["ring"], plan["cluster"], plan["smem_bytes"],
+        torch.cuda.current_stream(dev).cuda_stream),
         "LayerNorm rows backward")
     _count(layernorm_relu_backward, dz_dtype)
     return dz, h, part
