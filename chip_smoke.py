@@ -1134,6 +1134,86 @@ def chain_phase(torch, dev, card, shapes=CHAIN_SHAPES):
 # beside it is the same comparison for the stash path end to end: K3 on
 # K2's own stash against the plain version on the plain stash.
 K5_MAX_REL, K5_MEAN_REL = 5e-2, 1e-2
+# K5's backward recomputes by row chunks (`chain_grad.remat_plan`).  Its
+# peak device memory for one call, beyond what was allocated before it,
+# is held to the plan's `peak_bytes` (the largest chunk's recomputed z
+# and h with its dz, partials and dW slices, beside the seed, x, dx and
+# the gradients, each as the caching allocator may count it), and the
+# plan's figure to these limits: the plan's own at the default
+# REMAT_CHUNK_BYTES, rounded up, per (dtype, B, N).
+K5_BWD_PEAK = {("bf16", 3, 2560): 0.31e9, ("bf16", 128, 2560): 1.49e9,
+               ("f32", 3, 2560): 0.42e9, ("f32", 128, 2560): 1.85e9}
+# The same call in one chunk (the whole batch recomputed at once, as
+# before the chunks), and a ragged shape forced through several chunks
+# of one row tile (the last one shorter).
+ONE_CHUNK = {"chunk_bytes": 1 << 62}
+FORCED_CHUNKS = {"chunk_bytes": 1, "min_rows": 128}
+
+
+def k5_bwd_peak(torch, label, key, plan, call, card):
+    """The peak device memory of one K5 backward call beyond what was
+    allocated before it, against the plan's peak_bytes and, at the shapes
+    of K5_BWD_PEAK, the plan's figure against its limit.  Returns the
+    figures for the kernels line."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    limit = K5_BWD_PEAK.get(key)
+    ok = peak <= plan["peak_bytes"] and (
+        limit is None or plan["peak_bytes"] <= limit)
+    chunk = plan["chunk_peak"] / 1e9
+    held = "none" if limit is None else f"{limit / 1e9} GB"
+    print(f"{label}: K5 backward peak device memory {peak / 1e9:.4f} GB "
+          f"beyond the {base / 1e9:.4f} GB allocated before it; plan "
+          f"{plan['peak_bytes'] / 1e9:.4f} GB ({len(plan['chunks'])} "
+          f"chunk(s) of {plan['chunk_rows']} rows, {chunk:.4f} GB a chunk; "
+          f"limit {held}); the whole batch's f32 z and h at once: "
+          f"{plan['whole_batch_bytes'] / 1e9:.4f} GB "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: K5 backward holds {peak} bytes, "
+                             f"plan {plan['peak_bytes']}, limit {limit}")
+    return {"peak_bytes": peak, "plan_peak_bytes": plan["peak_bytes"],
+            "chunks": len(plan["chunks"]), "chunk_rows": plan["chunk_rows"],
+            "whole_batch_bytes": plan["whole_batch_bytes"]}
+
+
+def k5_close(label):
+    """A check of two bf16 K5 backward results at K5_MAX_REL /
+    K5_MEAN_REL."""
+    def close(got, want):
+        e = grad_errors(got, want)
+        print(f"{label}: worst max rel err {e[0]:.2e} ({e[1]}), worst mean "
+              f"rel err {e[2]:.2e} ({e[3]}) (limits {K5_MAX_REL}, "
+              f"{K5_MEAN_REL})", flush=True)
+        if e[0] > K5_MAX_REL or e[2] > K5_MEAN_REL:
+            raise AssertionError(f"{label} disagrees")
+    return close
+
+
+def k5_chunks_equal(torch, label, gk, one, close):
+    """K5's backward over several chunks against the same call in one
+    chunk: dx, d final_b and every stage's d b, d gamma, d beta
+    array_equal (the same rows, the same row tiles summed in the same
+    order); every dW, whose K-slices differ, through `close` (the phase's
+    gradient check).  Returns what was held equal."""
+    flat = lambda r: [("dx", r[0])] + [  # noqa: E731
+        (f"{t}{i}", v) for i, st in enumerate(r[1])
+        for t, v in zip(("dW", "db", "dgamma", "dbeta"), st)] + [
+        ("dW_proj", r[2]), ("db_proj", r[3])]
+    equal = [name for name, _ in flat(gk) if not name.startswith("dW")]
+    differ = [name for (name, a), (_, w) in zip(flat(gk), flat(one))
+              if name in equal and not torch.equal(a, w)]
+    print(f"{label}: {equal} array_equal to the one-chunk call: "
+          f"{not differ}", flush=True)
+    if differ:
+        raise AssertionError(f"{label}: {differ} differ from one chunk")
+    close(gk, one)
+    return equal
 
 
 def k5_bound_ms(b, n, d, hidden, out, kv_pool, emit, backward, f32=False):
@@ -1180,13 +1260,14 @@ def k5_phase(torch, dev, card, shapes=K5_SHAPES):
         chain_forward_plain,
         remat_chain_backward,
         remat_chain_forward,
+        remat_plan,
     )
 
     rng = np.random.default_rng(6)
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     bf = torch.bfloat16
-    result = {}
+    result, peaks = {}, {}
     for name, b, n, hidden, out, p, emit in shapes:
         stages, fw, fb = recipe_encoder_params(torch, rng, dev,
                                                hidden=hidden, out=out)
@@ -1217,6 +1298,7 @@ def k5_phase(torch, dev, card, shapes=K5_SHAPES):
             cot["g"] = torch.randn(want["features"].shape, device=dev,
                                    generator=gen) * 0.1
         bkw = dict(kv_pool=p, compute_dtype=bf, **cot)
+        plan = remat_plan(b * n, 8, hidden, out, bf)
         gk = remat_chain_backward(x, stages, fw, fb, **bkw)
         gp = chain_backward_plain(x, stages, fw, fb, None, **bkw)
         yard = grad_errors(
@@ -1235,6 +1317,38 @@ def k5_phase(torch, dev, card, shapes=K5_SHAPES):
               f"{yard[2]:.2e} ({yard[3]})", flush=True)
         if not ok:
             raise AssertionError(f"K5 backward disagrees ({name})")
+        print(f"K5 bwd {name} ({b}, {n}): {len(plan['chunks'])} chunk(s) "
+              f"of {plan['chunk_rows']} rows", flush=True)
+        if b * n <= 8 * 2560 and len(plan["chunks"]) != 1:
+            raise AssertionError(f"K5 bwd {name}: more than one chunk")
+        if len(plan["chunks"]) > 1:
+            one = remat_chain_backward(x, stages, fw, fb, **bkw, **ONE_CHUNK)
+            k5_chunks_equal(torch, f"K5 bwd {name} ({b}, {n})", gk, one,
+                            k5_close(f"K5 bwd {name} dW, {len(plan['chunks'])}"
+                                     f" chunks vs one"))
+            del one
+        if name == "ragged kv":
+            forced = remat_plan(b * n, 8, hidden, out, bf, **FORCED_CHUNKS)
+            gf = remat_chain_backward(x, stages, fw, fb, **bkw,
+                                      **FORCED_CHUNKS)
+            label = (f"K5 bwd {name} ({b}, {n}) forced into "
+                     f"{len(forced['chunks'])} chunks {forced['chunks']}")
+            k5_close(f"{label} vs plain")(gf, gp)
+            k5_chunks_equal(torch, label, gf, remat_chain_backward(
+                x, stages, fw, fb, **bkw, **ONE_CHUNK), k5_close(
+                f"{label} dW vs one"))
+            del gf
+        if (b, n) in ((3, 2560), (128, 2560)):
+            peaks[f"B={b} N={n}"] = k5_bwd_peak(
+                torch, f"K5 bwd {name} ({b}, {n})", ("bf16", b, n), plan,
+                lambda: remat_chain_backward(x, stages, fw, fb, **bkw), card)
+            if len(plan["chunks"]) > 1:
+                peaks[f"B={b} N={n} one chunk"] = k5_bwd_peak(
+                    torch, f"K5 bwd {name} ({b}, {n}) in one chunk",
+                    ("one chunk", b, n), remat_plan(
+                        b * n, 8, hidden, out, bf, **ONE_CHUNK),
+                    lambda: remat_chain_backward(x, stages, fw, fb, **bkw,
+                                                 **ONE_CHUNK), card)
 
         if b * n >= 3 * 2560:
             timed = {}
@@ -1263,9 +1377,21 @@ def k5_phase(torch, dev, card, shapes=K5_SHAPES):
                                 "bound_ms": bound, "bound_by": bound_by,
                                 "max_abs_err": fwd_abs if label == "forward"
                                 else bwd_abs}
+            if len(plan["chunks"]) > 1:
+                ms = cuda_ms(torch, lambda: remat_chain_backward(
+                    x, stages, fw, fb, **bkw), 10)
+                one_ms = cuda_ms(torch, lambda: remat_chain_backward(
+                    x, stages, fw, fb, **bkw, **ONE_CHUNK), 10)
+                print(f"K5 backward time {name} ({b}, {n}), same call: "
+                      f"{len(plan['chunks'])} chunks {ms:.3f} ms, one chunk "
+                      f"{one_ms:.3f} ms [{card}]", flush=True)
+                timed["backward"]["one_chunk_ms"] = one_ms
             if name == "parity features":
                 result = timed
+            elif name == "bench parity features":
+                result["bench backward"] = timed["backward"]
         del x, got, want, k2, gk, gp
+    result["backward"]["peak"] = peaks
     return result
 
 
@@ -1342,9 +1468,11 @@ def plain_kernels():
     chain_grad._forward_cuda = (
         lambda x, sp, fw, fb, **kw: chain_grad.chain_forward_plain(
             x, sp, fw, fb, **kw))
+    # K5's row-chunk keywords go unused: the plain version runs the
+    # whole batch at once.
     chain_grad._backward_cuda = (
-        lambda x, sp, fw, fb, zs, **kw: chain_grad.chain_backward_plain(
-            x, sp, fw, fb, zs, **kw))
+        lambda x, sp, fw, fb, zs, chunk_bytes=None, min_rows=None, **kw:
+        chain_grad.chain_backward_plain(x, sp, fw, fb, zs, **kw))
     lockstep_lsa._launch = (
         lambda cost, nr, steps_out: lockstep_lsa
         .solve_lsa_rows_lockstep_plain(cost, nr))
@@ -2240,7 +2368,7 @@ def f32_chain(torch, dev, card):
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     f32 = torch.float32
-    result = {}
+    result, peaks, timing = {}, {}, {}
     for name, b, n, hidden, out, p, emit in F32_CHAIN_SHAPES:
         f32_plan_is_3xtf32(f"f32 chain {name}",
                            chain_plan(b * n, 8, hidden, out, f32))
@@ -2320,6 +2448,10 @@ def f32_chain(torch, dev, card):
                 raise AssertionError(f"{label} f32 {name}: two launches "
                                      "differ")
             del gk, again
+        peaks.update(f32_k5_chunks(torch, card, name, b, n, hidden, out,
+                                   lambda **kw: remat_chain_backward(
+                                       x, stages, fw, fb, **bkw, **kw),
+                                   gp, tied, timing))
         del gp
         if small:
             yard = grad_errors(
@@ -2390,7 +2522,63 @@ def f32_chain(torch, dev, card):
                                 f"{n})", fn)
         del x, got, k5, zs, cot, tied, keep, timed
         f32_yardstick(torch, dev, card, name, b * n, hidden)
+    result["K5 backward"]["peak"] = peaks
+    result["K5 backward"]["bench"] = timing
     return result
+
+
+def f32_k5_chunks(torch, card, name, b, n, hidden, out, call, gp, tied,
+                  timing):
+    """K5 f32's row chunks at one F32_CHAIN_SHAPES shape: one chunk up to
+    (8, 2560); where there are more, the call against itself in one chunk
+    (dx, d b, d gamma, d beta array_equal, dW at the f32 gradient bound)
+    and both timed; at "ragged kv" the call forced into chunks of one row
+    tile, against the plain version and the one-chunk call; at (3, 2560)
+    and (128, 2560) the peak device memory (`k5_bwd_peak`).  Returns the
+    peak figures."""
+    from wireframe_tpu_torch.ops.chain_grad import remat_plan
+
+    f32 = torch.float32
+    plan = remat_plan(b * n, 8, hidden, out, f32)
+    label = f"K5 backward f32 {name} ({b}, {n})"
+    print(f"{label}: {len(plan['chunks'])} chunk(s) of {plan['chunk_rows']} "
+          f"rows", flush=True)
+    if b * n <= 8 * 2560 and len(plan["chunks"]) != 1:
+        raise AssertionError(f"{label}: more than one chunk")
+    gk = call()
+    if len(plan["chunks"]) > 1:
+        one = call(**ONE_CHUNK)
+        k5_chunks_equal(torch, label, gk, one, lambda a, w: f32_grads_close(
+            torch, f"{label} {len(plan['chunks'])} chunks vs one", a, w,
+            tied))
+        del one
+        ms = cuda_ms(torch, call, 10)
+        one_ms = cuda_ms(torch, lambda: call(**ONE_CHUNK), 10)
+        print(f"{label} time, same call: {len(plan['chunks'])} chunks "
+              f"{ms:.3f} ms, one chunk {one_ms:.3f} ms [{card}]", flush=True)
+        timing.update({"shape": f"B={b} N={n}", "ms": ms,
+                       "one_chunk_ms": one_ms})
+    if name == "ragged kv":
+        forced = remat_plan(b * n, 8, hidden, out, f32, **FORCED_CHUNKS)
+        flabel = (f"{label} forced into {len(forced['chunks'])} chunks "
+                  f"{forced['chunks']}")
+        gf = call(**FORCED_CHUNKS)
+        f32_grads_close(torch, f"{flabel} vs plain", gf, gp, tied)
+        k5_chunks_equal(torch, flabel, gf, call(**ONE_CHUNK),
+                        lambda a, w: f32_grads_close(
+                            torch, f"{flabel} vs one", a, w, tied))
+        del gf
+    del gk
+    peaks = {}
+    if (b, n) in ((3, 2560), (128, 2560)):
+        peaks[f"B={b} N={n}"] = k5_bwd_peak(torch, label, ("f32", b, n),
+                                            plan, call, card)
+        if len(plan["chunks"]) > 1:
+            peaks[f"B={b} N={n} one chunk"] = k5_bwd_peak(
+                torch, f"{label} in one chunk", ("one chunk", b, n),
+                remat_plan(b * n, 8, hidden, out, f32, **ONE_CHUNK),
+                lambda: call(**ONE_CHUNK), card)
+    return peaks
 
 
 def _f32_losses(torch, config, sets, batch, dev, plain):
@@ -2603,6 +2791,7 @@ LIMITS_F32_STEPS = 3             # (c)
 # step 2 and 1.4e-3 at step 3.  The gradients themselves are held
 # element by element in limits_chain.
 LIMITS_F32_RTOL = (1e-4, TRAIN_LOSS_RTOL, TRAIN_LOSS_RTOL)
+LIMITS_F32_CHUNKS = 2            # (c)'s K5 backward: row chunks
 WIDE = (512, 1024, 4096, 1024)   # the recipe with a 4096-wide stage
 WIDE_SET = "model.encoder_hidden_dims=512,1024,4096,1024"
 # One cloud per bucket (2048, 4096, 8192, 16384).
@@ -2699,10 +2888,12 @@ def _limits_recipe(torch, dev, card, work, tag, extra, paths, want_train):
 
 def _limits_parity_f32(torch, dev, card):
     """(c) The parity model as shipped (f32) with a 4096-wide stage, 3
-    steps at 3 x 2560 through K5 f32 (split) and K4, against the plain
-    versions (dropout off, targets next to predicted slots)."""
+    steps at 3 x 2560 through K5 f32 (split; its backward in
+    LIMITS_F32_CHUNKS row chunks) and K4, against the plain versions
+    (dropout off, targets next to predicted slots)."""
     from wireframe_tpu_torch.config import load_config
-    from wireframe_tpu_torch.ops.chain_grad import chain_plan
+    from wireframe_tpu_torch.ops import chain_grad
+    from wireframe_tpu_torch.ops.chain_grad import chain_plan, remat_plan
     from wireframe_tpu_torch.train.loop import epoch_seed, init_model
     from wireframe_tpu_torch.utils.synth import (
         make_box_building_batch,
@@ -2720,22 +2911,40 @@ def _limits_parity_f32(torch, dev, card):
           f"{cfg.train.batch_size} x {cfg.data.num_points}", flush=True)
     if m.compute_dtype != "float32" or m.chain_backward != "remat":
         raise AssertionError("configs/default.yaml no longer ships f32 remat")
-    f32_plan_is_3xtf32("limits (c)", chain_plan(
-        cfg.train.batch_size * cfg.data.num_points, m.input_dim,
-        tuple(m.encoder_hidden_dims), m.encoder_output_dim, torch.float32))
+    rows = cfg.train.batch_size * cfg.data.num_points
+    dims = (rows, m.input_dim, tuple(m.encoder_hidden_dims),
+            m.encoder_output_dim, torch.float32)
+    f32_plan_is_3xtf32("limits (c)", chain_plan(*dims))
+    # K5's backward in LIMITS_F32_CHUNKS row chunks: the split stage's row
+    # kernels run on row ranges.
+    chunking = {"chunk_bytes": 1, "min_rows": -(-rows // LIMITS_F32_CHUNKS)}
+    chunks = remat_plan(*dims, **chunking)["chunks"]
+    print(f"limits (c): K5 backward in {len(chunks)} chunks {chunks}",
+          flush=True)
+    if len(chunks) < 2:
+        raise AssertionError("limits (c): K5 backward in one chunk")
     batch = targets_near_slots(
         cfg, init_model(cfg, dev),
         make_box_building_batch(cfg, cfg.train.batch_size, seed=0),
         epoch_seed(cfg.train.seed, 0), device=dev)
     reset_launches()
     t0 = time.perf_counter()
-    kern = _f32_losses(torch, PARITY, sets, batch, dev, plain=False)
+    saved = chain_grad.REMAT_CHUNK_BYTES, chain_grad.REMAT_MIN_ROWS
+    chain_grad.REMAT_CHUNK_BYTES = chunking["chunk_bytes"]
+    chain_grad.REMAT_MIN_ROWS = chunking["min_rows"]
+    try:
+        kern = _f32_losses(torch, PARITY, sets, batch, dev, plain=False)
+    finally:
+        chain_grad.REMAT_CHUNK_BYTES, chain_grad.REMAT_MIN_ROWS = saved
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    n = LIMITS_F32_STEPS
+    n, c = LIMITS_F32_STEPS, len(chunks)
+    # The split stage's row kernels: forward once a step and once a
+    # chunk in the recompute, backward once a chunk.
     counts = _limits_counted("(c) trained", {
-        "K4": n, "K5 fwd f32": n, "K5 bwd f32": n, "LN rows fwd f32": 2 * n,
-        "LN rows bwd f32": n, "K4 warp, costs in shared memory": n})
+        "K4": n, "K5 fwd f32": n, "K5 bwd f32": n,
+        "LN rows fwd f32": n * (1 + c), "LN rows bwd f32": n * c,
+        "K4 warp, costs in shared memory": n})
     plain = _f32_losses(torch, PARITY, sets, batch, dev, plain=True)
     rel = [abs(a - b) / abs(b) for a, b in zip(kern, plain)]
     ok = len(rel) == n and all(r <= t for r, t in zip(rel, LIMITS_F32_RTOL))
@@ -5173,6 +5382,7 @@ def main() -> int:
                                 r[count] for r in parallel["mp_per_rank"]],
                             "bench_launches": bench[count],
                             **k5[key], "library_ms": None})
+        kernels[-1]["bench_backward"] = k5["bench backward"]
         # The f32 kernels: launches on the f32 phase's main paths ((a)
         # served and trained, (b) trained), the checkpoints' f32 K1 run
         # and the bench's f32 run.

@@ -55,10 +55,16 @@
 //   - k3_seed: the kv cotangent scatter (+ the feature cotangent when the
 //     flavour has one) -> the cotangent in the compute dtype and
 //     per-block column partials of d final_b;
-//   - k3_colsum: sums per-block (or per-K-slice) partials in block order.
+//   - k3_colsum: sums per-block (or per-K-slice) partials in block order;
+//     k3_colsum_acc carries such a sum on from an earlier call.
 // No float atomics anywhere: gradients repeat bit for bit run to run.
-// K5's backward holds the whole batch's recomputed f32 z and h for the
-// length of the call.
+// K5's backward recomputes chunk by chunk of rows (ops/chain_grad.py's
+// remat_plan): a chunk's f32 z and h live only while that chunk's stage
+// backward runs, as the Pallas kernel's live only in one tile's VMEM.
+// The LayerNorm / bias partials of every chunk's row tiles go through
+// k3_colsum_acc in tile order, so they sum to the same bits as in one
+// chunk; each chunk's dW K-slices are added on in slice order after the
+// earlier chunks'.
 //
 // Interface: plain C, loaded with ctypes.  Every function launches on the
 // stream it is given, allocates nothing, and returns a cudaError_t.
@@ -165,13 +171,17 @@ __global__ void seed_kernel(const float* __restrict__ dpool,
     }
 }
 
-// out[c] = sum over b < nparts, in order, of part[b * ncols + c].
+// out[c] = sum over b < nparts, in order, of part[b * ncols + c]; with
+// ACC the sum starts from out[c] instead of 0, so that partials that
+// arrive in several calls (K5's row chunks) are summed in the same order,
+// and to the same bits, as in one call.
+template <bool ACC>
 __global__ void colsum_kernel(const float* __restrict__ part,
                               float* __restrict__ out, int nparts,
                               long long ncols) {
     const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (c >= ncols) return;
-    float s = 0.0f;
+    float s = ACC ? out[c] : 0.0f;
     for (int b = 0; b < nparts; ++b) s += part[(long long)b * ncols + c];
     out[c] = s;
 }
@@ -298,8 +308,16 @@ int k3_seed_f32(const float* dpool, const int* idx, const float* dsums,
 
 int k3_colsum(const float* part, float* out, int nparts, long long ncols,
               cudaStream_t stream) {
-    colsum_kernel<<<(unsigned)((ncols + 255) / 256), 256, 0, stream>>>(
-        part, out, nparts, ncols);
+    colsum_kernel<false><<<(unsigned)((ncols + 255) / 256), 256, 0,
+                           stream>>>(part, out, nparts, ncols);
+    return (int)cudaGetLastError();
+}
+
+// out[c] += the partials, in order, after out[c]: K5's later row chunks.
+int k3_colsum_acc(const float* part, float* out, int nparts,
+                  long long ncols, cudaStream_t stream) {
+    colsum_kernel<true><<<(unsigned)((ncols + 255) / 256), 256, 0,
+                          stream>>>(part, out, nparts, ncols);
     return (int)cudaGetLastError();
 }
 

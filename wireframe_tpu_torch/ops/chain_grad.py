@@ -19,7 +19,12 @@ With `backward="remat"` (the config default) it is **K5**: the forward
 only x, the parameters and, with kv_pool, the argmax; the backward
 (`_chain_backward_pallas` with zs=None) recomputes every stage's z in f32
 and the LayerNorm statistics from that f32 z (`_recompute_stages`), then
-runs K3's stage backward.
+runs K3's stage backward.  The Pallas kernel recomputes per tile in VMEM
+and holds nothing more; on the card K5 recomputes chunk by chunk of rows
+(`remat_plan`: at most REMAT_CHUNK_BYTES a chunk, one chunk up to
+(8, 2560) of the shipped encoder), so its transient does not grow with
+the batch (`tests/test_torch_remat_chunks.py`; `chip_smoke.py`'s
+`k5_bwd_peak` measures it on the card).
 
 Three flavours, as `make_differentiable_chain`:
   kv_pool = 0                      -> features (B, N, C)
@@ -169,23 +174,22 @@ def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
                          dpool: Optional[torch.Tensor] = None,
                          idx: Optional[torch.Tensor] = None,
                          dsums: Optional[torch.Tensor] = None,
-                         compute_dtype=torch.bfloat16, need_dx: bool = True):
+                         compute_dtype=torch.bfloat16, need_dx: bool = True,
+                         plan: Optional[Dict] = None):
     """K3's contract in plain PyTorch, K5's backward when zs is None.
     Cotangents: g (B, N, C) of the features (None when the flavour has
     none), and with kv_pool dpool, dsums (B, N/p, C) plus the forward's
     idx.  Returns (dx (B, N, D) f32 or None, ((dw, db, dgamma, dbeta), ...)
-    f32, dfinal_w, dfinal_b)."""
+    f32, dfinal_w, dfinal_b).  With a `remat_plan` (zs None) it runs that
+    plan's row chunks as the card does (`_remat_backward_chunked`);
+    without one, the whole batch at once."""
     cdt = compute_dtype
     x = x.float()
     b, n, d = x.shape
     m = b * n
-    if zs is None:
-        hs, xhats, rstds = _recompute_stages(x.reshape(m, d), stage_params,
-                                             cdt)
-    else:
-        hs, xhats, rstds = _stages_from_z(x.reshape(m, d),
-                                          [z.reshape(m, -1) for z in zs],
-                                          stage_params, cdt)
+    if plan is not None and zs is not None:
+        raise ValueError("a remat plan runs the recomputing backward; "
+                         "the stash backward takes the whole batch")
     if kv_pool:
         gout = kv_pool_backward_plain(x, dpool, idx, dsums, kv_pool)
         if g is not None:
@@ -195,24 +199,25 @@ def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
     gout = gout.reshape(m, -1).float()
     dfb = torch.sum(gout, dim=0)
     g_cdt = gout.to(cdt)
+    if plan is not None:
+        return _remat_backward_chunked(x.reshape(m, d), stage_params,
+                                       final_w, g_cdt, dfb, plan, cdt,
+                                       need_dx, (b, n, d))
+    if zs is None:
+        hs, xhats, rstds = _recompute_stages(x.reshape(m, d), stage_params,
+                                             cdt)
+    else:
+        hs, xhats, rstds = _stages_from_z(x.reshape(m, d),
+                                          [z.reshape(m, -1) for z in zs],
+                                          stage_params, cdt)
     dfw = _dot(hs[-1].t(), g_cdt, cdt)
     dh = _dot(g_cdt, final_w.t(), cdt)
     dstages: List[Tuple] = [None] * len(stage_params)
     for k in reversed(range(len(stage_params))):
         w, _b, gm, be = stage_params[k]
-        xhat, rstd = xhats[k], rstds[k]
-        gamma = gm.float()
-        ln = xhat * gamma + be.float()
-        # ReLU backward with jnp.maximum's exact-tie rule (g/2 at 0).
-        dln = torch.where(ln > 0, dh, torch.where(ln < 0,
-                                                  torch.zeros_like(dh),
-                                                  0.5 * dh))
-        dgamma = torch.sum(dln * xhat, dim=0)
+        dz, dlnx, dln = _stage_grads(dh, xhats[k], rstds[k], gm, be)
+        dgamma = torch.sum(dlnx, dim=0)
         dbeta = torch.sum(dln, dim=0)
-        dxhat = dln * gamma
-        m1 = torch.mean(dxhat, dim=-1, keepdim=True)
-        m2 = torch.mean(dxhat * xhat, dim=-1, keepdim=True)
-        dz = (dxhat - m1 - xhat * m2) * rstd
         db = torch.sum(dz, dim=0)
         dz_cdt = dz.to(cdt)
         dw = _dot(hs[k].t(), dz_cdt, cdt)
@@ -221,6 +226,61 @@ def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
             dh = _dot(dz_cdt, w.t(), cdt)
     dx = dh.reshape(b, n, d) if need_dx else None
     return dx, tuple(dstages), dfw, dfb
+
+
+def _stage_grads(dh, xhat, rstd, gm, be):
+    """One stage's ReLU + LayerNorm backward from the cotangent dh of its
+    output: (dz, dln * xhat, dln), with jnp.maximum's exact-tie rule
+    (g/2 at 0)."""
+    gamma = gm.float()
+    ln = xhat * gamma + be.float()
+    dln = torch.where(ln > 0, dh, torch.where(ln < 0, torch.zeros_like(dh),
+                                              0.5 * dh))
+    dxhat = dln * gamma
+    m1 = torch.mean(dxhat, dim=-1, keepdim=True)
+    m2 = torch.mean(dxhat * xhat, dim=-1, keepdim=True)
+    return (dxhat - m1 - xhat * m2) * rstd, dln * xhat, dln
+
+
+def _remat_backward_chunked(x, stage_params, final_w, g_cdt, dfb, plan, cdt,
+                            need_dx, shape):
+    """K5's backward as the card runs it by `remat_plan`'s row chunks:
+    per chunk the recompute of its rows, the stage backward from its rows
+    of the seed g_cdt (m, C) and its rows of dx; each stage's d gamma |
+    d beta | d b summed per 128-row tile, the tiles added on in order
+    across chunks; every dW = h^T dz summed per K-slice of the chunk's
+    plan, the slices added on in order across chunks.  x (m, D) f32."""
+    n_stages = len(stage_params)
+    widths = [w.shape[1] for w, *_ in stage_params]
+    dws = [0.0] * (n_stages + 1)
+    sums = [torch.zeros(3 * w, device=x.device) for w in widths]
+    dx = torch.empty_like(x) if need_dx else None
+
+    def add_slices(acc, h, dz, slices):
+        for s0, s1 in slices:
+            acc = acc + _dot(h[s0:s1].t(), dz[s0:s1], cdt)
+        return acc
+
+    for (r0, r1), slices in zip(plan["chunks"], plan["dw_slices"]):
+        hs, xhats, rstds = _recompute_stages(x[r0:r1], stage_params, cdt)
+        dz_above = g_cdt[r0:r1]
+        dws[-1] = add_slices(dws[-1], hs[-1], dz_above, slices[-1])
+        dh = _dot(dz_above, final_w.t(), cdt)
+        for k in reversed(range(n_stages)):
+            w, _b, gm, be = stage_params[k]
+            dz, dlnx, dln = _stage_grads(dh, xhats[k], rstds[k], gm, be)
+            cols = torch.cat([dlnx, dln, dz], dim=1)
+            for t0 in range(0, r1 - r0, BM):
+                sums[k] = sums[k] + torch.sum(cols[t0:t0 + BM], dim=0)
+            dz_cdt = dz.to(cdt)
+            dws[k] = add_slices(dws[k], hs[k], dz_cdt, slices[k])
+            if k > 0 or need_dx:
+                dh = _dot(dz_cdt, w.t(), cdt)
+        if need_dx:
+            dx[r0:r1] = dh
+    dstages = tuple((dws[k], sums[k][2 * w:], sums[k][:w], sums[k][w:2 * w])
+                    for k, w in enumerate(widths))
+    return (dx.reshape(shape) if need_dx else None, dstages, dws[-1], dfb)
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +296,7 @@ F32_FLUSH_K = 2048          # f32: the longest sum the tensor cores keep
 MAX_CLUSTER = 8             # CTAs of a LayerNorm cluster (portable limit)
 _SPLIT_ROWS = 512           # least rows per K-slice of a split h^T dz
 _SMS = 132                  # H100 SXM streaming multiprocessors
+_SEED_ROWS = 32             # rows of a k3_seed block (its d final_b partials)
 SMEM_LIMIT = 232448         # shared memory a block may use on the H100
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -370,6 +431,129 @@ def chain_plan(m: int, d: int, widths: Sequence[int], out: int,
                        "seed": cdt, "recomputed_z": torch.float32}}
 
 
+# K5's backward recomputes the chain's activations chunk by chunk of rows,
+# so that what it holds stops growing with the batch, as the Pallas
+# kernel's remat holds one tile's activations in VMEM.  A chunk's
+# recomputed f32 z and compute-dtype h of every stage, with the stage
+# backward's dz (and a split stage's f32 dh), its LayerNorm / bias
+# partials and the widest dW K-slice partials, stay under
+# REMAT_CHUNK_BYTES: 1 GiB is ~1.3% of the H100's 80 GB, and it keeps
+# every shape up to (8, 2560) of the shipped encoder in one chunk in both
+# dtypes (35,072 rows in bf16, 25,344 in f32, against 20,480), so those
+# run the launches of one whole-batch pass.  A chunk takes at least
+# REMAT_MIN_ROWS rows, 132 row tiles of 128: every stage GEMM of a chunk
+# still has a row tile for each of the 132 SMs.
+REMAT_CHUNK_BYTES = 1 << 30
+REMAT_MIN_ROWS = _SMS * BM
+_LARGE = 1 << 20            # PyTorch's caching allocator: large blocks
+
+
+def _alloc(nbytes: int) -> int:
+    """The most PyTorch's caching allocator counts for a request of
+    `nbytes`: rounded up to 512 bytes and, for a large block, up to 1 MiB
+    more (a cached block it does not split)."""
+    if nbytes <= 0:
+        return 0
+    r = -(-nbytes // 512) * 512
+    return r + _LARGE if r > _LARGE else r
+
+
+def _remat_chunk_peak(rows: int, dims: Sequence[int], modes, esize: int,
+                      slices) -> int:
+    """The most one chunk of `rows` rows holds at once in K5's backward
+    (`_backward_cuda`), over each stage k from the last: the f32 z and h
+    of stages 0..k, the dz above (not for the last stage: the seed is
+    whole-batch), the stage's dz, a split stage's f32 dh, the LayerNorm /
+    bias partials of this stage and the one above, and the K-slice
+    partials of the dW product above the stage; after the stages, dz0
+    with the partials of dW0 = x^T dz0."""
+    widths = dims[1:-1]
+    tiles = -(-rows // BM)
+    dw = [_alloc(len(sl) * i * o * 4) for sl, i, o in
+          zip(slices, dims[:-1], dims[1:])]
+    held = [_alloc(rows * pad8(w) * 4) + _alloc(rows * pad8(w) * esize)
+            for w in widths]
+    peak = _alloc(rows * pad8(widths[0]) * esize) + _alloc(
+        tiles * 3 * widths[0] * 4) + dw[0]
+    for k, w in enumerate(widths):
+        above = k + 1 < len(widths)
+        peak = max(peak, sum(held[:k + 1])
+                   + (_alloc(rows * pad8(widths[k + 1]) * esize) if above
+                      else 0)
+                   + _alloc(rows * pad8(w) * esize)
+                   + (_alloc(rows * pad8(w) * 4) if modes[k] == "split"
+                      else 0)
+                   + _alloc(tiles * 3 * w * 4)
+                   + (_alloc(tiles * 3 * widths[k + 1] * 4) if above else 0)
+                   + dw[k + 1])
+    return peak
+
+
+def remat_plan(m: int, d: int, widths: Sequence[int], out: int,
+               compute_dtype=torch.bfloat16, *,
+               chunk_bytes: Optional[int] = None,
+               min_rows: Optional[int] = None) -> Dict:
+    """K5's backward by row chunks, from its shapes alone: "chunk_rows",
+    the rows of every chunk but the last (the most, a multiple of 128,
+    whose peak `_remat_chunk_peak` stays under `chunk_bytes`, and at
+    least `min_rows`, and all m when that covers them); "chunks", the
+    [start, stop) row ranges that cover 0..m once, in order; "dw_slices",
+    per chunk the K-slices (`split_k` over the chunk's rows) of every dW
+    product, as `chain_plan`'s over m when there is one chunk;
+    "chunk_peak", the bytes the largest chunk holds at once; and
+    "peak_bytes", the most one K5 backward call allocates beyond its
+    inputs: that chunk peak beside what lives through the call (the
+    parameters in the kernels' dtypes, x in the compute dtype and its
+    rows' validity, the seed and its d final_b partials, dx, every
+    gradient), each buffer as the caching allocator may count it
+    (`_alloc`).  "whole_batch_bytes" is what recomputing the whole batch
+    at once held: m x the widths x (4 + the compute dtype's size).
+    chunk_bytes / min_rows None take REMAT_CHUNK_BYTES / REMAT_MIN_ROWS as
+    they stand at the call, so a caller can set them for a whole run."""
+    if chunk_bytes is None:
+        chunk_bytes = REMAT_CHUNK_BYTES
+    if min_rows is None:
+        min_rows = REMAT_MIN_ROWS
+    plan = chain_plan(m, d, widths, out, compute_dtype)
+    esize = 4 if plan["dtypes"]["h"] == torch.float32 else 2
+    bk = plan["tile"][2]
+    dims = [d, *widths, out]
+
+    def slices(rows):
+        return [split_k(rows, i, o, bk=bk) for i, o in
+                zip(dims[:-1], dims[1:])]
+
+    def peak(rows):
+        return _remat_chunk_peak(rows, dims, plan["modes"], esize,
+                                 slices(rows))
+
+    per_row = max(1, (peak(2 * BM) - peak(BM)) // BM)
+    rows = min(max(BM, chunk_bytes // per_row // BM * BM), -(-m // BM) * BM)
+    while rows > BM and peak(rows) > chunk_bytes:
+        rows -= BM
+    while rows < m and peak(rows + BM) <= chunk_bytes:
+        rows += BM
+    rows = min(m, max(rows, -(-min_rows // BM) * BM))
+    chunks = [(s, min(m, s + rows)) for s in range(0, m, rows)]
+    sizes = sorted({b - a for a, b in chunks})
+    chunk_peak = max(peak(r) for r in sizes)
+    pairs = list(zip(dims[:-1], dims[1:]))
+    lives = [*(i * pad8(o) * esize for i, o in pairs),    # the weights
+             *(3 * w * 4 for w in widths), out * 4,         # b, gamma, beta
+             m * pad8(d) * esize, m,                        # x, validity
+             m * pad8(out) * esize,                         # the seed
+             -(-m // _SEED_ROWS) * out * 4, out * 4,        # d final_b
+             m * d * 4,                                     # dx
+             *(i * o * 4 for i, o in pairs),                # every dW
+             *(3 * w * 4 for w in widths)]                  # db, dgamma, dbeta
+    return {"chunk_rows": rows,
+            "chunks": chunks,
+            "dw_slices": [slices(b - a) for a, b in chunks],
+            "chunk_peak": chunk_peak,
+            "peak_bytes": sum(map(_alloc, lives)) + chunk_peak,
+            "whole_batch_bytes": m * sum(widths) * (4 + esize)}
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
@@ -399,7 +583,8 @@ def _lib() -> ctypes.CDLL:
                  "k23_smem_bytes": [], "k23_max_fused_width": [],
                  "k23_row_chunk": [],
                  "k2_window_pool": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-                 "k3_colsum": [_P, _P, _I, ctypes.c_longlong, _P]}
+                 "k3_colsum": [_P, _P, _I, ctypes.c_longlong, _P],
+                 "k3_colsum_acc": [_P, _P, _I, ctypes.c_longlong, _P]}
         for name, args in _DTYPED.items():
             types[name] = types[name + "_f32"] = args
         for name, args in types.items():
@@ -410,13 +595,15 @@ def _lib() -> ctypes.CDLL:
         want = {"bf16": (BM, BN, BK), "f32": (BM, BN, BK_F32)}
         if (tiles != want
                 or lib.k23_max_fused_width() != MAX_CLUSTER * BN
-                or lib.k23_smem_bytes() != smem_bytes()):
+                or lib.k23_smem_bytes() != smem_bytes()
+                or lib.k23_row_chunk() != _SEED_ROWS):
             raise RuntimeError(
                 f"csrc/hopper_gemm.cuh's tiles {tiles}, widest fused stage "
-                f"{lib.k23_max_fused_width()} and {lib.k23_smem_bytes()} "
-                f"bytes of shared memory do not match the plan's {want}, "
-                f"{MAX_CLUSTER * BN} (wider stages run split) and "
-                f"{smem_bytes()}")
+                f"{lib.k23_max_fused_width()}, {lib.k23_smem_bytes()} "
+                f"bytes of shared memory and k3_seed's "
+                f"{lib.k23_row_chunk()} rows a block do not match the "
+                f"plan's {want}, {MAX_CLUSTER * BN} (wider stages run "
+                f"split), {smem_bytes()} and {_SEED_ROWS}")
         lib._k23_typed = True
     return lib
 
@@ -504,7 +691,8 @@ def _stage_backward(lib, dz_above, w_above, above_w, z, layer, m, plan,
     None, per-row-tile column partials of d gamma | d beta | d b).  In
     cluster mode dh stays in the fused epilogue's registers; a split
     stage's GEMM writes the f32 dh and `layernorm_relu_backward` does the
-    rest."""
+    rest.  The m rows may be one chunk of K5's: the partials are that
+    chunk's row tiles."""
     _w, _bb, gm, be = layer
     width = _w.shape[1]
     dev = dz_above.device
@@ -519,7 +707,7 @@ def _stage_backward(lib, dz_above, w_above, above_w, z, layer, m, plan,
                                        rebuild_h=rebuild_h)
     dz = _rows(m, width, cdt, dev)
     hout = _rows(m, width, plan["dtypes"]["h"], dev) if rebuild_h else None
-    part = torch.empty((plan["row_tiles"], 3 * width), dtype=torch.float32,
+    part = torch.empty((-(-m // BM), 3 * width), dtype=torch.float32,
                        device=dev)
     _check(_fn(lib, "k3_gemm_ln_bwd", cdt)(
         _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
@@ -530,22 +718,33 @@ def _stage_backward(lib, dz_above, w_above, above_w, z, layer, m, plan,
     return dz, hout, part
 
 
-def _gemm_tn(lib, a, b, slices, rows, i, h, stream, what) -> torch.Tensor:
+def _gemm_tn(lib, a, b, slices, rows, i, h, stream, what, acc=None
+             ) -> torch.Tensor:
     """(i, h) f32 = a^T b with a stored (rows, i), b (rows, h), both with
     padded rows and in one compute dtype: the K=rows sum is split into
-    `slices` whose partials are summed in slice order."""
+    `slices` whose partials are summed in slice order.  With `acc` (an
+    earlier chunk's sum) the partials are added on to it, in order, and
+    acc is returned."""
     ksplit = slices[0][1] - slices[0][0]
     splits = len(slices)
-    out = torch.empty((i, h), dtype=torch.float32, device=b.device)
-    dst = out if splits == 1 else torch.empty(
+    out = torch.empty((i, h), dtype=torch.float32,
+                      device=b.device) if acc is None else acc
+    dst = out if splits == 1 and acc is None else torch.empty(
         (splits, i, h), dtype=torch.float32, device=b.device)
     _check(_fn(lib, "k23_gemm", b.dtype)(
         _DW, _ptr(a), a.stride(0), _ptr(b), b.stride(0), None, _ptr(dst), h,
         i, h, rows, splits, ksplit, stream), what)
-    if splits > 1:
-        _check(lib.k3_colsum(_ptr(dst), _ptr(out), splits, i * h, stream),
-               what + " slice sum")
+    if dst is not out:
+        _colsum(lib, dst, out, splits, i * h, acc is not None, stream,
+                what + " slice sum")
     return out
+
+
+def _colsum(lib, part, out, nparts, ncols, acc, stream, what) -> None:
+    """out = the nparts rows of part summed in order, or with acc added
+    on to out in order (`k3_colsum_acc`)."""
+    _check((lib.k3_colsum_acc if acc else lib.k3_colsum)(
+        _ptr(part), _ptr(out), nparts, ncols, stream), what)
 
 
 def _cuda_params(stage_params, final_w, final_b, x, cdt):
@@ -625,8 +824,13 @@ def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
 
 
 def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
-                   dpool, idx, dsums, compute_dtype, need_dx):
-    """K3 from the stash zs, or K5's backward when zs is None."""
+                   dpool, idx, dsums, compute_dtype, need_dx, **chunking):
+    """K3 from the stash zs, in one pass over the batch; or K5's backward
+    when zs is None, chunk by chunk of `remat_plan` (`chunking`: its
+    chunk_bytes and min_rows): per chunk the recompute, the stage
+    backward from the chunk's rows of the seed, the chunk's rows of dx,
+    its row tiles' LayerNorm / bias partials added on to the sums in tile
+    order and its dW K-slices added on to each dW in slice order."""
     cdt = kernel_dtype(compute_dtype)
     layers, fw, _fb = _cuda_params(stage_params, final_w, final_b, x, cdt)
     b, n, d = x.shape
@@ -680,61 +884,68 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     _check(lib.k3_colsum(_ptr(part), _ptr(dfb), nblk, c, stream),
            f"{kern} d final_b")
 
-    hs = None
     if remat:
-        # Every stage's f32 z and h, recomputed by the forward's own
-        # kernel, so both are bit-identical to the forward's; transient,
-        # freed stage by stage below.
-        zs, hs = [], []
-        a, k_in = xb, d
-        for layer in layers:
-            a, z = _stage_forward(lib, a, k_in, layer, m, stream,
-                                  z_dtype=plan["dtypes"]["recomputed_z"],
-                                  what="K5 recompute GEMM + LayerNorm")
-            zs.append(z)
-            hs.append(a)
-            k_in = layer[0].shape[1]
-
+        rplan = remat_plan(m, d, widths, c, cdt, **chunking)
+        chunks, slices = rplan["chunks"], rplan["dw_slices"]
+    else:
+        chunks, slices = [(0, m)], [plan["dw_slices"]]
     n_stages = len(layers)
-    dstages: List[Tuple] = [None] * n_stages
-    dfw = None
-    dz_above, w_above, above_w = gbf, fw, c
-    dx = None
-    for k in reversed(range(n_stages)):
-        width = widths[k]
-        dz, hout, part = _stage_backward(
-            lib, dz_above, w_above, above_w, zs[k], layers[k], m, plan,
-            not remat, stream, f"{kern} dh GEMM + stage backward")
-        sums = torch.empty(3 * width, dtype=torch.float32, device=dev)
-        _check(lib.k3_colsum(_ptr(part), _ptr(sums), part.shape[0],
-                             3 * width, stream),
-               f"{kern} LayerNorm / bias gradients")
-        dgamma, dbeta, db = sums[:width], sums[width:2 * width], \
-            sums[2 * width:]
-        # The product above this stage: its input h is this stage's output
-        # (K3 rebuilds it from the stash, K5 recomputed it).
-        hin = hs[k] if remat else hout
-        dw_above = _gemm_tn(lib, hin, dz_above, plan["dw_slices"][k + 1], m,
-                            width, above_w, stream, f"{kern} dW = h^T dz")
+    dx = torch.empty((b, n, d), dtype=torch.float32,
+                     device=dev) if need_dx else None
+    sums = [torch.empty(3 * w, dtype=torch.float32, device=dev)
+            for w in widths]
+    dws: List[Optional[torch.Tensor]] = [None] * (n_stages + 1)
+    for ci, (r0, r1) in enumerate(chunks):
+        rows, acc = r1 - r0, ci > 0
+        xc = xb[r0:r1]
         if remat:
-            zs[k] = hs[k] = hin = None
-        if k == n_stages - 1:
-            dfw = dw_above
+            # This chunk's f32 z and h of every stage, recomputed by the
+            # forward's own kernel, so both are bit-identical to the
+            # forward's; freed stage by stage below.
+            zc, hc = [], []
+            a, k_in = xc, d
+            for layer in layers:
+                a, z = _stage_forward(lib, a, k_in, layer, rows, stream,
+                                      z_dtype=plan["dtypes"]["recomputed_z"],
+                                      what="K5 recompute GEMM + LayerNorm")
+                zc.append(z)
+                hc.append(a)
+                k_in = layer[0].shape[1]
+            del a, z
         else:
-            dstages[k + 1] = (dw_above, *dstages[k + 1][1:])
-        dstages[k] = (None, db, dgamma, dbeta)
-        dz_above, w_above, above_w = dz, layers[k][0], width
-    if need_dx:
-        dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
-        _check(_fn(lib, "k23_gemm", cdt)(
-            _DH, _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
-            w_above.stride(0), None, _ptr(dx), d, m, d, above_w, 1, above_w,
-            stream), f"{kern} dx = dz W^T")
-    dw0 = _gemm_tn(lib, xb, dz_above, plan["dw_slices"][0], m, d, widths[0],
-                   stream, f"{kern} dW0 = x^T dz")
-    dstages[0] = (dw0, *dstages[0][1:])
+            zc = list(zs)
+        dz_above, w_above, above_w = gbf[r0:r1], fw, c
+        for k in reversed(range(n_stages)):
+            width = widths[k]
+            dz, hout, part = _stage_backward(
+                lib, dz_above, w_above, above_w, zc[k], layers[k], rows,
+                plan, not remat, stream, f"{kern} dh GEMM + stage backward")
+            _colsum(lib, part, sums[k], part.shape[0], 3 * width, acc,
+                    stream, f"{kern} LayerNorm / bias gradients")
+            # The product above this stage: its input h is this stage's
+            # output (K3 rebuilds it from the stash, K5 recomputed it).
+            hin = hc[k] if remat else hout
+            dws[k + 1] = _gemm_tn(lib, hin, dz_above, slices[ci][k + 1],
+                                  rows, width, above_w, stream,
+                                  f"{kern} dW = h^T dz", dws[k + 1])
+            zc[k] = hin = hout = None
+            if remat:
+                hc[k] = None
+            dz_above, w_above, above_w = dz, layers[k][0], width
+            del dz
+        del part
+        if need_dx:
+            _check(_fn(lib, "k23_gemm", cdt)(
+                _DH, _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
+                w_above.stride(0), None, _ptr(dx) + r0 * d * 4, d, rows, d,
+                above_w, 1, above_w, stream), f"{kern} dx = dz W^T")
+        dws[0] = _gemm_tn(lib, xc, dz_above, slices[ci][0], rows, d,
+                          widths[0], stream, f"{kern} dW0 = x^T dz", dws[0])
+        del dz_above, xc
+    dstages = tuple((dws[k], sums[k][2 * w:], sums[k][:w],
+                     sums[k][w:2 * w]) for k, w in enumerate(widths))
     _count(remat_chain_backward if remat else chain_backward, cdt)
-    return dx, tuple(dstages), dfw, dfb
+    return dx, dstages, dws[n_stages], dfb
 
 
 def chain_forward(x, stage_params, final_w, final_b, *, kv_pool=0,
@@ -783,17 +994,30 @@ def remat_chain_forward(x, stage_params, final_w, final_b, *, kv_pool=0,
 
 def remat_chain_backward(x, stage_params, final_w, final_b, *, g=None,
                          kv_pool=0, dpool=None, idx=None, dsums=None,
-                         compute_dtype=torch.bfloat16, need_dx=True):
-    """K5's backward: recomputes the stage activations, then K3's stage
-    backward.  Same arguments and result as `chain_backward` without zs."""
+                         compute_dtype=torch.bfloat16, need_dx=True,
+                         chunk_bytes=None, min_rows=None):
+    """K5's backward: recomputes the stage activations and runs K3's stage
+    backward, chunk by chunk of rows (`remat_plan` with chunk_bytes and
+    min_rows), so that it holds about chunk_bytes beside the seed and the
+    gradients whatever the batch.  Same arguments and result as
+    `chain_backward` without zs.  On the CPU: the plain version over the
+    whole batch, or over the plan's chunks when either is given."""
     kw = dict(g=g, kv_pool=kv_pool, dpool=dpool, idx=idx, dsums=dsums,
               compute_dtype=compute_dtype, need_dx=need_dx)
+    chunking = dict(chunk_bytes=chunk_bytes, min_rows=min_rows)
     if x.device.type == "cpu":
+        plan = None
+        if chunk_bytes is not None or min_rows is not None:
+            b, n, d = x.shape
+            plan = remat_plan(b * n, d, [w.shape[1] for w, *_ in
+                                         stage_params], final_w.shape[1],
+                              compute_dtype, **chunking)
         return chain_backward_plain(x, stage_params, final_w, final_b, None,
-                                    **kw)
+                                    plan=plan, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"K5 runs on CUDA or CPU tensors, not {x.device}")
-    return _backward_cuda(x, stage_params, final_w, final_b, None, **kw)
+    return _backward_cuda(x, stage_params, final_w, final_b, None, **kw,
+                          **chunking)
 
 
 def _count(wrapper, cdt) -> None:
@@ -818,8 +1042,9 @@ def _unflatten(flat, n_stages):
 class _Chain(torch.autograd.Function):
     """stash: forward = K2 (saves x, the parameters, the stash and the
     argmax), backward = K3.  remat: forward and backward = K5 (saves x,
-    the parameters and the argmax, never a z_k).  dx only when x needs a
-    gradient."""
+    the parameters and the argmax, never a z_k; the backward holds one
+    chunk of rows' recomputed z and h at a time, `remat_plan`).  dx only
+    when x needs a gradient."""
 
     @staticmethod
     def forward(ctx, x, n_stages, kv_pool, emit_features, compute_dtype,
