@@ -5106,7 +5106,7 @@ def bench_phase(torch, dev, card, work):
         **BENCH_ENV, "BENCH_PARITY_SECONDARY": "0", "BENCH_LAT_ITERS": "2",
         "BENCH_PROFILE": trace_dir}, forward_launches)
     launches["K1"] += counts["K1"]
-    totals, events = trace_ops.aggregate_device_events(trace_dir)
+    totals, events, _, _ = trace_ops.aggregate_device_events(trace_dir)
     iters = int(BENCH_ENV["BENCH_ITERS"])
     busy = sum(totals.values()) / 1e3 / iters
     k1 = sum(us for name, us in totals.items() if trace_ops.classify(name)

@@ -6,7 +6,8 @@
 - `tools.trace_ops` sorts the kernel names `chip_smoke.py` profiles into
   the port's kernel groups and the library ones, parses a Chrome trace's
   device events (kernels, copies, memsets; never host events) per step,
-  and refuses `--trace-dir` without `--steps`;
+  splits them by the program span open at each one's launch, and refuses
+  `--trace-dir` without `--steps`;
 - `tools.profile_train_step` and `tools.compile_report` run end to end
   with `--device cpu` (on the CPU the kernels' plain versions run and no
   library is built);
@@ -177,6 +178,84 @@ def test_trace_ops_parses_a_chrome_trace(tmp_path, capsys):
         "library GEMM (cuBLAS / CUTLASS)": 0.05, "copy / cast": 0.005})
     assert sum(result["groups_ms"].values()) == pytest.approx(
         result["total_ms"])
+    # No event carries a correlation id or an External id here.
+    assert result["spans_ms"] == {trace_ops.NOT_FOUND: pytest.approx(
+        {"inclusive": 0.1755, "self": 0.1755})}
+
+
+def _span_trace(path):
+    """One step with the program's spans, in microseconds.  Main thread
+    (tid 1): forward 0-100 holding encoder 10-50, loss 100-150 holding
+    matcher 110-130, backward 150-300 in which the main thread waits.
+    The autograd thread (tid 2) launches the backward's kernel at 200.
+    Launches: a runtime call (encoder), a driver call (forward's own), an
+    External id naming a host op (matcher), the backward's runtime call
+    on tid 2, a copy after every span, and a kernel whose launch the
+    trace lacks.  The device-side range of the host op (a
+    gpu_user_annotation, listed first) shares its External id and is not
+    a launch."""
+    def x(cat, name, ts, dur, tid=1, **args):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "pid": 1, "tid": tid, "args": args}
+
+    events = [
+        x("user_annotation", "wf.forward", 0, 100),
+        x("user_annotation", "wf.encoder", 10, 40),
+        x("user_annotation", "wf.loss", 100, 50),
+        x("user_annotation", "wf.matcher", 110, 20),
+        x("user_annotation", "wf.backward", 150, 150),
+        x("user_annotation", "pb.step", 0, 400),
+        x("cuda_runtime", "cudaLaunchKernelExC", 20, 2, correlation=1),
+        x("cuda_driver", "cuLaunchKernel", 60, 2, correlation=2),
+        x("gpu_user_annotation", "wf.matcher", 440, 5, tid=7,
+          **{"External id": 77}),
+        x("cpu_op", "aten::add", 115, 3, **{"External id": 77}),
+        x("cuda_runtime", "cudaLaunchKernel", 200, 2, tid=2,
+          correlation=5),
+        x("cuda_runtime", "cudaMemcpyAsync", 350, 2, correlation=6),
+        x("kernel", "void hgemm::wgmma_chain_kernel<0, 1, 1, 0>()", 400,
+          30, tid=7, correlation=1),
+        x("kernel", "void at::native::vectorized_elementwise_kernel<4>()",
+          430, 10, tid=7, correlation=2),
+        x("kernel", "void lsa_kernel<64>()", 440, 5, tid=7, correlation=3,
+          **{"External id": 77}),
+        x("kernel", "void seed_kernel<float>()", 450, 40, tid=7,
+          correlation=5),
+        x("kernel", "void orphan_kernel()", 490, 2, tid=7, correlation=4,
+          **{"External id": 99}),
+        x("gpu_memcpy", "Memcpy DtoH (Device -> Pinned)", 500, 3, tid=7,
+          correlation=6),
+    ]
+    path.mkdir()
+    (path / "1.3.pt.trace.json").write_text(json.dumps(
+        {"traceEvents": events}))
+
+
+def test_trace_ops_splits_device_time_by_span(tmp_path, capsys):
+    _span_trace(tmp_path / "trace")
+    assert trace_ops.main(["--trace-dir", str(tmp_path / "trace"),
+                           "--steps", "1"]) == 0
+    out = capsys.readouterr().out
+    result = json.loads(out.strip().splitlines()[-1])
+    assert "device time by program span" in out
+    ms = {k: (v["inclusive"] * 1e3, v["self"] * 1e3)
+          for k, v in result["spans_ms"].items()}
+    assert ms == {"forward": pytest.approx((40.0, 10.0)),
+                  "encoder": pytest.approx((30.0, 30.0)),
+                  "loss": pytest.approx((5.0, 0.0)),
+                  "matcher": pytest.approx((5.0, 5.0)),
+                  "backward": pytest.approx((40.0, 40.0)),
+                  trace_ops.NO_SPAN: pytest.approx((3.0, 3.0)),
+                  trace_ops.NOT_FOUND: pytest.approx((2.0, 2.0))}
+    # Self times add up to the device total; by group within each span.
+    assert sum(v for _, v in ms.values()) == pytest.approx(
+        result["total_ms"] * 1e3)
+    assert result["span_groups_ms"]["encoder"] == pytest.approx(
+        {"K2/K3/K5 (encoder chain)": 0.03})
+    assert result["span_groups_ms"]["matcher"] == pytest.approx(
+        {"K4 (lockstep JV)": 0.005})
+    assert result["span_groups_ms"][trace_ops.NO_SPAN] == pytest.approx(
+        {"copy / cast": 0.003})
 
 
 def test_trace_ops_trace_dir_needs_steps(tmp_path, capsys):
@@ -208,6 +287,7 @@ def test_trace_ops_captures_on_the_cpu(capsys, monkeypatch):
     result = _last_json(capsys)
     # The CPU trace holds host events only.
     assert result["profiler_device_ms"] == 0 and result["events"] == 0
+    assert result["spans_ms"] == {}
     assert len(seen["traces"]) == 1
     assert not os.path.exists(seen["dir"])
 

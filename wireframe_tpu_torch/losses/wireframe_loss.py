@@ -40,6 +40,7 @@ import torch
 from wireframe_tpu_torch.ops.lockstep_lsa import max_safe_cost, solve_lsa_rows
 from wireframe_tpu_torch.ops.lsa import solve_lsa_scipy_batch
 from wireframe_tpu_torch.ops.pairs import triu_pairs_on
+from wireframe_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -146,7 +147,8 @@ def wireframe_loss(predictions: Dict[str, torch.Tensor],
     dev = pred_v.device
 
     # ---- 1. Hungarian-matched vertex loss --------------------------------
-    col4row = _matched_cols(pred_v, pred_p, tgt_v, counts, cfg.matcher)
+    with span("matcher"):      # the cost, its clamp, K4, the inversion
+        col4row = _matched_cols(pred_v, pred_p, tgt_v, counts, cfg.matcher)
     matched = col4row < counts[:, None]                        # (B, V)
     safe = torch.where(matched, col4row, torch.zeros_like(col4row)).long()
     tgt_matched = torch.take_along_dim(tgt_v, safe[..., None], dim=1)

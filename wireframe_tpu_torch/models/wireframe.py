@@ -8,7 +8,8 @@ kv_pool, whether it keeps point features for the decoder's KV, and the
 in-graph z-sort (query head only).  `train=True` takes the encoder's
 differentiable chain, turns dropout on (draws from the caller's
 generator) and, in prefix slot-mask mode, lets the ground-truth vertex
-counts drive the edge head.
+counts drive the edge head.  Under a `torch.profiler` the encoder, the
+vertex head and the edge head are spans (`utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from wireframe_tpu_torch.models.encoder import PointNetEncoder
 from wireframe_tpu_torch.models.vertex_head import VertexPredictor
 from wireframe_tpu_torch.models.vertex_query_head import QueryVertexDecoder
 from wireframe_tpu_torch.ops.masked_pool import point_validity_mask
+from wireframe_tpu_torch.utils.profiling import span
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -113,22 +115,24 @@ class PointCloudToWireframe(nn.Module):
             point_cloud = torch.take_along_dim(point_cloud, order[..., None],
                                                dim=1)
 
-        global_features, pooled, point_features = self.encoder(
-            point_cloud, train=train, split=split)
+        with span("encoder"):
+            global_features, pooled, point_features = self.encoder(
+                point_cloud, train=train, split=split)
 
-        if query:
-            kv_feats = point_features
-            kv_mask = point_validity_mask(point_cloud)
-            kv_pre_pooled = "kv" in pooled
-            if kv_pre_pooled:
-                kv_feats = pooled["kv"]
-                kv_mask = pooled["kv_mask"]
-            vertex_out = self.vertex_decoder(
-                kv_feats, kv_mask, global_features,
-                kv_pre_pooled=kv_pre_pooled, train=train,
-                generator=generator)
-        else:
-            vertex_out = self.vertex_predictor(global_features, pooled)
+        with span("vertex_head"):
+            if query:
+                kv_feats = point_features
+                kv_mask = point_validity_mask(point_cloud)
+                kv_pre_pooled = "kv" in pooled
+                if kv_pre_pooled:
+                    kv_feats = pooled["kv"]
+                    kv_mask = pooled["kv_mask"]
+                vertex_out = self.vertex_decoder(
+                    kv_feats, kv_mask, global_features,
+                    kv_pre_pooled=kv_pre_pooled, train=train,
+                    generator=generator)
+            else:
+                vertex_out = self.vertex_predictor(global_features, pooled)
 
         if cfg.slot_mask_mode == "existence":
             # Live slots from per-slot existence; the edge head attends
@@ -146,13 +150,14 @@ class PointCloudToWireframe(nn.Module):
             slot_mask = slot_ids[None, :] < used_counts[:, None]
             attn_slot_mask = slot_mask
 
-        edge_probs, edge_logits, pair_mask = self.edge_predictor(
-            vertex_out["vertices"], slot_mask,
-            attn_slot_mask=attn_slot_mask,
-            slot_features=(vertex_out["slot_features"]
-                           if query and cfg.edge_use_slot_features
-                           else None),
-            train=train, generator=generator)
+        with span("edge_head"):
+            edge_probs, edge_logits, pair_mask = self.edge_predictor(
+                vertex_out["vertices"], slot_mask,
+                attn_slot_mask=attn_slot_mask,
+                slot_features=(vertex_out["slot_features"]
+                               if query and cfg.edge_use_slot_features
+                               else None),
+                train=train, generator=generator)
 
         out = {
             "vertices": vertex_out["vertices"],

@@ -10,6 +10,16 @@ When it captures the trace itself it also prints the profiler's own
 device total (`utils.profiling.device_rows`), which the groups must sum
 to.
 
+Beside the groups it splits the device time by the program's spans
+(`utils.profiling.span`, "wf.<name>" ranges): an event counts under every
+span open on the host when it was launched (inclusive), and under the
+innermost of them alone (self).  The launch is the runtime or driver call
+with the event's correlation id, else the host event its External id
+names; the match is by time over every thread, since autograd launches
+the backward from a thread of its own while the caller waits inside the
+"backward" span.  Events launched under no span count as "(no span)",
+events whose launch is not in the trace as "(launch not found)".
+
 Usage (CUDA; `--device cpu` runs on the CPU, where the trace holds no
 device events; without a GPU and without it the tool raises):
   python -m wireframe_tpu_torch.tools.trace_ops [--batch 64]
@@ -35,6 +45,11 @@ from wireframe_tpu_torch.config import RECIPE_YAML
 
 # Chrome-trace categories of the events that ran on the card.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# ... and of the host calls that launch them.
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+# ... and of the host operations an External id names.
+HOST_CATEGORIES = ("cpu_op", "user_annotation")
+NO_SPAN, NOT_FOUND = "(no span)", "(launch not found)"
 
 GROUPS = (
     # (label, regex over the device kernel name), first match wins.  The
@@ -71,25 +86,69 @@ def classify(name: str) -> str:
     return "other"
 
 
+def _host_times(events):
+    """(spans, launch, named) of one trace: the program's spans as
+    (duration, name, start, end), innermost first; the host time of each
+    runtime or driver call by correlation id; and of the first host op
+    with each External id."""
+    from wireframe_tpu_torch.utils.profiling import SPAN_PREFIX
+
+    spans, launch, named = [], {}, {}
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        args = ev.get("args") or {}
+        cat, ts = ev.get("cat"), float(ev.get("ts", 0.0))
+        if cat == "user_annotation" and str(
+                ev.get("name", "")).startswith(SPAN_PREFIX):
+            dur = float(ev.get("dur", 0.0))
+            spans.append((dur, ev["name"][len(SPAN_PREFIX):], ts, ts + dur))
+        if cat in LAUNCH_CATEGORIES and "correlation" in args:
+            launch[args["correlation"]] = ts
+        elif cat in HOST_CATEGORIES and "External id" in args:
+            named.setdefault(args["External id"], ts)
+    spans.sort()
+    return spans, launch, named
+
+
 def aggregate_device_events(trace_dir: str):
-    """(name -> total us, event count) over the device events of every
-    Chrome trace (`*.json`) in trace_dir."""
+    """(name -> total us, event count, span -> inclusive us, span ->
+    {name -> self us}) over the device events of every Chrome trace
+    (`*.json`) in trace_dir, each read once.  An event counts under the
+    spans open at its launch (module docstring); NO_SPAN and NOT_FOUND
+    hold the rest."""
     paths = sorted(glob.glob(os.path.join(trace_dir, "*.json")))
     if not paths:
         raise FileNotFoundError(f"no Chrome trace (*.json) under {trace_dir}")
     totals = collections.Counter()
+    inclusive = collections.Counter()
+    own = collections.defaultdict(collections.Counter)
     n_events = 0
     for path in paths:
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
+        spans, launch, named = _host_times(events)
         for ev in events:
-            if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATEGORIES:
-                totals[ev["name"]] += float(ev.get("dur", 0.0))
-                n_events += 1
+            if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_CATEGORIES:
+                continue
+            args = ev.get("args") or {}
+            us = float(ev.get("dur", 0.0))
+            totals[ev["name"]] += us
+            n_events += 1
+            t = launch.get(args.get("correlation"),
+                           named.get(args.get("External id")))
+            if t is None:
+                open_ = [NOT_FOUND]
+            else:
+                open_ = ([n for _, n, a, b in spans if a <= t <= b]
+                         or [NO_SPAN])
+            for n in set(open_):
+                inclusive[n] += us
+            own[open_[0]][ev["name"]] += us
     if n_events == 0:
         print("WARNING: no device events in the trace (a CPU run has none; "
               "run on the card)", file=sys.stderr)
-    return totals, n_events
+    return totals, n_events, inclusive, own
 
 
 def capture(args, trace_dir: str) -> float:
@@ -164,30 +223,51 @@ def main(argv=None) -> int:
     if trace_dir is None:
         with tempfile.TemporaryDirectory(prefix="wf_trace_") as trace_dir:
             profiler_ms = capture(args, trace_dir)
-            totals, n_events = aggregate_device_events(trace_dir)
+            totals, n_events, span_us, span_own = aggregate_device_events(
+                trace_dir)
     else:
-        totals, n_events = aggregate_device_events(trace_dir)
+        totals, n_events, span_us, span_own = aggregate_device_events(
+            trace_dir)
+    group_of = {name: classify(name) for name in totals}
     per_step = {k: v / args.steps for k, v in totals.items()}
     total_us = sum(per_step.values())
     groups = collections.Counter()
     for name, us in per_step.items():
-        groups[classify(name)] += us
+        groups[group_of[name]] += us
+    span_groups = {k: collections.Counter() for k in span_us}
+    for k, names in span_own.items():
+        for name, us in names.items():
+            span_groups[k][group_of[name]] += us
+    span_ms = {k: (inc / args.steps / 1e3,
+                   sum(span_own[k].values()) / args.steps / 1e3)
+               for k, inc in span_us.items()}
 
     print(f"\n== device time: {total_us / 1e3:.3f} ms/step over {n_events} "
           f"events ==")
     for label, us in groups.most_common():
         share = us / total_us * 100 if total_us else float("nan")
         print(f"  {label:<34} {us / 1e3:8.3f} ms  ({share:5.1f}%)")
+    print("\n== device time by program span (ms/step): inclusive, self; "
+          "the self time's largest groups ==")
+    for name, (inc, own) in sorted(span_ms.items(), key=lambda kv: -kv[1][0]):
+        top = span_groups[name].most_common(3)
+        print(f"  {name:<20} {inc:8.3f} {own:8.3f}  " + ", ".join(
+            f"{g} {us / args.steps / 1e3:.3f}" for g, us in top))
     print(f"\n== top {args.top} kernels (ms/step) ==")
     rows = sorted(per_step.items(), key=lambda kv: -kv[1])[:args.top]
     for name, us in rows:
-        print(f"  {us / 1e3:8.3f}  [{classify(name)}] {name[:100]}")
+        print(f"  {us / 1e3:8.3f}  [{group_of[name]}] {name[:100]}")
 
     result = {"metric": "train_step_device_time_by_group",
               "steps": args.steps, "events": n_events,
               "total_ms": total_us / 1e3,
               "profiler_device_ms": profiler_ms,
               "groups_ms": {k: v / 1e3 for k, v in groups.items()},
+              "spans_ms": {k: {"inclusive": inc, "self": own}
+                           for k, (inc, own) in span_ms.items()},
+              "span_groups_ms": {k: {g: us / args.steps / 1e3
+                                     for g, us in v.items()}
+                                 for k, v in span_groups.items()},
               "ops_ms": {k: v / 1e3 for k, v in rows}}
     if args.json:
         with open(args.json, "w") as f:

@@ -6,6 +6,9 @@ Hungarian-matched loss (assignment by K4) -> backward (chain gradient by
 K3) -> global-norm clip, coupled weight decay, Adam, learning rate -> EMA.
 Nothing in the step reads a value back to the host: the metrics are
 0-d device tensors, and the loop reads them at its log points only.
+Under a `torch.profiler` each stage is a span (`utils.profiling.span`):
+augment, forward, loss, backward, optimizer; the monitoring sums are in
+none.
 
 `make_forward_fn` is the inference forward that serving, the bench and
 the measuring tools call.
@@ -60,6 +63,7 @@ from wireframe_tpu_torch.losses.wireframe_loss import (
 from wireframe_tpu_torch.parallel.collective_audit import all_reduce
 from wireframe_tpu_torch.parallel.mesh import Layout, flat_apply
 from wireframe_tpu_torch.train.state import Optimizer, TrainState, global_norm
+from wireframe_tpu_torch.utils.profiling import span
 
 BATCH_KEYS = ("point_clouds", "target_vertices", "vertex_existence",
               "vertex_counts", "edge_labels")
@@ -178,36 +182,41 @@ def make_train_step(cfg, steps_per_epoch: int = 1,
         target_vertices = batch["target_vertices"]
         b = point_clouds.shape[0]
         if do_augment:
-            point_clouds, target_vertices = augment_batch(
-                generator, point_clouds, target_vertices,
-                rot_degrees=cfg.train.aug_rot_degrees,
-                jitter_std=cfg.train.aug_jitter_std,
-                scale_range=cfg.train.aug_scale_range,
-                rows=None if layout is None else layout.rows(b))
+            with span("augment"):
+                point_clouds, target_vertices = augment_batch(
+                    generator, point_clouds, target_vertices,
+                    rot_degrees=cfg.train.aug_rot_degrees,
+                    jitter_std=cfg.train.aug_jitter_std,
+                    scale_range=cfg.train.aug_scale_range,
+                    rows=None if layout is None else layout.rows(b))
         work = dict(batch, point_clouds=point_clouds,
                     target_vertices=target_vertices)
-        preds = state.model(work["point_clouds"], work["vertex_counts"],
-                            train=True, generator=generator, split=split)
+        with span("forward"):
+            preds = state.model(work["point_clouds"], work["vertex_counts"],
+                                train=True, generator=generator, split=split)
         targets = {"vertices": work["target_vertices"],
                    "vertex_existence": work["vertex_existence"],
                    "edge_labels": work["edge_labels"],
                    "vertex_counts": work["vertex_counts"]}
         norms = (None if layout is None else
                  lambda t, m: global_norms(t, m, b))
-        losses = wireframe_loss(preds, targets, loss_cfg, norms=norms)
+        with span("loss"):
+            losses = wireframe_loss(preds, targets, loss_cfg, norms=norms)
         params = state.params
         names = list(params)
-        grads = torch.autograd.grad(losses["total_loss"],
-                                    [params[k] for k in names],
-                                    allow_unused=True)
-        # A parameter the loss does not reach has a zero gradient, as
-        # jax.grad gives it.
-        grads = {k: (g if g is not None else torch.zeros_like(params[k]))
-                 for k, g in zip(names, grads)}
+        with span("backward"):
+            grads = torch.autograd.grad(losses["total_loss"],
+                                        [params[k] for k in names],
+                                        allow_unused=True)
+            # A parameter the loss does not reach has a zero gradient, as
+            # jax.grad gives it.
+            grads = {k: (g if g is not None else torch.zeros_like(params[k]))
+                     for k, g in zip(names, grads)}
         if layout is not None:
             reduce_grads(state, grads)
-        g_norm = global_norm(grads.values())
-        optimizer.apply(state, grads, g_norm)
+        with span("optimizer"):
+            g_norm = global_norm(grads.values())
+            optimizer.apply(state, grads, g_norm)
 
         with torch.no_grad():
             sums = _metric_sums(preds["vertices"].detach(), work, losses,

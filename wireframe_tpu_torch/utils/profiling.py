@@ -5,6 +5,12 @@ Port of `wireframe_tpu/utils/profiling.py`: a context manager around
 a step timer that reports the steady-state step time and the derived
 clouds/sec, and `device_rows`, the device time by kernel of a profile.
 
+`span(name)` marks a layer of the program (augmentation, forward, loss,
+matcher, backward, optimizer; encoder, vertex head, edge head) while a
+`torch.profiler` records: a `record_function` range "wf.<name>" in the
+trace, beside the kernels it launches.  `tools/trace_ops.py` sums the
+device time of the launches inside each.
+
 The bench and the tools time through the two protocols here:
 `chained_seconds` (every call chained on one device scalar, read back
 once, so the host never waits inside the window) and `round_trips`
@@ -149,18 +155,35 @@ def trace(log_dir: Optional[str]) -> Iterator[Optional[object]]:
         log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
 
+SPAN_PREFIX = "wf."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A "wf.<name>" `record_function` range while a `torch.profiler`
+    records; otherwise the one shared null context (no allocation, no call
+    into torch beyond the check).  It changes nothing the block computes."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
 def device_rows(prof) -> List[Tuple[float, int, str]]:
     """(ms, count, name) of every kernel, copy and memset the profile saw
     on the card.  Only the device-side events: an operator's row also
     carries the device time of the kernels it launched, so summing both
-    would count them twice."""
+    would count them twice.  A `record_function` range (a `span`) has a
+    device-side copy too, from its first kernel to its last; it is a
+    user annotation, not work, and is left out."""
     from torch.autograd import DeviceType
 
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if us > 0 and e.device_type == DeviceType.CUDA:
+        if (us > 0 and e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith(SPAN_PREFIX)):
             rows.append((us / 1e3, e.count, e.key))
     return rows
 
