@@ -4,8 +4,10 @@
 
 Phases (any failure exits nonzero and prints no final `ok` line):
   1. device   — require CUDA; print the card's name and power limit;
-  2. build    — compile K1 (fused_encoder.cu), K2 + K3 + K5 (chain_grad.cu)
-                and K4 (lockstep_lsa.cu) from wireframe_tpu_torch/csrc/, one
+  2. build    — compile K1 (fused_encoder.cu), K2 + K3 + K5 (chain_grad.cu),
+                K4 (lockstep_lsa.cu), the split stages' row kernels
+                (layernorm_rows.cu) and the pair MLP (pair_mlp.cu) from
+                wireframe_tpu_torch/csrc/, one
                 nvcc per source, all started together; ptxas lines;
   3. K1       — against its plain PyTorch version at the recipe's full
                 width (bf16 weights, kv_pool 4, tile 512) on padded and
@@ -39,6 +41,13 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 parity (3, 2560) features shape, the bench's (128, 2560),
                 the recipe's (8, 2560) slim shape and small ragged shapes; its forward
                 array_equal to K2's; times and bounds;
+  7b. pair MLP — the edge head's pair MLP kernel (pair_mlp.cu) against
+                its plain version at (512, 40), (3, 40), (7, 64) and a
+                ragged last tile, bounded by twice the plain version's own
+                gap to the same math in f32; its time, the plain version's
+                and its bound; one launch per served recipe forward (edge
+                probabilities held to the eager path's), none in 20
+                recipe and 20 parity train steps;
   8. f32      — the encoder-chain kernels computing in float32, within
                 60 s: (a) the reference-parity model as shipped
                 (configs/default.yaml + model.use_pallas_encoder=true, f32)
@@ -212,6 +221,7 @@ import tempfile
 import time
 import traceback
 import warnings
+from unittest import mock
 
 import numpy as np
 
@@ -1398,6 +1408,164 @@ def k5_phase(torch, dev, card, shapes=K5_SHAPES):
 # ---------------------------------------------------------------------------
 # Training: the recipe train step
 # ---------------------------------------------------------------------------
+
+# The edge head's pair MLP kernel (csrc/pair_mlp.cu): (B, V) at the
+# edge head's full width F = 512, bf16.  (512, 40) is the recipe's bulk
+# inference batch, (3, 40) the shipped eval batch, (7, 64) the parity
+# model's 64 slots, and (5, 23), 5 x 253 = 1265 pair rows, a last tile
+# of 113 rows.
+PAIR_MLP_SHAPES = ((512, 40), (3, 40), (7, 64), (5, 23))
+PAIR_MLP_STEPS = 20
+PAIR_MLP_FORWARDS = 5
+
+
+def pair_mlp_bound_ms(b, v, f):
+    """Least time for the pair MLP: its two products and the dot with w5
+    at the bf16 peak, against u_i, u_j, x and the weights read once and
+    the logits and probabilities written once."""
+    e = v * (v - 1) // 2
+    flops = 2.0 * b * e * (f * f // 2 + f // 2 * f // 4 + f // 4)
+    nbytes = (2 * 2 * b * v * f + 2 * b * v * 3
+              + 2 * (f * f // 2 + f // 2 * f // 4) + 4 * (6 * f) + 8 * b * e)
+    return _bound(flops, nbytes, False)
+
+
+def pair_mlp_phase(torch, dev, card, work):
+    """The pair MLP kernel against its plain version at PAIR_MLP_SHAPES,
+    with a bound from the plain version's own gap to the same math in f32;
+    its time beside the plain version's and its bound; one launch per
+    served recipe forward, whose edge probabilities are held to the eager
+    path's; none in 20 recipe and 20 parity train steps.  Returns the
+    kernel's figures at (512, 40)."""
+    from wireframe_tpu_torch.config import load_config
+    from wireframe_tpu_torch.models.edge_head import EdgePredictor
+    from wireframe_tpu_torch.ops import pair_mlp
+    from wireframe_tpu_torch.train.loop import init_model, train_model
+    from wireframe_tpu_torch.train.step import make_forward_fn
+    from wireframe_tpu_torch.utils.synth import make_box_building_batch
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(20)
+    head = EdgePredictor(vertex_dim=3, hidden_dim=512, num_heads=8,
+                         slot_feature_dim=256, dtype=bf16)
+    with torch.no_grad():
+        # Off the init's zeros and ones, so that a swapped term shows.
+        for name, prm in head.named_parameters():
+            if name.endswith("bias") or name.startswith("LayerNorm"):
+                prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+    head = head.to(dev).eval()
+    p = head.pair_params()
+    out = {}
+    for b, v in PAIR_MLP_SHAPES:
+        verts = torch.randn((b, v, 3), generator=gen).to(dev)
+        feats = torch.randn((b, v, 256), generator=gen).to(dev)
+        live = (torch.rand((b, v), generator=gen) > 0.3).to(dev)
+        plan = pair_mlp.pair_mlp_plan(b, v, 512)
+        with torch.inference_mode():
+            x, ui, uj = head.slot_rows(verts, torch.ones_like(live), feats)
+            n0 = pair_mlp.kernels_launched()
+            kp, kl, km = pair_mlp.pair_mlp(ui, uj, x, live, p, dtype=bf16)
+            torch.cuda.synchronize()
+            launched = pair_mlp.kernels_launched() - n0
+            pp, pl, pm = pair_mlp.pair_mlp_plain(ui, uj, x, live, p,
+                                                 dtype=bf16)
+            fp, fl, _ = pair_mlp.pair_mlp_plain(
+                ui.float(), uj.float(), x.float(), live, p,
+                dtype=torch.float32)
+        if launched != 1 or not torch.equal(km, pm):
+            raise AssertionError(f"pair MLP ({b}, {v}): {launched} launches, "
+                                 f"pair mask equal {torch.equal(km, pm)}")
+
+        def gap(a, c):
+            return float((a.float() - c.float()).abs().max())
+
+        row = {"rows": plan["rows"], "tiles": plan["tiles"],
+               "last_tile_rows": plan["last_tile_rows"]}
+        for name, k, pl_, f_ in (("probs", kp, pp, fp),
+                                 ("logits", kl, pl, fl)):
+            own = gap(pl_, f_)
+            row[name] = {"kernel_vs_plain": gap(k, pl_),
+                         "plain_vs_f32": own, "kernel_vs_f32": gap(k, f_),
+                         "bound": 2 * own}
+        print(f"pair MLP ({b}, {v}): {plan['rows']} rows, {plan['tiles']} "
+              f"tiles (last {plan['last_tile_rows']} rows), grid "
+              f"{plan['grid']}; probs {row['probs']}; logits "
+              f"{row['logits']} [{card}]", flush=True)
+        for name in ("probs", "logits"):
+            r = row[name]
+            if not r["kernel_vs_plain"] <= r["bound"]:
+                raise AssertionError(
+                    f"pair MLP ({b}, {v}) {name}: kernel against the plain "
+                    f"version {r['kernel_vs_plain']} over 2x the plain "
+                    f"version's own gap to f32, {r['bound']}")
+        if (b, v) == PAIR_MLP_SHAPES[0]:
+            with torch.inference_mode():
+                ms = cuda_ms(torch, lambda: pair_mlp.pair_mlp(
+                    ui, uj, x, live, p, dtype=bf16), 20)
+                plain_ms = cuda_ms(torch, lambda: pair_mlp.pair_mlp_plain(
+                    ui, uj, x, live, p, dtype=bf16), 3)
+            bound, by = pair_mlp_bound_ms(b, v, 512)
+            out = {**row, "shape": f"B={b} V={v} F=512", "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "pct_of_bound": 100.0 * bound / ms}
+            print(f"pair MLP ({b}, {v}) time: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                  f"{100.0 * bound / ms:.1f}% of bound [{card}]", flush=True)
+
+    # The served recipe forward: one launch a call, its edge probabilities
+    # held to the same forward through the eager ops.
+    cfg = load_config(RECIPE)
+    model = init_model(cfg, dev, seed=SERVE_SEED).eval()
+    forward = make_forward_fn(cfg)
+    rng = np.random.default_rng(20)
+    clouds = torch.from_numpy(padded_clouds(rng, 8, cfg.data.num_points)
+                              ).to(dev)
+    n0 = pair_mlp.kernels_launched()
+    for _ in range(PAIR_MLP_FORWARDS):
+        got = forward(model, clouds)
+    torch.cuda.synchronize()
+    served = pair_mlp.kernels_launched() - n0
+    with torch.inference_mode(), mock.patch.object(
+            pair_mlp, "engages", lambda *a: False):
+        eager = model(clouds, train=False)
+    torch.cuda.synchronize()
+    if pair_mlp.kernels_launched() - n0 != served:
+        raise AssertionError("the eager forward took the kernel")
+    live = got["pair_mask"] & eager["pair_mask"]
+    model_gap = float((got["edge_probs"] - eager["edge_probs"]
+                       )[live].abs().max()) if live.any() else 0.0
+    print(f"pair MLP served: {served} launches over {PAIR_MLP_FORWARDS} "
+          f"recipe forwards at (8, {cfg.data.num_points}); edge_probs "
+          f"against the eager path {model_gap} where both masks are live "
+          f"({int(live.sum())} pairs; atol {MODEL_ATOL['edge_probs']})",
+          flush=True)
+    if served != PAIR_MLP_FORWARDS or not model_gap <= MODEL_ATOL[
+            "edge_probs"]:
+        raise AssertionError(f"pair MLP served: {served} launches, gap "
+                             f"{model_gap}")
+
+    # Training takes the eager path: no launch in 20 steps of each model.
+    trained = {}
+    for tag, yaml, sets in (("recipe", RECIPE, []),
+                            ("parity", PARITY, PARITY_SET)):
+        tcfg = load_config(yaml, sets + [
+            "train.overfit_one_batch=true", "train.log_every=1",
+            f"train.num_epochs={PAIR_MLP_STEPS}",
+            f"train.checkpoint_dir={os.path.join(work, 'pair_mlp_' + tag)}"])
+        batch = make_box_building_batch(tcfg, tcfg.train.batch_size, seed=0)
+        n0 = pair_mlp.kernels_launched()
+        train_model(tcfg, [batch], metric_writer=_Losses(), device=dev)
+        torch.cuda.synchronize()
+        trained[tag] = pair_mlp.kernels_launched() - n0
+    print(f"pair MLP launches over {PAIR_MLP_STEPS} train steps: {trained}",
+          flush=True)
+    if any(trained.values()):
+        raise AssertionError(f"a train step launched the pair MLP kernel: "
+                             f"{trained}")
+    return {**out, "served_launches": served,
+            "served_forwards": PAIR_MLP_FORWARDS, "train_launches": trained,
+            "served_edge_gap": model_gap}
+
 
 TRAIN_STEPS = 20
 FALL_STEPS = 30
@@ -5227,7 +5395,8 @@ def main() -> int:
 
         t0 = time.perf_counter()
         built = _build.build_all(["fused_encoder", "chain_grad",
-                                  "lockstep_lsa", "layernorm_rows"])
+                                  "lockstep_lsa", "layernorm_rows",
+                                  "pair_mlp"])
         print(f"build: {len(built)} libraries in "
               f"{time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
         for name, (path, secs, log) in built.items():
@@ -5262,6 +5431,9 @@ def main() -> int:
         if errs != CHAIN_MAX_ABS:
             raise AssertionError(f"a chain kernel's error changed: recorded "
                                  f"{CHAIN_MAX_ABS}")
+
+        phase = "pair MLP"
+        pair = pair_mlp_phase(torch, dev, card, work)
 
         phase = "f32"
         f32 = f32_phase(torch, dev, card, work)
@@ -5438,6 +5610,18 @@ def main() -> int:
                 **timing[tag][f"row kernel {part}"],
                 "split_stage": timing[tag][f"split stage {part}"],
                 "library_ms": None})
+        kernels.append({
+            "name": "pair MLP (edge head, inference)", "route": "cuda",
+            "source": f"{src}pair_mlp.cu",
+            "replaces": "none (eager tail of models/edge_head.py)",
+            "launches": pair["served_launches"],
+            "forwards": pair["served_forwards"],
+            "train_launches": pair["train_launches"],
+            **{k: pair[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "pct_of_bound")},
+            "max_abs_err": {k: pair[k]["kernel_vs_plain"]
+                            for k in ("probs", "logits")},
+            "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:
         traceback.print_exc()

@@ -103,6 +103,8 @@ NAMES = {
         "K2/K3/K5 (encoder chain)",
     "void (anonymous namespace)::lsa_kernel<64>(float const*, int const*, "
     "int*, int*, int, int, int)": "K4 (lockstep JV)",
+    "void (anonymous namespace)::pair_mlp_kernel<512>((anonymous "
+    "namespace)::Params)": "pair MLP (edge head)",
     "nvjet_tst_128x256_64x4_1x2_h_bz_coopB_NNT":
         "library GEMM (cuBLAS / CUTLASS)",
     "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64":

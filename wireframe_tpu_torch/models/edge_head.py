@@ -12,6 +12,11 @@ Names are pinned to the flax tree: Dense_0..Dense_5, LayerNorm_0..3,
 dropout acts at flax's sites: after the embedding LayerNorm, on the
 attention weights (one mask shared by batch and heads), and after each of
 the first two pair layers.
+
+Everything after PairDense's slot-row products runs once per pair row
+(`ops/pair_mlp.py`): where nothing needs its intermediates (CUDA tensors,
+autograd off, bf16, no dropout; `pair_mlp.engages`) as one kernel, else
+as the eager ops of `pair_mlp_plain`.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from torch import nn
 
 from wireframe_tpu_torch.models.attention import MultiHeadDotProductAttention
 from wireframe_tpu_torch.models.layers import Dense, LayerNorm, dropout, gelu
-from wireframe_tpu_torch.ops.pairs import triu_pairs_on
+from wireframe_tpu_torch.ops import pair_mlp
 
 
 class PairDense(nn.Module):
@@ -35,7 +40,8 @@ class PairDense(nn.Module):
     so the 1031-wide product runs over the V slot rows instead of the
     E = V(V-1)/2 pair rows.  The kernel keeps flax's (in, out) layout,
     split at [:h], [h:2h], [2h:2h+c], [2h+c:2h+2c] and row 2h+2c
-    (edge_head.py:65-67).
+    (edge_head.py:65-67).  `forward` returns the slot rows u_i, u_j; the
+    pair sum with d w5 + b is the first step of `ops/pair_mlp.py`.
     """
 
     def __init__(self, f_dim: int, x_dim: int, features: int,
@@ -48,18 +54,21 @@ class PairDense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
 
-    def forward(self, f, x, dist, i_idx, j_idx):
+    @property
+    def w_d(self) -> torch.Tensor:
+        """The distance row (F,) of the kernel."""
+        return self.kernel[2 * self.f_dim + 2 * self.x_dim]
+
+    def forward(self, f, x) -> Tuple[torch.Tensor, torch.Tensor]:
         h, c = self.f_dim, self.x_dim
         k = self.kernel.to(self.dtype)
         f = f.to(self.dtype)
         x = x.to(self.dtype)
         w_fi, w_fj = k[:h], k[h:2 * h]
         w_ci, w_cj = k[2 * h:2 * h + c], k[2 * h + c:2 * h + 2 * c]
-        w_d = k[2 * h + 2 * c]                            # (F,)
         u_i = torch.matmul(f, w_fi) + torch.matmul(x, w_ci)   # (B, V, F)
         u_j = torch.matmul(f, w_fj) + torch.matmul(x, w_cj)
-        return (u_i[:, i_idx] + u_j[:, j_idx]
-                + dist.to(self.dtype) * w_d + self.bias.to(self.dtype))
+        return u_i, u_j
 
 
 class EdgePredictor(nn.Module):
@@ -94,10 +103,26 @@ class EdgePredictor(nn.Module):
         attn_slot_mask (B, V) attention key mask (default slot_mask);
         slot_features optional (B, V, F).  Returns (edge_probs (B, E)
         zeroed outside the pair mask, edge_logits (B, E), pair_mask)."""
-        b, v, _ = vertices.shape
-        x = vertices.to(self.dtype)
         if attn_slot_mask is None:
             attn_slot_mask = slot_mask
+        x, u_i, u_j = self.slot_rows(vertices, attn_slot_mask, slot_features,
+                                     train, generator)
+        p = self.pair_params()
+        if pair_mlp.engages(x.device, self.dtype, train):
+            return pair_mlp.pair_mlp(u_i, u_j, x, slot_mask, p,
+                                     dtype=self.dtype)
+        return pair_mlp.pair_mlp_plain(u_i, u_j, x, slot_mask, p,
+                                       dtype=self.dtype,
+                                       rate=self.mlp_dropout, train=train,
+                                       generator=generator)
+
+    def slot_rows(self, vertices, attn_slot_mask, slot_features=None,
+                  train: bool = False, generator=None):
+        """(x, u_i, u_j): the coordinates in the compute dtype and
+        PairDense's slot rows (B, V, F), from the embedding, the slot
+        attention and PairDense's products over the V slots."""
+        b, v, _ = vertices.shape
+        x = vertices.to(self.dtype)
         embed_in = x
         if slot_features is not None:
             embed_in = torch.cat([x, slot_features.to(self.dtype)], dim=-1)
@@ -108,24 +133,12 @@ class EdgePredictor(nn.Module):
         attn_mask = attn_slot_mask[:, None, None, :].expand(b, 1, v, v)
         f = f + self.attention(f, f, attn_mask, train=train,
                                generator=generator)
+        return (x, *self.Dense_2(f, x))
 
-        pairs = triu_pairs_on(v, vertices.device)
-        i_idx, j_idx = pairs[:, 0], pairs[:, 1]
-        c1 = x[:, i_idx, :]
-        c2 = x[:, j_idx, :]
-        # Safe norm, in the model dtype (edge_head.py:153-154).
-        d2 = torch.sum(torch.square(c1 - c2), dim=-1, keepdim=True)
-        dist = torch.sqrt(d2 + 1e-12)
-
-        y = self.Dense_2(f, x, dist, i_idx, j_idx)
-        y = gelu(self.LayerNorm_2(y))
-        y = dropout(y, self.mlp_dropout, train, generator)
-        y = gelu(self.LayerNorm_3(self.Dense_3(y)))
-        y = dropout(y, self.mlp_dropout, train, generator)
-        y = gelu(self.Dense_4(y))
-        logits = self.Dense_5(y)[..., 0].float()
-
-        # Both endpoints must be live.
-        pair_mask = slot_mask[:, i_idx] & slot_mask[:, j_idx]
-        probs = torch.sigmoid(logits) * pair_mask.float()
-        return probs, logits, pair_mask
+    def pair_params(self) -> pair_mlp.PairMlpParams:
+        return pair_mlp.PairMlpParams(
+            self.Dense_2.w_d, self.Dense_2.bias, self.LayerNorm_2.weight,
+            self.LayerNorm_2.bias, self.Dense_3.weight, self.Dense_3.bias,
+            self.LayerNorm_3.weight, self.LayerNorm_3.bias,
+            self.Dense_4.weight, self.Dense_4.bias, self.Dense_5.weight,
+            self.Dense_5.bias)

@@ -7,6 +7,7 @@
 - `LayerNorm` is `flax.linen.LayerNorm(dtype=float32)`: eps 1e-6 (torch's
   default is 1e-5), statistics in f32 with flax's fast variance
   E[x^2] - E[x]^2 clamped at 0, output in f32.
+- `dense` and `layer_norm` are the two as functions of their parameters.
 - `dropout` is `flax.linen.Dropout`: in train mode each element is kept
   with probability 1 - rate and divided by it; the draws come from the
   caller's `torch.Generator`.
@@ -20,6 +21,23 @@ import torch
 from torch import nn
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """x @ weight.T + bias with all three in `dtype` (weight (out, in))."""
+    y = torch.matmul(x.to(dtype), weight.to(dtype).t())
+    return y + bias.to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    mean2 = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
+    mul = torch.rsqrt(var + eps) * weight
+    return (x - mean) * mul + bias
+
+
 class Dense(nn.Linear):
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
@@ -27,8 +45,7 @@ class Dense(nn.Linear):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
-        return y + self.bias.to(self.dtype)
+        return dense(x, self.weight, self.bias, self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -39,12 +56,7 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mean = torch.mean(x, dim=-1, keepdim=True)
-        mean2 = torch.mean(torch.square(x), dim=-1, keepdim=True)
-        var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
