@@ -115,15 +115,28 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 the memory the forward leaves for the backward, remat
                 against stash; ms per step, profile, no host sync; the
                 trained checkpoint served over all four buckets with K1;
- 12. serving  — the full-width recipe WireframePredictor (random weights
+ 12. ptv3     — Point Transformer V3 as the recipe's backbone at its
+                published widths (`model.encoder: ptv3`): the forward at
+                (8, 16384) against the benchmark's plain reference
+                (`port_bench/reference/ptv3.py`) within the cell's limits,
+                with CUDA's sync debug mode at "error" (no host
+                synchronisation), the five spans inside the encoder's,
+                ms, peak memory and the device counters at (8, 16384) and
+                (128, 16384) with one pair MLP launch a forward, a call over
+                a stage's capacity raising on readback and the next one
+                served, one train step at (2, 4096);
+ 13. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
                 buckets; the K1 launch count must equal the batches
                 served; .obj files must load back; one batch is compared
                 between the kernel and the plain encoder chain; serving
                 time per bucket, and a torch.profiler breakdown of one
-                batch per bucket (device busy share, K1 against the rest);
- 13. corpus   — the recipe at full width from a generated Building3D
+                batch per bucket (device busy share, K1 against the rest;
+                each of K1's kernels must be in it, the profile opening
+                with spin kernels that take the records a long process's
+                profiler loses);
+ 14. corpus   — the recipe at full width from a generated Building3D
                 corpus (24 train / 8 test buildings) through the CLIs:
                 `main` trains 2 epochs (K2, K3, K4 once per optimizer
                 step, finite losses, step_6 and ema/step_6), `--resume` of
@@ -136,7 +149,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 pipelined step's kept pairs in pair-table order); `test`
                 writes 8 world-frame .obj files; ms per step, clouds/s per
                 path and the host share of a pipelined chunk;
- 14. layouts  — the full-width recipe's decoder in the layouts the JAX
+ 15. layouts  — the full-width recipe's decoder in the layouts the JAX
                 package builds besides the unrolled one: fused cross K/V,
                 scanned, scanned + fused and remat, each from
                 `init_flax_params` for its own tree: served over all four
@@ -149,7 +162,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 dropout on, and the bytes autograd saves; ms per step and
                 device ops per step (tools/trace_ops) per layout beside
                 the unrolled layout's;
- 15. checkpoints — a state_dict in the reference's own layout (its
+ 16. checkpoints — a state_dict in the reference's own layout (its
                 widths, 64 slots) `torch.save`d and evaluated through
                 `evaluate --torch-checkpoint` on the corpus's test split in
                 f32 (the plain encoder), in bf16 through K1 and in f32
@@ -158,18 +171,18 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 f32 run's, the f32 K1 run's within the f32 forward atol;
                 a scanned + fused recipe checkpoint with its Adam state
                 resumed twice to the same losses;
- 16. parser   — every .xyz of the corpus phase's corpus read by the C++
+ 17. parser   — every .xyz of the corpus phase's corpus read by the C++
                 parser (`io/native`, built with g++ into build/native/)
                 and by np.loadtxt: array_equal float64 arrays, ms per
                 file of each; the library loaded and no cloud of the
                 whole run read by numpy; on one served batch of the
                 corpus's model, the adjacency ops' round trip equal to
                 (p > t) on the card;
- 17. study    — `tools.seed_study` on that corpus (seeds 0 and 1, 2
+ 18. study    — `tools.seed_study` on that corpus (seeds 0 and 1, 2
                 epochs, EMA and decoded; every subprocess on CUDA): 6
                 records, each naming the card; then `tools.study_report`
                 on them;
- 18. parallel — more than one device on the one card, within 90 s:
+ 19. parallel — more than one device on the one card, within 90 s:
                 (a) `evaluate --sharded 4` of the corpus phase's EMA
                 checkpoint, shard by shard and pipelined: counters
                 array_equal to the plain runs', K1 once per forward
@@ -196,7 +209,7 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 (c), each kernel once per step on each rank.  A rank's
                 non-zero exit fails the phase.  NCCL across two cards
                 needs a machine with two;
- 19. bench    — `wireframe_tpu_torch.bench` and its four tools at the
+ 20. bench    — `wireframe_tpu_torch.bench` and its four tools at the
                 bench's defaults (B=128 x 2560), and the recipe forward
                 with BENCH_DTYPE=float32 through K1 f32.
 Then a `kernels` JSON line (launches on the main paths, on the corpus,
@@ -204,12 +217,15 @@ layouts, checkpoints, parallel, bench and limits paths; the f32 kernels'
 and the split stages' row kernels under their own entries; K4's per
 variant) and, last, the `ok` JSON line.
 
-Imports torch, numpy and the port only: no JAX, nothing of wireframe_tpu.
+Imports torch, numpy and the port only (and, in the ptv3 phase, the
+benchmark's plain reference and its batch maker): no JAX, nothing of
+wireframe_tpu.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -640,33 +656,48 @@ def serving_phase(torch, dev, card, work, overrides=(),
 # K1's device kernels in a served batch (the chain kernels do not run
 # there): the wgmma GEMM's stages and projection, the prep and finalize.
 K1_KERNELS = ("wgmma_chain_kernel", "prep_x_kernel", "k1_finalize_kernel")
+# Late in a long process the profiler loses the first device records of
+# each profile: none in a fresh process, 8 or more after the training
+# phases, whatever the wait before the first launch (PERF.md §7).  A
+# served batch's profile therefore opens with this many one-cycle spin
+# kernels, which its rows leave out.
+PROFILE_PAD = 256
+PAD_KERNEL = "spin_kernel"
 
 
 def profile_batch(torch, predictor, chunk, bucket, card):
     """Where one served batch's time goes: device time by kernel from
-    torch.profiler, against the host wall clock of the same predict()."""
+    torch.profiler, against the host wall clock of the same predict().
+    Each of K1's kernels has to be in the profile."""
     from torch.profiler import ProfilerActivity, profile
 
     from wireframe_tpu_torch.utils.profiling import device_rows
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         predictor.predict(chunk)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
+    pads = sum(r[1] for r in rows if PAD_KERNEL in r[2])
+    rows = [r for r in rows if PAD_KERNEL not in r[2]]
     device_ms = sum(r[0] for r in rows)
     k1_ms = sum(r[0] for r in rows if any(k in r[2] for k in K1_KERNELS))
     print(f"profile bucket {bucket}: wall {wall_ms:.2f} ms, device busy "
           f"{device_ms:.2f} ms ({device_ms / wall_ms * 100:.1f}%), K1 "
           f"{k1_ms:.2f} ms, rest of the model {device_ms - k1_ms:.2f} ms, "
-          f"{sum(r[1] for r in rows)} device ops [{card}]", flush=True)
+          f"{sum(r[1] for r in rows)} device ops; {PROFILE_PAD - pads} of "
+          f"the {PROFILE_PAD} pads lost [{card}]", flush=True)
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         print(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}", flush=True)
-    if not k1_ms > 0:
-        raise AssertionError(f"the profile of bucket {bucket} shows no K1 "
-                             f"kernel among {[r[2] for r in rows]}")
+    missing = [k for k in K1_KERNELS if not any(k in r[2] for r in rows)]
+    if missing:
+        raise AssertionError(f"the profile of bucket {bucket} lacks K1's "
+                             f"{missing} among {[r[2] for r in rows]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1428,6 +1459,214 @@ def pair_mlp_bound_ms(b, v, f):
     nbytes = (2 * 2 * b * v * f + 2 * b * v * 3
               + 2 * (f * f // 2 + f // 2 * f // 4) + 4 * (6 * f) + 8 * b * e)
     return _bound(flops, nbytes, False)
+
+
+# The PTv3 phase's bounds on the program against the benchmark's plain
+# reference, both bf16 with f32 accumulation: the cell's correctness
+# limits (port_bench/limits/ptv3-infer-b128-16k.json), which sit between
+# the program's readings and those of a CPE left out and of fp8 operands.
+PTV3_ATOL = {"vertices": 0.035, "existence_probabilities": 0.016,
+             "edge_probs": 0.018}
+PTV3_SPANS = ("serialize", "sparse_conv", "patch_attn", "grid_pool",
+              "grid_unpool")
+
+
+def ptv3_config(extra=()):
+    """The benchmark's ptv3 configuration (the recipe with Point
+    Transformer V3 as its backbone, published widths) as overrides."""
+    with open(os.path.join(os.path.dirname(RECIPE), os.pardir,
+                           "port_bench", "configs", "ptv3.json")) as f:
+        model = json.load(f)["model"]
+    sets = ["model.encoder=ptv3", "data.num_points=16384"]
+    for k, v in model.items():
+        if k.startswith("ptv3_"):
+            sets.append(f"model.{k}=" + (",".join(map(str, v))
+                                         if isinstance(v, list) else str(v)))
+    from wireframe_tpu_torch.config import load_config
+
+    return load_config(RECIPE, sets + list(extra))
+
+
+def ptv3_split(torch, call, trace_dir, label, card):
+    """Profile one call: the five spans inside the encoder's, every
+    launch found on the host (`tools/trace_ops`), device ms by span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wireframe_tpu_torch.tools.trace_ops import (
+        NO_SPAN,
+        NOT_FOUND,
+        aggregate_device_events,
+    )
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "forward.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["name"][3:], e["ts"], e["ts"] + e.get("dur", 0))
+              for e in events if str(e.get("name", "")).startswith("wf.")
+              and e.get("cat") == "user_annotation"]
+    enc = [(a, b) for n, a, b in ranges if n == "encoder"]
+    assert len(enc) == 1, ranges
+    for name in PTV3_SPANS:
+        inside = [(a, b) for n, a, b in ranges if n == name]
+        assert inside and all(enc[0][0] <= a and b <= enc[0][1]
+                              for a, b in inside), name
+    totals, _, span_us, span_own = aggregate_device_events(trace_dir)
+    lost = sum(span_own.get(NOT_FOUND, {}).values())
+    assert lost == 0 and all(n in span_us for n in PTV3_SPANS), (
+        lost, sorted(span_us))
+    print(f"ptv3 {label} device ms by span (inclusive, self; trace_ops; "
+          "every launch found): "
+          + ", ".join(f"{n} {span_us.get(n, 0) / 1e3:.2f} "
+                      f"{sum(span_own.get(n, {}).values()) / 1e3:.2f}"
+                      for n in ("encoder",) + PTV3_SPANS
+                      + ("vertex_head", "edge_head"))
+          + f"; outside every span {span_us.get(NO_SPAN, 0) / 1e3:.2f}"
+          f"; total {sum(totals.values()) / 1e3:.2f} [{card}]",
+          flush=True)
+
+
+def ptv3_phase(torch, dev, card, work):
+    """Point Transformer V3 as the recipe's backbone at its published
+    widths: the forward at (8, 16384) against the benchmark's plain
+    reference, with no host synchronisation (CUDA sync debug mode
+    "error"), the five spans inside the encoder span, the device
+    counters, ms and peak memory of one call at (8, 16384) and (128,
+    16384) with one pair MLP kernel launch a forward; a call over a
+    stage's capacity raises on readback and the next call is served; one
+    train step at (2, 4096) with every backbone parameter's Adam moment
+    finite and nonzero.  Returns the gaps and the pair MLP's launches
+    over the timed forwards."""
+    from port_bench.drivers.common import FORWARD_KEYS, forward_gaps
+    from port_bench.drivers.infer_ptv3 import build_model, ptv3_batch
+    from port_bench.reference import ptv3 as ref_ptv3
+    from port_bench.reference.model import Precision
+    from wireframe_tpu_torch.models.ptv3 import (
+        CapacityOverflow,
+        raise_on_overflow,
+    )
+    from wireframe_tpu_torch.ops import pair_mlp
+    from wireframe_tpu_torch.train.step import make_forward_fn
+
+    t0 = time.perf_counter()
+    cfg = ptv3_config()
+    rng = np.random.default_rng(21)
+    model, weights = build_model(cfg, 21, dev)
+    model.eval()
+    fwd = make_forward_fn(cfg)
+    x = torch.from_numpy(ptv3_batch(rng, 8, 16384, 0.25)).to(dev)
+    out = fwd(model, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fwd(model, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    prog = {k: out[k].float().cpu().numpy() for k in FORWARD_KEYS}
+    m = dataclasses.asdict(cfg.model)
+    p = Precision(torch.bfloat16)
+    with torch.no_grad():
+        ref = ref_ptv3.forward(p, weights, m, x)
+    gaps = forward_gaps(prog, ref, x.shape[0])
+    print(f"ptv3 (8, 16384) against the reference: {gaps} [{card}]",
+          flush=True)
+    for key, name in (("vertices", "vertex_gap"),
+                      ("existence_probabilities", "exist_gap"),
+                      ("edge_probs", "edge_gap")):
+        assert gaps[name] <= PTV3_ATOL[key], (name, gaps[name])
+    assert gaps["count_self_gap"] == 0
+
+    ptv3_split(torch, lambda: fwd(model, x), os.path.join(work, "ptv3_8"),
+               "(8, 16384)", card)
+    forwards, launches = 0, 0
+    for b in (8, 128):
+        xb = torch.from_numpy(ptv3_batch(rng, b, 16384, 0.25)).to(dev)
+        fwd(model, xb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model.encoder.backbone.reset_counters()
+        calls = [0]
+
+        def timed():
+            calls[0] += 1
+            return fwd(model, xb)
+
+        n0 = pair_mlp.kernels_launched()
+        ms = cuda_ms(torch, timed, 3)
+        launched = pair_mlp.kernels_launched() - n0
+        if launched != calls[0]:
+            raise AssertionError(f"ptv3 ({b}, 16384): {launched} pair MLP "
+                                 f"launches in {calls[0]} forwards")
+        forwards += calls[0]
+        launches += launched
+        c = model.encoder.backbone.counters()
+        if b == 128:
+            ptv3_split(torch, lambda: fwd(model, xb),
+                       os.path.join(work, "ptv3_128"), "(128, 16384)", card)
+        print(f"ptv3 forward ({b}, 16384): {ms:.2f} ms, "
+              f"{1e3 * b / ms:.1f} clouds/s, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
+              f"rows a call by stage "
+              f"{[c[f'rows.stage{i}'] // c['calls'] for i in range(5)]}, "
+              f"padding {100 * c['attn_padded_rows'] / c['attn_real_rows']:.2f}"
+              f" % of attention rows, dropped by grid sampling "
+              f"{100 * c['grid_dropped'] / c['input_rows']:.1f} %, pair MLP "
+              f"launches {launched} in {calls[0]} forwards [{card}]",
+              flush=True)
+        del xb
+
+    # A stage over its capacity: the call raises when its outputs are
+    # read, and the process and its CUDA context serve the next call.
+    small = ptv3_config([f"model.ptv3_capacity={','.join(['0.02'] * 5)}"])
+    smodel, _ = build_model(small, 21, dev)
+    smodel.eval()
+    sfwd = make_forward_fn(small)
+    try:
+        raise_on_overflow(sfwd(smodel, x))
+        raise AssertionError("ptv3: a call over capacity did not raise")
+    except CapacityOverflow:
+        pass
+    tiny = torch.zeros_like(x)
+    tiny[:, :64] = x[:, :64]
+    after = sfwd(smodel, tiny)
+    raise_on_overflow(after)
+    assert bool(torch.isfinite(after["vertices"]).all())
+    print(f"ptv3 capacity 0.02: (8, 16384) raised CapacityOverflow on "
+          f"readback, then (8, 64 points) served [{card}]", flush=True)
+    del smodel
+
+    from wireframe_tpu_torch.train.state import create_train_state
+    from wireframe_tpu_torch.train.step import make_train_step
+    from wireframe_tpu_torch.utils.synth import make_random_batch
+
+    tcfg = ptv3_config(["data.num_points=4096", "train.batch_size=2",
+                        "model.ptv3_capacity=1,1,1,1,1",
+                        "train.weight_decay=0", "train.lr_schedule=constant"])
+    tmodel, _ = build_model(tcfg, 22, dev)
+    tmodel.train()
+    state = create_train_state(tcfg, tmodel)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in make_random_batch(tcfg, 2).items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    state, met = make_train_step(tcfg)(state, batch, gen)
+    loss = float(met["total_loss"])
+    names = [k for k in state.mu if k.startswith("encoder.backbone.")]
+    bad = [k for k in names if not bool(torch.isfinite(state.mu[k]).all())
+           or not bool(state.mu[k].abs().sum() > 0)]
+    assert math.isfinite(loss) and not bad, (loss, bad[:5])
+    print(f"ptv3 train step (2, 4096): loss {loss:.4f}, "
+          f"{len(names)} backbone parameters with a finite nonzero "
+          f"gradient; phase {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return {"gaps": gaps, "pair_mlp_launches": launches,
+            "forwards": forwards}
 
 
 def pair_mlp_phase(torch, dev, card, work):
@@ -5447,6 +5686,9 @@ def main() -> int:
         phase = "parity training"
         parity_launches, _ = parity_phase(torch, dev, card, work)
 
+        phase = "ptv3"
+        ptv3 = ptv3_phase(torch, dev, card, work)
+
         phase = "serving"
         launches, batches = serving_phase(torch, dev, card, work)
         if launches != batches:
@@ -5617,6 +5859,8 @@ def main() -> int:
             "launches": pair["served_launches"],
             "forwards": pair["served_forwards"],
             "train_launches": pair["train_launches"],
+            "ptv3_launches": ptv3["pair_mlp_launches"],
+            "ptv3_forwards": ptv3["forwards"],
             **{k: pair[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "pct_of_bound")},
             "max_abs_err": {k: pair[k]["kernel_vs_plain"]

@@ -22,7 +22,8 @@ is written as a port checkpoint (`save_port_checkpoint`) that
 `serve.WireframePredictor` serves.  `flax_param_shapes` lists the JAX
 package's tree for every model shape it builds: the query decoder
 unrolled, with fused cross-attention K/V, scanned, or both, and the
-MLP head.
+MLP head; and the port's own PTv3 encoder (`model.encoder: ptv3`), whose
+backbone leaves keep their torch names and layouts.
 
 The port's checkpoint is a directory with `params.npz` (flax paths ->
 float32 arrays) and `config.json` (`config_to_dict` layout).  Reading
@@ -48,6 +49,8 @@ _RAW_KERNELS = ("edge_predictor/Dense_2/kernel",)
 _HEAD_INPUT = ("out", "cross_out")
 # The scanned decoder's stacked leaves (`model.decoder_scan`).
 SCANNED = "vertex_decoder/blocks/"
+# BatchNorm running statistics (the ptv3 backbone): buffers, not params.
+_STATISTICS = ("/running_mean", "/running_var")
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -110,6 +113,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor],
     out = {}
     for path, shape in flax_param_shapes(cfg).items():
         key, ported = _torch_entry(path, np.zeros(shape, np.float32))
+        if key not in state and path.endswith(_STATISTICS):
+            continue          # a tree of parameters only (Adam's moments)
         if key not in state:
             raise KeyError(f"state_dict has no {key} (flax {path})")
         arr = state[key].detach().float().cpu().numpy()
@@ -146,7 +151,18 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         into[f"{path}/out/bias"] = (d,)
 
     prev, c = cfg.input_dim, cfg.encoder_output_dim
-    for i, h in enumerate(cfg.encoder_hidden_dims):
+    if cfg.encoder == "ptv3":
+        # A port-only tree: the backbone's state_dict (BatchNorm running
+        # statistics included) under its own names, `/` for `.`.
+        from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
+
+        with torch.device("meta"):
+            backbone = PointCloudToWireframe(cfg).encoder.backbone
+        for k, v in backbone.state_dict().items():
+            shapes["encoder/backbone/" + k.replace(".", "/")] = tuple(v.shape)
+        prev = backbone.out_channels
+    for i, h in enumerate(() if cfg.encoder == "ptv3"
+                          else cfg.encoder_hidden_dims):
         shapes[f"encoder/stage{i}_w"] = (prev, h)
         for k in ("b", "ln_scale", "ln_bias"):
             shapes[f"encoder/stage{i}_{k}"] = (h,)
@@ -251,7 +267,15 @@ def init_flax_params(cfg: ModelConfig, seed: int) -> Dict[str, np.ndarray]:
     for path, shape in flax_param_shapes(cfg).items():
         parts = path.split("/")
         leaf = parts[-1]
-        if leaf == "kernel" or leaf.endswith("_w"):
+        if path.startswith("encoder/backbone/"):
+            # torch layouts: a (out, in) weight, norm scales and running
+            # variances at 1, everything else 0.
+            arr = np.zeros(shape)
+            if leaf == "weight" and len(shape) == 2:
+                arr = rng.standard_normal(shape) / np.sqrt(shape[1])
+            elif leaf in ("weight", "running_var"):
+                arr = np.ones(shape)
+        elif leaf == "kernel" or leaf.endswith("_w"):
             per_layer = shape[_stacked(path):]
             fan_in = int(np.prod(per_layer[:_input_axes(parts)]))
             z = rng.standard_normal(shape)

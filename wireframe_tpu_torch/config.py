@@ -156,6 +156,28 @@ class ModelConfig:
     # HBM, 3x-forward MXU) | "stash" (store pre-LN activations, 2x MXU).
     chain_backward: str = "remat"
     return_point_features: bool = False  # skip (B,N,512) HBM write when False
+    # Point backbone: "pointnet" (the per-point MLP above) or "ptv3"
+    # (Point Transformer V3, models/ptv3.py, whose 64-channel output the
+    # encoder projects to encoder_output_dim).  The ptv3_ keys are
+    # Pointcept's `PointTransformerV3` arguments (defaults: its ScanNet
+    # base config, patch size 1024; the arguments that config leaves at
+    # their defaults are constants of models/ptv3.py); `ptv3_capacity` is
+    # each stage's packed row capacity as a share of the batch's B * N
+    # input rows (1.0 can never overflow: a stage keeps at most the rows
+    # of the stage before it).
+    # Port-only keys: `config_to_dict` leaves them out of a pointnet
+    # model's tree, which so stays the JAX package's.
+    encoder: str = "pointnet"
+    ptv3_enc_depths: Tuple[int, ...] = (2, 2, 2, 6, 2)
+    ptv3_enc_channels: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    ptv3_enc_num_head: Tuple[int, ...] = (2, 4, 8, 16, 32)
+    ptv3_dec_depths: Tuple[int, ...] = (2, 2, 2, 2)
+    ptv3_dec_channels: Tuple[int, ...] = (64, 64, 128, 256)
+    ptv3_dec_num_head: Tuple[int, ...] = (4, 4, 8, 16)
+    ptv3_patch_size: int = 1024
+    ptv3_drop_path: float = 0.3
+    ptv3_grid_size: float = 0.02
+    ptv3_capacity: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0)
 
 
 @dataclass
@@ -360,8 +382,17 @@ def load_config(yaml_path: Optional[str] = None,
     return cfg
 
 
+PORT_ONLY_MODEL_KEYS = tuple(
+    f.name for f in dataclasses.fields(ModelConfig)
+    if f.name == "encoder" or f.name.startswith("ptv3_"))
+
+
 def config_to_dict(cfg: Config) -> dict:
-    return dataclasses.asdict(cfg)
+    out = dataclasses.asdict(cfg)
+    if cfg.model.encoder == "pointnet":
+        for key in PORT_ONLY_MODEL_KEYS:
+            del out["model"][key]
+    return out
 
 
 def apply_saved_model_config(cfg: Config, saved: dict) -> Config:
@@ -375,6 +406,10 @@ def apply_saved_model_config(cfg: Config, saved: dict) -> Config:
     """
     model = saved.get("model")
     if model:
+        # A tree without the port-only keys is a pointnet model's.
+        for f in dataclasses.fields(ModelConfig):
+            if f.name in PORT_ONLY_MODEL_KEYS and f.name not in model:
+                setattr(cfg.model, f.name, f.default)
         for key, value in model.items():
             if hasattr(cfg.model, key):
                 current = getattr(cfg.model, key)

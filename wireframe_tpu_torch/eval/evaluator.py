@@ -38,6 +38,7 @@ from wireframe_tpu_torch.data.building3d import (
 from wireframe_tpu_torch.eval.decode import decode_predictions
 from wireframe_tpu_torch.eval.distributed import batched_edge_distances
 from wireframe_tpu_torch.metrics.ap_calculator import APCalculator
+from wireframe_tpu_torch.models.ptv3 import raise_on_overflow
 from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
 from wireframe_tpu_torch.train.step import (
     make_forward_fn as train_forward_fn,
@@ -67,7 +68,9 @@ def make_forward_fn(cfg: Config, params, device=None
     def forward(clouds: np.ndarray) -> Dict[str, np.ndarray]:
         out = model_forward(model, torch.from_numpy(np.ascontiguousarray(
             clouds, np.float32)).to(dev))
-        return {k: out[k].cpu().numpy() for k in _OUTPUTS}
+        host = {k: out[k].cpu().numpy() for k in _OUTPUTS}
+        raise_on_overflow(out)
+        return host
 
     return forward
 

@@ -137,6 +137,7 @@ def _train(args, dev, rank: int, size: int) -> int:
         restore_train_state,
         save_checkpoint,
         save_params_checkpoint,
+        with_buffers,
     )
     from wireframe_tpu_torch.train.loop import init_model, train_model
     from wireframe_tpu_torch.train.metrics_logging import (
@@ -216,7 +217,7 @@ def _train(args, dev, rank: int, size: int) -> int:
         # <dir>/ema` consumes it unchanged.
         ema_path = save_params_checkpoint(
             os.path.join(args.checkpoint_dir, "ema"), state.step,
-            state.ema_params, cfg, epoch=epoch)
+            with_buffers(state.model, state.ema_params), cfg, epoch=epoch)
         print(f"✓ EMA checkpoint saved: {ema_path}")
     if run is not None:
         # Cross-script linkage the reference maintains (main.py:57-61).

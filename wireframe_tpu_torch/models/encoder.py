@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from wireframe_tpu_torch.models.layers import Dense, LayerNorm
+from wireframe_tpu_torch.models.ptv3 import OVERFLOW
 from wireframe_tpu_torch.ops.chain_grad import differentiable_chain
 from wireframe_tpu_torch.ops.fused_encoder import (
     fused_point_encoder,
@@ -144,9 +145,11 @@ class PointNetEncoder(nn.Module):
                       for k in ("w", "b", "ln_scale", "ln_bias"))
                 for i in range(len(self.hidden_dims))]
 
-    def forward(self, x: torch.Tensor, train: bool = False, split=None):
+    def forward(self, x: torch.Tensor, train: bool = False, split=None,
+                generator=None):
         # x: (B, N, input_dim); all-zero rows are padding.  split: this
         # rank's place in point-parallel training (module docstring).
+        # The point MLP draws nothing: `generator` is PTv3Encoder's.
         b, n = x.shape[:2]
         tile = (self.chain_tile or self.pallas_tile) if train \
             else self.pallas_tile
@@ -301,3 +304,66 @@ class PointNetEncoder(nn.Module):
         else:
             pooled = point_pools_train(feats_s, mask[:, rows], n, group)
         return pooled, feats
+
+
+class PTv3Encoder(nn.Module):
+    """The recipe's encoder with Point Transformer V3 in the point MLP's
+    place: the backbone (`models.ptv3`) on the clouds' grid-sampled rows,
+    its features projected to `output_dim` (proj_w (C, out), proj_b; the
+    product in the compute dtype, the bias added in float32), then the
+    masked pools and the fusion MLP as `PointNetEncoder` computes them.
+    The rows the backbone does not keep (padding, and the rows grid
+    sampling drops) are masked.  With kv_pool > 1 the decoder's KV is the
+    masked max over windows of kv_pool consecutive input rows, reduced
+    from the kept rows alone; otherwise the per-row features.  `pooled`
+    also carries the backbone's overflow flag under `ptv3.OVERFLOW`."""
+
+    def __init__(self, backbone, output_dim: int = 512,
+                 dtype: torch.dtype = torch.float32, kv_pool: int = 0):
+        super().__init__()
+        self.backbone = backbone
+        self.dtype = dtype
+        self.kv_pool = kv_pool
+        c = backbone.out_channels
+        self.proj_w = nn.Parameter(torch.randn(c, output_dim) / c ** 0.5)
+        self.proj_b = nn.Parameter(torch.zeros(output_dim))
+        self.fusion = FusionMLP(output_dim, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False, split=None,
+                generator=None):
+        if split is not None and split.mp > 1:
+            raise ValueError("the ptv3 encoder has no point split")
+        b, n = x.shape[:2]
+        feat, slot, m, over = self.backbone(x, train=train,
+                                            generator=generator)
+        f = torch.matmul(feat.to(self.dtype),
+                         self.proj_w.to(self.dtype)).float() + self.proj_b
+        c = f.shape[-1]
+        kept = (slot < m).reshape(b, n)
+        # The input row and cloud of each packed row (dummies: B * N, B).
+        rows = torch.full((m + 1,), b * n, dtype=torch.long,
+                          device=x.device)
+        rows.scatter_(0, slot, torch.arange(b * n, device=x.device))
+        rows = rows[:m]
+        cloud = torch.div(rows, n, rounding_mode="floor")
+        sums = f.new_zeros((b + 1, c)).index_add_(0, cloud, f)[:b]
+        count = torch.clamp_min(kept.sum(-1, dtype=torch.float32), 1.0)
+        pooled = {"masked_mean": sums / count[:, None], OVERFLOW: over}
+        w = self.kv_pool
+        if w > 1:
+            nw = -(-n // w)
+            win = cloud * nw + (rows - cloud * n) // w
+            kv = f.new_zeros((b * nw + 1, c)).scatter_reduce(
+                0, win[:, None].expand(-1, c), f, reduce="amax",
+                include_self=False)[:b * nw].reshape(b, nw, c)
+            pad = nw * w - n
+            km = torch.nn.functional.pad(kept, (0, pad)) if pad else kept
+            kv_mask = km.reshape(b, nw, w).any(-1)
+        else:
+            fe = torch.cat([f, f.new_zeros((1, c))])
+            kv, kv_mask = fe[slot].reshape(b, n, c), kept
+        pooled.update(masked_max=masked_max(kv, kv_mask), kv=kv,
+                      kv_mask=kv_mask)
+        combined = torch.cat([pooled["masked_max"], pooled["masked_mean"]],
+                             dim=-1)
+        return self.fusion(combined).float(), pooled, None

@@ -21,7 +21,8 @@ from torch import nn
 
 from wireframe_tpu_torch.config import ModelConfig
 from wireframe_tpu_torch.models.edge_head import EdgePredictor
-from wireframe_tpu_torch.models.encoder import PointNetEncoder
+from wireframe_tpu_torch.models.encoder import PointNetEncoder, PTv3Encoder
+from wireframe_tpu_torch.models.ptv3 import OVERFLOW, PTv3Backbone
 from wireframe_tpu_torch.models.vertex_head import VertexPredictor
 from wireframe_tpu_torch.models.vertex_query_head import QueryVertexDecoder
 from wireframe_tpu_torch.ops.masked_pool import point_validity_mask
@@ -43,19 +44,38 @@ class PointCloudToWireframe(nn.Module):
             raise ValueError(f"unknown slot_mask_mode {cfg.slot_mask_mode!r}")
         self.config = cfg
         dt = torch_dtype(cfg.compute_dtype)
-        self.encoder = PointNetEncoder(
-            input_dim=cfg.input_dim,
-            hidden_dims=tuple(cfg.encoder_hidden_dims),
-            output_dim=cfg.encoder_output_dim,
-            dtype=dt,
-            return_point_features=cfg.return_point_features,
-            use_pallas=cfg.use_pallas_encoder,
-            pallas_tile=cfg.pallas_tile,
-            chain_tile=cfg.pallas_chain_tile,
-            chain_backward=cfg.chain_backward,
-            kv_pool=cfg.decoder_kv_pool if query else 0,
-            point_features_for_kv=query,
-        )
+        if cfg.encoder not in ("pointnet", "ptv3"):
+            raise ValueError(f"unknown encoder {cfg.encoder!r}")
+        if cfg.encoder == "ptv3":
+            self.encoder = PTv3Encoder(
+                PTv3Backbone(
+                    in_channels=cfg.input_dim,
+                    enc_depths=cfg.ptv3_enc_depths,
+                    enc_channels=cfg.ptv3_enc_channels,
+                    enc_num_head=cfg.ptv3_enc_num_head,
+                    dec_depths=cfg.ptv3_dec_depths,
+                    dec_channels=cfg.ptv3_dec_channels,
+                    dec_num_head=cfg.ptv3_dec_num_head,
+                    patch_size=cfg.ptv3_patch_size,
+                    drop_path=cfg.ptv3_drop_path,
+                    grid_size=cfg.ptv3_grid_size,
+                    capacity=cfg.ptv3_capacity, dtype=dt),
+                output_dim=cfg.encoder_output_dim, dtype=dt,
+                kv_pool=cfg.decoder_kv_pool if query else 0)
+        else:
+            self.encoder = PointNetEncoder(
+                input_dim=cfg.input_dim,
+                hidden_dims=tuple(cfg.encoder_hidden_dims),
+                output_dim=cfg.encoder_output_dim,
+                dtype=dt,
+                return_point_features=cfg.return_point_features,
+                use_pallas=cfg.use_pallas_encoder,
+                pallas_tile=cfg.pallas_tile,
+                chain_tile=cfg.pallas_chain_tile,
+                chain_backward=cfg.chain_backward,
+                kv_pool=cfg.decoder_kv_pool if query else 0,
+                point_features_for_kv=query,
+            )
         if not query:
             self.vertex_predictor = VertexPredictor(
                 global_feature_dim=cfg.encoder_output_dim,
@@ -117,7 +137,7 @@ class PointCloudToWireframe(nn.Module):
 
         with span("encoder"):
             global_features, pooled, point_features = self.encoder(
-                point_cloud, train=train, split=split)
+                point_cloud, train=train, split=split, generator=generator)
 
         with span("vertex_head"):
             if query:
@@ -173,4 +193,7 @@ class PointCloudToWireframe(nn.Module):
         }
         if point_features is not None:
             out["point_features"] = point_features
+        if OVERFLOW in pooled:
+            # The ptv3 encoder's flag; `ptv3.raise_on_overflow` reads it.
+            out[OVERFLOW] = pooled[OVERFLOW]
         return out

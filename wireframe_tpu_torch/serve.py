@@ -41,6 +41,7 @@ from wireframe_tpu_torch.eval.decode import decode_wireframe
 from wireframe_tpu_torch.eval.evaluator import build_model
 from wireframe_tpu_torch.io import save_wireframe
 from wireframe_tpu_torch.io.xyz import read_xyz, select_features
+from wireframe_tpu_torch.models.ptv3 import raise_on_overflow
 from wireframe_tpu_torch.train.step import make_forward_fn
 from wireframe_tpu_torch.utils.platform import resolve_device
 
@@ -75,9 +76,11 @@ class WireframePredictor:
     def _forward(self, x: np.ndarray) -> Dict[str, np.ndarray]:
         out = self._model_forward(self.model,
                                   torch.from_numpy(x).to(self.device))
-        return {k: out[k].cpu().numpy() for k in (
+        host = {k: out[k].cpu().numpy() for k in (
             "vertices", "edge_probs", "actual_vertex_counts",
             "existence_probabilities")}
+        raise_on_overflow(out)
+        return host
 
     # ------------------------------------------------------------------
     # Input preparation

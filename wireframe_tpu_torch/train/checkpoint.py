@@ -48,6 +48,7 @@ from wireframe_tpu_torch.bridge import (
     state_dict_to_flax,
 )
 from wireframe_tpu_torch.config import (
+    PORT_ONLY_MODEL_KEYS,
     Config,
     apply_saved_model_config,
     config_to_dict,
@@ -109,12 +110,20 @@ def write_flax_checkpoint(directory: str, step: int,
     return path
 
 
+def with_buffers(model, params: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """`params` with the model's buffers beside them (the ptv3 backbone's
+    BatchNorm running statistics), which a checkpoint keeps too."""
+    return {**dict(model.named_buffers()), **params}
+
+
 def save_checkpoint(directory: str, state: TrainState, cfg: Config,
                     epoch: Optional[int] = None) -> str:
     """Write `directory/step_<state.step>` (params and Adam state); returns
     its path."""
     flax = [state_dict_to_flax(t, cfg.model)
-            for t in (state.params, state.mu, state.nu)]
+            for t in (with_buffers(state.model, state.params), state.mu,
+                      state.nu)]
     return write_flax_checkpoint(directory, state.step, flax[0], cfg, epoch,
                                  adam=(flax[1], flax[2], state.step))
 
@@ -233,7 +242,10 @@ def apply_checkpoint_model_config(cfg: Config, meta: dict) -> Config:
     saved = meta.get("config", {})
     model = saved.get("model")
     if model:
-        stale = sorted(k for k in vars(cfg.model) if k not in model)
+        # A pointnet tree leaves the port-only keys out by design.
+        skip = () if "encoder" in model else PORT_ONLY_MODEL_KEYS
+        stale = sorted(k for k in vars(cfg.model)
+                       if k not in model and k not in skip)
         if stale:
             logger.warning(
                 "checkpoint metadata predates model config key(s) %s; "

@@ -53,6 +53,7 @@ from wireframe_tpu_torch.bridge import (
     save_port_checkpoint,
     state_dict_to_flax,
 )
+from wireframe_tpu_torch.models.ptv3 import raise_on_overflow
 from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
 from wireframe_tpu_torch.parallel.mesh import (
     Layout,
@@ -189,6 +190,7 @@ def train_model(cfg, loader: Iterable, metric_writer=None,
             state, metrics = train_step(state, batch, generator)
 
         if is_log_epoch and metrics is not None and main:
+            raise_on_overflow(metrics)
             m = {k: float(v) for k, v in metrics.items()}
             if (cfg.train.save_best and pre_params is not None
                     and m["total_loss"] < best_loss):

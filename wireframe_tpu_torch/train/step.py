@@ -60,6 +60,7 @@ from wireframe_tpu_torch.losses.wireframe_loss import (
     WireframeLossConfig,
     wireframe_loss,
 )
+from wireframe_tpu_torch.models.ptv3 import OVERFLOW
 from wireframe_tpu_torch.parallel.collective_audit import all_reduce
 from wireframe_tpu_torch.parallel.mesh import Layout, flat_apply
 from wireframe_tpu_torch.train.state import Optimizer, TrainState, global_norm
@@ -226,6 +227,10 @@ def make_train_step(cfg, steps_per_epoch: int = 1,
                 all_reduce(sums, group=layout.dp_group)
             metrics = _metrics(sums)
         metrics["grad_norm"] = g_norm
+        if OVERFLOW in preds:
+            # Every step's overflow, not only the logged one's: the count
+            # since the counters' reset, which the loop raises on.
+            metrics[OVERFLOW] = state.model.encoder.backbone.overflowed()
         return state, metrics
 
     train_step.optimizer = optimizer
