@@ -6,7 +6,8 @@ Phases (any failure exits nonzero and prints no final `ok` line):
   1. device   — require CUDA; print the card's name and power limit;
   2. build    — compile K1 (fused_encoder.cu), K2 + K3 + K5 (chain_grad.cu),
                 K4 (lockstep_lsa.cu), the split stages' row kernels
-                (layernorm_rows.cu) and the pair MLP (pair_mlp.cu) from
+                (layernorm_rows.cu), the pair MLP (pair_mlp.cu) and the
+                submanifold conv (subm_conv.cu) from
                 wireframe_tpu_torch/csrc/, one
                 nvcc per source, all started together; ptxas lines;
   3. K1       — against its plain PyTorch version at the recipe's full
@@ -124,7 +125,14 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 ms, peak memory and the device counters at (8, 16384) and
                 (128, 16384) with one pair MLP launch a forward, a call over
                 a stage's capacity raising on readback and the next one
-                served, one train step at (2, 4096);
+                served, one train step at (2, 4096); the submanifold conv
+                kernel (subm_conv.cu) at the 23 convolutions of a (128,
+                16384) call, on their own maps, against its plain version
+                (within twice the plain version's gap to f32; rows with no
+                neighbour exactly the bias), its ms beside its bound and
+                the plain version's, 23 launches a ptv3 forward and none in
+                the training and parity phases, the share of its steps
+                skipped;
  13. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
@@ -1531,6 +1539,97 @@ def ptv3_split(torch, call, trace_dir, label, card):
           flush=True)
 
 
+# The submanifold conv kernel (csrc/subm_conv.cu): the convolutions of one
+# ptv3 forward (the stem and 22 xCPE convs).
+SUBM_CONVS = 23
+
+
+def subm_conv_bound_ms(m, k, cin, cout, pairs, bias):
+    """Least time for one convolution on capacity rows: the pairs that
+    exist at the bf16 peak, against its input rows, its map at 4 bytes a
+    slot, weights and bias read once and its outputs written once."""
+    flops = 2.0 * pairs * cin * cout
+    nbytes = 2 * m * cin + 4 * m * k + 2 * k * cin * cout + 2 * m * cout \
+        + (2 * cout if bias else 0)
+    return _bound(flops, nbytes, False)
+
+
+def subm_conv_shapes(torch, card, model, fwd, xb):
+    """Capture the inputs of every convolution of one forward on `xb`,
+    then hold the kernel to its plain version on each: within twice the
+    plain version's own gap to the same sums in f32, rows with no
+    neighbour (the dummy rows) exactly equal; time both beside the
+    bound.  Returns the per-conv records."""
+    from wireframe_tpu_torch.models.ptv3 import SubMConv
+    from wireframe_tpu_torch.ops import subm_conv
+
+    bf16 = torch.bfloat16
+    seen = []
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0], args[1])))
+        for mod in model.modules() if isinstance(mod, SubMConv)]
+    try:
+        fwd(model, xb)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(seen) != SUBM_CONVS:
+        raise AssertionError(f"subm conv: {len(seen)} convolutions in a "
+                             f"forward, not {SUBM_CONVS}")
+    rows = []
+    for i, (mod, x, nbr) in enumerate(seen):
+        m, cin = x.shape
+        k = nbr.shape[1]
+        w, b = mod.weight, mod.bias
+        cout = w.shape[0]
+        with torch.inference_mode():
+            got = subm_conv.subm_conv(x, nbr, w, b, dtype=bf16)
+            want = subm_conv.subm_conv_plain(x, nbr, w, b, dtype=bf16)
+            f32 = subm_conv.subm_conv_plain(
+                x.to(bf16).float(), nbr, w.to(bf16).float(),
+                None if b is None else b.to(bf16).float(),
+                dtype=torch.float32)
+            empty = (nbr == m).all(1)
+            pairs = int((nbr < m).sum())
+            kernel_vs_plain = float((got.float() - want.float()).abs().max())
+            own = float((want.float() - f32).abs().max())
+            kernel_vs_f32 = float((got.float() - f32).abs().max())
+            empty_equal = bool(torch.equal(got[empty], want[empty]))
+            ms = cuda_ms(torch, lambda: subm_conv.subm_conv(
+                x, nbr, w, b, dtype=bf16), 10)
+            plain_ms = cuda_ms(torch, lambda: subm_conv.subm_conv_plain(
+                x, nbr, w, b, dtype=bf16), 3)
+        bound, by = subm_conv_bound_ms(m, k, cin, cout, pairs, b is not None)
+        row = {"conv": i, "shape": f"M={m} K={k} CIN={cin} COUT={cout}",
+               "pairs": pairs, "empty_rows": int(empty.sum()), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "pct_of_bound": 100.0 * bound / ms,
+               "kernel_vs_plain": kernel_vs_plain, "plain_vs_f32": own,
+               "kernel_vs_f32": kernel_vs_f32}
+        rows.append(row)
+        print(f"subm conv {i} ({m}, K={k}, {cin} -> {cout}): {pairs} pairs, "
+              f"{row['empty_rows']} rows with no neighbour; kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{row['pct_of_bound']:.1f}% of bound; kernel vs plain "
+              f"{kernel_vs_plain}, plain vs f32 {own}, kernel vs f32 "
+              f"{kernel_vs_f32} [{card}]", flush=True)
+        if not (kernel_vs_plain <= 2 * own and empty_equal):
+            raise AssertionError(
+                f"subm conv {i}: kernel against the plain version "
+                f"{kernel_vs_plain} over 2x the plain version's own gap to "
+                f"f32 {own}, or rows with no neighbour not equal "
+                f"({empty_equal})")
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"subm conv, the {SUBM_CONVS} convolutions of a call: kernel "
+          f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.4f} ms, "
+          f"{100.0 * total['bound_ms'] / total['ms']:.2f}% of bound "
+          f"[{card}]", flush=True)
+    return rows
+
+
 def ptv3_phase(torch, dev, card, work):
     """Point Transformer V3 as the recipe's backbone at its published
     widths: the forward at (8, 16384) against the benchmark's plain
@@ -1550,7 +1649,7 @@ def ptv3_phase(torch, dev, card, work):
         CapacityOverflow,
         raise_on_overflow,
     )
-    from wireframe_tpu_torch.ops import pair_mlp
+    from wireframe_tpu_torch.ops import pair_mlp, subm_conv
     from wireframe_tpu_torch.train.step import make_forward_fn
 
     t0 = time.perf_counter()
@@ -1584,7 +1683,7 @@ def ptv3_phase(torch, dev, card, work):
 
     ptv3_split(torch, lambda: fwd(model, x), os.path.join(work, "ptv3_8"),
                "(8, 16384)", card)
-    forwards, launches = 0, 0
+    forwards, launches, convs = 0, 0, {}
     for b in (8, 128):
         xb = torch.from_numpy(ptv3_batch(rng, b, 16384, 0.25)).to(dev)
         fwd(model, xb)
@@ -1598,17 +1697,26 @@ def ptv3_phase(torch, dev, card, work):
             return fwd(model, xb)
 
         n0 = pair_mlp.kernels_launched()
+        s0 = subm_conv.kernels_launched()
         ms = cuda_ms(torch, timed, 3)
         launched = pair_mlp.kernels_launched() - n0
-        if launched != calls[0]:
+        conv_launched = subm_conv.kernels_launched() - s0
+        if (launched != calls[0]
+                or conv_launched != SUBM_CONVS * calls[0]):
             raise AssertionError(f"ptv3 ({b}, 16384): {launched} pair MLP "
-                                 f"launches in {calls[0]} forwards")
+                                 f"and {conv_launched} subm conv launches "
+                                 f"in {calls[0]} forwards")
         forwards += calls[0]
         launches += launched
         c = model.encoder.backbone.counters()
+        steps = c["conv_steps_run"] + c["conv_steps_skipped"]
+        skipped = 100.0 * c["conv_steps_skipped"] / steps
         if b == 128:
             ptv3_split(torch, lambda: fwd(model, xb),
                        os.path.join(work, "ptv3_128"), "(128, 16384)", card)
+            convs = {"rows": subm_conv_shapes(torch, card, model, fwd, xb),
+                     "launches": conv_launched, "forwards": calls[0],
+                     "skipped_pct": skipped}
         print(f"ptv3 forward ({b}, 16384): {ms:.2f} ms, "
               f"{1e3 * b / ms:.1f} clouds/s, peak "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
@@ -1617,8 +1725,10 @@ def ptv3_phase(torch, dev, card, work):
               f"padding {100 * c['attn_padded_rows'] / c['attn_real_rows']:.2f}"
               f" % of attention rows, dropped by grid sampling "
               f"{100 * c['grid_dropped'] / c['input_rows']:.1f} %, pair MLP "
-              f"launches {launched} in {calls[0]} forwards [{card}]",
-              flush=True)
+              f"launches {launched} and subm conv launches {conv_launched} "
+              f"in {calls[0]} forwards, subm conv steps skipped "
+              f"{c['conv_steps_skipped']} of {steps} ({skipped:.2f} %) "
+              f"[{card}]", flush=True)
         del xb
 
     # A stage over its capacity: the call raises when its outputs are
@@ -1666,7 +1776,7 @@ def ptv3_phase(torch, dev, card, work):
           f"gradient; phase {time.perf_counter() - t0:.1f} s [{card}]",
           flush=True)
     return {"gaps": gaps, "pair_mlp_launches": launches,
-            "forwards": forwards}
+            "forwards": forwards, "subm_conv": convs}
 
 
 def pair_mlp_phase(torch, dev, card, work):
@@ -5635,7 +5745,7 @@ def main() -> int:
         t0 = time.perf_counter()
         built = _build.build_all(["fused_encoder", "chain_grad",
                                   "lockstep_lsa", "layernorm_rows",
-                                  "pair_mlp"])
+                                  "pair_mlp", "subm_conv"])
         print(f"build: {len(built)} libraries in "
               f"{time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
         for name, (path, secs, log) in built.items():
@@ -5680,11 +5790,20 @@ def main() -> int:
         phase = "limits"
         limits = limits_phase(torch, dev, card, work)
 
+        from wireframe_tpu_torch.ops import subm_conv
+
+        conv0 = subm_conv.kernels_launched()
         phase = "training"
         train_launches, _ = training_phase(torch, dev, card, work)
 
         phase = "parity training"
         parity_launches, _ = parity_phase(torch, dev, card, work)
+        conv_trained = subm_conv.kernels_launched() - conv0
+        print(f"subm conv launches in the training and parity phases: "
+              f"{conv_trained}", flush=True)
+        if conv_trained:
+            raise AssertionError("the recipe or parity model launched the "
+                                 "subm conv kernel")
 
         phase = "ptv3"
         ptv3 = ptv3_phase(torch, dev, card, work)
@@ -5865,6 +5984,19 @@ def main() -> int:
                                     "bound_by", "pct_of_bound")},
             "max_abs_err": {k: pair[k]["kernel_vs_plain"]
                             for k in ("probs", "logits")},
+            "library_ms": None})
+        conv = ptv3["subm_conv"]
+        kernels.append({
+            "name": "submanifold conv (PTv3 stem and xCPE, inference)",
+            "route": "cuda", "source": f"{src}subm_conv.cu",
+            "replaces": "none (the JAX package has no PTv3)",
+            "launches": conv["launches"], "forwards": conv["forwards"],
+            "train_launches": conv_trained,
+            "skipped_pct": conv["skipped_pct"],
+            **{k: sum(r[k] for r in conv["rows"])
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "shape": f"the {SUBM_CONVS} convolutions of a (128, 16384) call",
+            "max_abs_err": max(r["kernel_vs_plain"] for r in conv["rows"]),
             "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:

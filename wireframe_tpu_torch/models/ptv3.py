@@ -62,7 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wireframe_tpu_torch.ops import voxel
+from wireframe_tpu_torch.ops import subm_conv, voxel
 from wireframe_tpu_torch.ops.patch_attention import (
     Layout,
     patch_layout,
@@ -79,8 +79,6 @@ MLP_RATIO, QKV_BIAS, POOL_SHIFT = 4, True, 1
 ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
 # The key under which the model's outputs carry the call's overflow flag.
 OVERFLOW = "capacity_overflow"
-# Bytes of the gathered neighbour rows one convolution chunk holds.
-CONV_CHUNK_BYTES = 512 << 20
 
 
 class CapacityOverflow(RuntimeError):
@@ -167,8 +165,9 @@ class SubMConv(nn.Module):
     """Submanifold sparse convolution (spconv's SubMConv3d): each active
     voxel sums W_o x[neighbour at offset o] over the size**3 offsets
     (`voxel.neighbour_map`'s order).  The weight is (out, size**3 * in),
-    the offsets' input channels side by side, and runs as one gather and
-    one GEMM per chunk of rows."""
+    the offsets' input channels side by side.  `ops.subm_conv`'s kernel
+    where `subm_conv.engages` (inference in bf16 on the card), else its
+    plain gather and GEMM per chunk of rows."""
 
     def __init__(self, cin: int, cout: int, size: int, bias: bool):
         super().__init__()
@@ -177,18 +176,13 @@ class SubMConv(nn.Module):
                                    / math.sqrt(k * cin))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x: torch.Tensor, nbr: torch.Tensor, dtype
-                ) -> torch.Tensor:
-        m, c = x.shape
-        k = nbr.shape[1]
-        xe = torch.cat([x.to(dtype), x.new_zeros((1, c), dtype=dtype)])
-        w = self.weight.to(dtype).t()
-        chunk = max(1024, CONV_CHUNK_BYTES // (k * c * xe.element_size()))
-        out = []
-        for s in range(0, m, chunk):
-            y = torch.matmul(xe[nbr[s:s + chunk]].reshape(-1, k * c), w)
-            out.append(y if self.bias is None else y + self.bias.to(dtype))
-        return torch.cat(out) if len(out) > 1 else out[0]
+    def forward(self, x: torch.Tensor, nbr: torch.Tensor, dtype,
+                counters: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if subm_conv.engages(x.device, dtype, torch.is_grad_enabled()):
+            return subm_conv.subm_conv(x, nbr, self.weight, self.bias,
+                                       dtype=dtype, counters=counters)
+        return subm_conv.subm_conv_plain(x, nbr, self.weight, self.bias,
+                                         dtype=dtype)
 
 
 def _drop_path(x: torch.Tensor, rate: float, train: bool,
@@ -222,7 +216,7 @@ class Block(nn.Module):
         dt = net.dtype
         with span("sparse_conv"):
             nbr = net.neighbours(level, 3)
-            h = self.cpe_conv(x, nbr, dt)
+            h = self.cpe_conv(x, nbr, dt, net.conv_counters())
         x = x + _ln(_linear(h, self.cpe_fc, dt), self.ln_cpe)
         h = _ln(x, self.ln_attn)
         qkv = _linear(h, self.qkv, dt)
@@ -275,10 +269,13 @@ class Stage(nn.Module):
 
 
 # Counter slots: sums over the forwards since the last reset, except the
-# "max" ones (the largest in one call).
+# "max" ones (the largest in one call).  conv_steps_run / _skipped: the
+# conv kernel's (block, offset) steps, which it adds itself (none on the
+# plain path).
 def counter_names(stages: int) -> List[str]:
     names = ["calls", "input_rows", "grid_dropped", "attn_real_rows",
-             "attn_padded_rows", "overflow_calls", "conv_pairs.stem"]
+             "attn_padded_rows", "overflow_calls", "conv_pairs.stem",
+             "conv_steps_run", "conv_steps_skipped"]
     for s in range(stages):
         names += [f"conv_pairs.stage{s}", f"rows.stage{s}",
                   f"rows_max.stage{s}"]
@@ -356,6 +353,12 @@ class PTv3Backbone(nn.Module):
 
     def reset_counters(self) -> None:
         self.counter_values.zero_()
+
+    def conv_counters(self) -> torch.Tensor:
+        """The two slots the conv kernel adds its steps run and skipped
+        to (a view of the counters)."""
+        i = self._slot["conv_steps_run"]
+        return self.counter_values[i:i + 2]
 
     def overflowed(self) -> torch.Tensor:
         """The forwards over a capacity since the last reset: a device
@@ -482,7 +485,8 @@ class PTv3Backbone(nn.Module):
             level, feats, point_slot, over = self._first_level(x, train,
                                                                generator)
         with span("sparse_conv"):
-            h = self.stem_conv(feats, self.neighbours(level, 5), dt)
+            h = self.stem_conv(feats, self.neighbours(level, 5), dt,
+                               self.conv_counters())
         x_ = F.gelu(self.stem_bn(h, level.valid, train))
         levels, skips = [], []
         for s, stage in enumerate(self.enc):
