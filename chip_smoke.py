@@ -46,9 +46,11 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 its plain version at (512, 40), (3, 40), (7, 64) and a
                 ragged last tile, bounded by twice the plain version's own
                 gap to the same math in f32; its time, the plain version's
-                and its bound; one launch per served recipe forward (edge
-                probabilities held to the eager path's), none in 20
-                recipe and 20 parity train steps;
+                and its bound; one launch per served recipe forward, one
+                pair_mlp_kernel a forward on the device (edge
+                probabilities held to the eager path's), none at
+                edge_hidden_dim 1024 (edge probabilities returned), none
+                in 20 recipe and 20 parity train steps;
   8. f32      — the encoder-chain kernels computing in float32, within
                 60 s: (a) the reference-parity model as shipped
                 (configs/default.yaml + model.use_pallas_encoder=true, f32)
@@ -123,16 +125,17 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 with CUDA's sync debug mode at "error" (no host
                 synchronisation), the five spans inside the encoder's,
                 ms, peak memory and the device counters at (8, 16384) and
-                (128, 16384) with one pair MLP launch a forward, a call over
+                (128, 16384) with one pair MLP launch a forward (and one
+                pair_mlp_kernel on the device), a call over
                 a stage's capacity raising on readback and the next one
                 served, one train step at (2, 4096); the submanifold conv
                 kernel (subm_conv.cu) at the 23 convolutions of a (128,
                 16384) call, on their own maps, against its plain version
                 (within twice the plain version's gap to f32; rows with no
                 neighbour exactly the bias), its ms beside its bound and
-                the plain version's, 23 launches a ptv3 forward and none in
-                the training and parity phases, the share of its steps
-                skipped;
+                the plain version's, 23 launches a ptv3 forward (23
+                subm_conv_kernel on the device) and none in the training
+                and parity phases, the share of its steps skipped;
  13. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
@@ -220,6 +223,8 @@ Phases (any failure exits nonzero and prints no final `ok` line):
  20. bench    — `wireframe_tpu_torch.bench` and its four tools at the
                 bench's defaults (B=128 x 2560), and the recipe forward
                 with BENCH_DTYPE=float32 through K1 f32.
+Launches come from the port's registry (`ops._launch`); the checks of
+kernels per call count device kernels by name in a profile.
 Then a `kernels` JSON line (launches on the main paths, on the corpus,
 layouts, checkpoints, parallel, bench and limits paths; the f32 kernels'
 and the split stages' row kernels under their own entries; K4's per
@@ -248,6 +253,8 @@ import warnings
 from unittest import mock
 
 import numpy as np
+
+from wireframe_tpu_torch.ops._launch import launch_counts, reset_launches
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (data sheet)
 H100_BYTES_PER_S = 3.35e12    # HBM3
@@ -408,16 +415,8 @@ K1_PARTS = (("fused stage GEMM + LayerNorm", "wgmma_chain_kernel<0, 1"),
 
 def k1_breakdown(torch, card, label, fn):
     """Device time of one K1 call by part (torch.profiler device rows)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from wireframe_tpu_torch.utils.profiling import device_rows
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
+    rows = device_profile(torch, fn)
     total = sum(r[0] for r in rows)
     parts = {name: (sum(r[0] for r in rows if key in r[2]),
                     sum(r[1] for r in rows if key in r[2]))
@@ -558,7 +557,6 @@ def serving_phase(torch, dev, card, work, overrides=(),
     from wireframe_tpu_torch.data.bucketing import choose_bucket
     from wireframe_tpu_torch.io.obj import load_wireframe
     from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
-    from wireframe_tpu_torch.ops.fused_encoder import fused_point_encoder
     from wireframe_tpu_torch.serve import WireframePredictor
 
     rng = np.random.default_rng(1)
@@ -596,9 +594,9 @@ def serving_phase(torch, dev, card, work, overrides=(),
     batches = sum(-(-k // predictor.batch_size) for k in per_bucket.values())
 
     out_dir = os.path.join(work, "obj")
-    fused_point_encoder.launches = 0
+    reset_launches()
     results = predictor.predict_files(paths, out_dir=out_dir)
-    launches = fused_point_encoder.launches
+    launches = launch_counts(MAIN_KEYS)["K1"]
     print(f"served {len(paths)} clouds in {batches} batches; K1 launches "
           f"{launches}", flush=True)
     for p, r in zip(paths, results):
@@ -666,40 +664,78 @@ def serving_phase(torch, dev, card, work, overrides=(),
 K1_KERNELS = ("wgmma_chain_kernel", "prep_x_kernel", "k1_finalize_kernel")
 # Late in a long process the profiler loses the first device records of
 # each profile: none in a fresh process, 8 or more after the training
-# phases, whatever the wait before the first launch (PERF.md §7).  A
-# served batch's profile therefore opens with this many one-cycle spin
-# kernels, which its rows leave out.
+# phases, all 256 pads and more in the limits phase (PERF.md §7).  A
+# profile (`device_profile`) opens with a warm-up step and this many
+# one-cycle spin kernels, which its rows leave out.
 PROFILE_PAD = 256
 PAD_KERNEL = "spin_kernel"
+
+
+def device_profile(torch, fn):
+    """The device rows (`device_rows`) of one run of fn in a torch.profiler
+    trace: a warm-up step of PROFILE_PAD spin kernels, then an active step
+    of as many pads (left out; one must survive) and fn."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from wireframe_tpu_torch.utils.profiling import device_rows
+
+    def pads():
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        pads()
+        torch.cuda.synchronize()
+        prof.step()
+        pads()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    rows = device_rows(prof)
+    kept = sum(r[1] for r in rows if PAD_KERNEL in r[2])
+    if kept < PROFILE_PAD:
+        print(f"device_profile: {PROFILE_PAD - kept} of the {PROFILE_PAD} "
+              f"pads lost", flush=True)
+    if not kept:
+        raise AssertionError(f"the profile lost all {PROFILE_PAD} pads")
+    return [r for r in rows if PAD_KERNEL not in r[2]]
+
+
+def device_launches(torch, fn, names, tries=3):
+    """The device kernels that one run of fn launches, by `__global__`
+    name: {name: kernels whose name holds it}, the most over `tries`
+    profiles (a profiler may drop records, never adds one)."""
+    seen = [device_profile(torch, fn) for _ in range(tries)]
+    counts = [{n: sum(r[1] for r in rows if n in r[2]) for n in names}
+              for rows in seen]
+    if any(c != counts[0] for c in counts):
+        print(f"device_launches: the {tries} profiles read {counts}",
+              flush=True)
+    return {n: max(c[n] for c in counts) for n in names}
 
 
 def profile_batch(torch, predictor, chunk, bucket, card):
     """Where one served batch's time goes: device time by kernel from
     torch.profiler, against the host wall clock of the same predict().
     Each of K1's kernels has to be in the profile."""
-    from torch.profiler import ProfilerActivity, profile
+    wall = []
 
-    from wireframe_tpu_torch.utils.profiling import device_rows
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_PAD):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
+    def predict():
         t0 = time.perf_counter()
         predictor.predict(chunk)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
-    pads = sum(r[1] for r in rows if PAD_KERNEL in r[2])
-    rows = [r for r in rows if PAD_KERNEL not in r[2]]
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    rows = device_profile(torch, predict)
+    wall_ms = wall[0]
     device_ms = sum(r[0] for r in rows)
     k1_ms = sum(r[0] for r in rows if any(k in r[2] for k in K1_KERNELS))
     print(f"profile bucket {bucket}: wall {wall_ms:.2f} ms, device busy "
           f"{device_ms:.2f} ms ({device_ms / wall_ms * 100:.1f}%), K1 "
           f"{k1_ms:.2f} ms, rest of the model {device_ms - k1_ms:.2f} ms, "
-          f"{sum(r[1] for r in rows)} device ops; {PROFILE_PAD - pads} of "
-          f"the {PROFILE_PAD} pads lost [{card}]", flush=True)
+          f"{sum(r[1] for r in rows)} device ops [{card}]", flush=True)
     for ms, count, name in sorted(rows, reverse=True)[:8]:
         print(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}", flush=True)
     missing = [k for k in K1_KERNELS if not any(k in r[2] for r in rows)]
@@ -911,16 +947,8 @@ def chain_breakdown(torch, card, label, fn):
     rows): the fused GEMM + LayerNorm launches, the plain GEMM launches
     (projection, dx, dW) and the rest (input prep, seed, column sums,
     window pool)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from wireframe_tpu_torch.utils.profiling import device_rows
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
+    rows = device_profile(torch, fn)
     total = sum(r[0] for r in rows)
     fused = sum(r[0] for r in rows if any(k in r[2] for k in CHAIN_FUSED))
     gemm = sum(r[0] for r in rows if "wgmma_chain_kernel" in r[2]) - fused
@@ -944,6 +972,8 @@ def gemm_phase(torch, dev, card, b=8, n=2560, d=8, hidden=(512, 1024, 2048,
     held to the f32 product of its bf16 operands (rel 1e-4: only the
     summation order differs)."""
     from wireframe_tpu_torch.ops import chain_grad as cg
+    from wireframe_tpu_torch.ops._launch import check, row_buffer
+    from wireframe_tpu_torch.ops.hopper_gemm import BM, split_k
 
     lib = cg._lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -953,16 +983,12 @@ def gemm_phase(torch, dev, card, b=8, n=2560, d=8, hidden=(512, 1024, 2048,
     m = b * n
 
     def rows(r, c, dt=bf):
-        t = cg._rows(r, c, dt, dev)
+        t = row_buffer(r, c, dt, dev)
         t.normal_(generator=gen)
         return t
 
     def vec(c):
         return torch.randn(c, device=dev, generator=gen)
-
-    def check(err, what):
-        if err:
-            raise RuntimeError(f"{what}: cudaError_t {err}")
 
     dims = [d, *hidden, out]
     result = {"gemm_ms": 0.0, "matmul_ms": 0.0}
@@ -971,7 +997,7 @@ def gemm_phase(torch, dev, card, b=8, n=2560, d=8, hidden=(512, 1024, 2048,
         bias = vec(o)
         c_fwd = torch.empty(m, o, device=dev)
         c_dh = torch.empty(m, i, device=dev)
-        slices = cg.split_k(m, i, o)
+        slices = split_k(m, i, o)
 
         def fwd():
             check(lib.k23_gemm(0, h.data_ptr(), h.stride(0), w.data_ptr(),
@@ -1005,7 +1031,7 @@ def gemm_phase(torch, dev, card, b=8, n=2560, d=8, hidden=(512, 1024, 2048,
         if 0 < k:                 # stage k-1's backward LayerNorm
             zi, dzi, hi = rows(m, i), rows(m, i), rows(m, i)
             gi, bi = vec(i), vec(i)
-            part = torch.empty(-(-m // cg.BM), 3 * i, device=dev)
+            part = torch.empty(-(-m // BM), 3 * i, device=dev)
             fused["dz W^T"] = lambda: check(lib.k3_gemm_ln_bwd(
                 dz.data_ptr(), dz.stride(0), w.data_ptr(), w.stride(0),
                 zi.data_ptr(), zi.stride(0), 0, gi.data_ptr(), bi.data_ptr(),
@@ -1649,7 +1675,6 @@ def ptv3_phase(torch, dev, card, work):
         CapacityOverflow,
         raise_on_overflow,
     )
-    from wireframe_tpu_torch.ops import pair_mlp, subm_conv
     from wireframe_tpu_torch.train.step import make_forward_fn
 
     t0 = time.perf_counter()
@@ -1696,11 +1721,11 @@ def ptv3_phase(torch, dev, card, work):
             calls[0] += 1
             return fwd(model, xb)
 
-        n0 = pair_mlp.kernels_launched()
-        s0 = subm_conv.kernels_launched()
+        keys = ("pair MLP", "subm conv")
+        before = launch_counts(keys)
         ms = cuda_ms(torch, timed, 3)
-        launched = pair_mlp.kernels_launched() - n0
-        conv_launched = subm_conv.kernels_launched() - s0
+        launched, conv_launched = (launch_counts(keys)[k] - before[k]
+                                   for k in keys)
         if (launched != calls[0]
                 or conv_launched != SUBM_CONVS * calls[0]):
             raise AssertionError(f"ptv3 ({b}, 16384): {launched} pair MLP "
@@ -1729,6 +1754,13 @@ def ptv3_phase(torch, dev, card, work):
               f"in {calls[0]} forwards, subm conv steps skipped "
               f"{c['conv_steps_skipped']} of {steps} ({skipped:.2f} %) "
               f"[{card}]", flush=True)
+        # Kernels a forward, on the device: one pair MLP, one per conv.
+        kernels = device_launches(torch, lambda: fwd(model, xb),
+                                  ("pair_mlp_kernel", "subm_conv_kernel"))
+        print(f"ptv3 ({b}, 16384): device kernels in one forward "
+              f"{kernels} [{card}]", flush=True)
+        assert kernels == {"pair_mlp_kernel": 1,
+                           "subm_conv_kernel": SUBM_CONVS}, kernels
         del xb
 
     # A stage over its capacity: the call raises when its outputs are
@@ -1812,10 +1844,10 @@ def pair_mlp_phase(torch, dev, card, work):
         plan = pair_mlp.pair_mlp_plan(b, v, 512)
         with torch.inference_mode():
             x, ui, uj = head.slot_rows(verts, torch.ones_like(live), feats)
-            n0 = pair_mlp.kernels_launched()
+            n0 = launch_counts(PAIR)["pair MLP"]
             kp, kl, km = pair_mlp.pair_mlp(ui, uj, x, live, p, dtype=bf16)
             torch.cuda.synchronize()
-            launched = pair_mlp.kernels_launched() - n0
+            launched = launch_counts(PAIR)["pair MLP"] - n0
             pp, pl, pm = pair_mlp.pair_mlp_plain(ui, uj, x, live, p,
                                                  dtype=bf16)
             fp, fl, _ = pair_mlp.pair_mlp_plain(
@@ -1861,37 +1893,56 @@ def pair_mlp_phase(torch, dev, card, work):
                   f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
                   f"{100.0 * bound / ms:.1f}% of bound [{card}]", flush=True)
 
-    # The served recipe forward: one launch a call, its edge probabilities
-    # held to the same forward through the eager ops.
+    # The served recipe forward: one launch a call, counted on the device
+    # by name, its edge probabilities held to the same forward through the
+    # eager ops.
     cfg = load_config(RECIPE)
     model = init_model(cfg, dev, seed=SERVE_SEED).eval()
     forward = make_forward_fn(cfg)
     rng = np.random.default_rng(20)
     clouds = torch.from_numpy(padded_clouds(rng, 8, cfg.data.num_points)
                               ).to(dev)
-    n0 = pair_mlp.kernels_launched()
+    n0 = launch_counts(PAIR)["pair MLP"]
     for _ in range(PAIR_MLP_FORWARDS):
         got = forward(model, clouds)
     torch.cuda.synchronize()
-    served = pair_mlp.kernels_launched() - n0
+    served = launch_counts(PAIR)["pair MLP"] - n0
     with torch.inference_mode(), mock.patch.object(
             pair_mlp, "engages", lambda *a: False):
         eager = model(clouds, train=False)
     torch.cuda.synchronize()
-    if pair_mlp.kernels_launched() - n0 != served:
+    if launch_counts(PAIR)["pair MLP"] - n0 != served:
         raise AssertionError("the eager forward took the kernel")
+    kernels = device_launches(torch, lambda: forward(model, clouds),
+                              ("pair_mlp_kernel",))["pair_mlp_kernel"]
     live = got["pair_mask"] & eager["pair_mask"]
     model_gap = float((got["edge_probs"] - eager["edge_probs"]
                        )[live].abs().max()) if live.any() else 0.0
     print(f"pair MLP served: {served} launches over {PAIR_MLP_FORWARDS} "
-          f"recipe forwards at (8, {cfg.data.num_points}); edge_probs "
+          f"recipe forwards at (8, {cfg.data.num_points}), {kernels} "
+          f"pair_mlp_kernel on the device in one; edge_probs "
           f"against the eager path {model_gap} where both masks are live "
           f"({int(live.sum())} pairs; atol {MODEL_ATOL['edge_probs']})",
           flush=True)
-    if served != PAIR_MLP_FORWARDS or not model_gap <= MODEL_ATOL[
-            "edge_probs"]:
-        raise AssertionError(f"pair MLP served: {served} launches, gap "
-                             f"{model_gap}")
+    if served != PAIR_MLP_FORWARDS or kernels != 1 or not \
+            model_gap <= MODEL_ATOL["edge_probs"]:
+        raise AssertionError(f"pair MLP served: {served} launches, "
+                             f"{kernels} device kernels, gap {model_gap}")
+
+    # A width the kernel is not built for takes the eager path (ROADMAP
+    # C7): one served forward at edge_hidden_dim 1024, no launch.
+    wide = load_config(RECIPE, ["model.edge_hidden_dim=1024"])
+    n0 = launch_counts(PAIR)["pair MLP"]
+    probs = make_forward_fn(wide)(init_model(wide, dev, seed=SERVE_SEED)
+                                  .eval(), clouds)["edge_probs"]
+    wide_launches = launch_counts(PAIR)["pair MLP"] - n0
+    finite = bool(torch.isfinite(probs).all())
+    print(f"pair MLP at edge_hidden_dim 1024: served forward at (8, "
+          f"{wide.data.num_points}), {wide_launches} pair MLP launches, "
+          f"edge_probs {tuple(probs.shape)}, finite {finite} [{card}]",
+          flush=True)
+    assert not wide_launches and finite and (
+        probs.shape == got["edge_probs"].shape), (wide_launches, finite)
 
     # Training takes the eager path: no launch in 20 steps of each model.
     trained = {}
@@ -1902,10 +1953,10 @@ def pair_mlp_phase(torch, dev, card, work):
             f"train.num_epochs={PAIR_MLP_STEPS}",
             f"train.checkpoint_dir={os.path.join(work, 'pair_mlp_' + tag)}"])
         batch = make_box_building_batch(tcfg, tcfg.train.batch_size, seed=0)
-        n0 = pair_mlp.kernels_launched()
+        n0 = launch_counts(PAIR)["pair MLP"]
         train_model(tcfg, [batch], metric_writer=_Losses(), device=dev)
         torch.cuda.synchronize()
-        trained[tag] = pair_mlp.kernels_launched() - n0
+        trained[tag] = launch_counts(PAIR)["pair MLP"] - n0
     print(f"pair MLP launches over {PAIR_MLP_STEPS} train steps: {trained}",
           flush=True)
     if any(trained.values()):
@@ -1926,45 +1977,14 @@ C1_STEPS = 100
 TRAIN_LOSS_RTOL = 1e-2
 
 
-def _counters():
-    from wireframe_tpu_torch.ops import chain_grad, fused_encoder
-    from wireframe_tpu_torch.ops.lockstep_lsa import solve_lsa_rows
-
-    return {"K1": fused_encoder.fused_point_encoder,
-            "K2": chain_grad.chain_forward, "K3": chain_grad.chain_backward,
-            "K4": solve_lsa_rows,
-            "K5 fwd": chain_grad.remat_chain_forward,
-            "K5 bwd": chain_grad.remat_chain_backward}
-
-
-# The f32 kernels' counts: each wrapper's `launches_f32`, under the bf16
-# key + " f32" (K4's cost is f32 in both dtypes: it has one count).
-F32_KEYS = ("K1", "K2", "K3", "K5 fwd", "K5 bwd")
-
-
-def reset_launches():
-    from wireframe_tpu_torch.ops import layernorm_rows
-
-    for k, fn in _counters().items():
-        fn.launches = 0
-        if k in F32_KEYS:
-            fn.launches_f32 = 0
-    # The split stages' row kernels and K4's per-variant counts.
-    for fn in (layernorm_rows.layernorm_relu_forward,
-               layernorm_rows.layernorm_relu_backward):
-        fn.launches = fn.launches_f32 = 0
-    _counters()["K4"].variant_launches.clear()
-
-
-def launch_counts():
-    """The bf16 kernels' counts (and K4's)."""
-    return {k: fn.launches for k, fn in _counters().items()}
-
-
-def f32_launch_counts():
-    """The f32 kernels' counts."""
-    fns = _counters()
-    return {f"{k} f32": fns[k].launches_f32 for k in F32_KEYS}
+# The launch registry's keys (`ops._launch`): the main paths' kernels,
+# their f32 twins (K4's cost is f32 in both dtypes: it has one count) and
+# the split stages' row kernels; K4's variants count under "K4 <variant>".
+MAIN_KEYS = ("K1", "K2", "K3", "K4", "K5 fwd", "K5 bwd")
+F32_KEYS = ("K1 f32", "K2 f32", "K3 f32", "K5 fwd f32", "K5 bwd f32")
+LN_KEYS = ("LN rows fwd", "LN rows fwd f32", "LN rows bwd",
+           "LN rows bwd f32")
+PAIR = ("pair MLP",)
 
 
 class _Losses:
@@ -2056,7 +2076,7 @@ def training_phase(torch, dev, card, work):
     state = train_model(cfg, [batch], metric_writer=writer, device=dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = launch_counts(MAIN_KEYS)
     launches = {k: counts[k] for k in ("K2", "K3", "K4")}
     losses = [r["total_loss"] for r in writer.rows]
     print(f"train {TRAIN_STEPS} steps in {secs:.2f} s, metrics read back "
@@ -2092,7 +2112,7 @@ def training_phase(torch, dev, card, work):
     reset_launches()
     train_model(remat_cfg, [batch], metric_writer=remat_writer, device=dev)
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = launch_counts(MAIN_KEYS)
     rl = [r["total_loss"] for r in remat_writer.rows]
     print(f"train recipe chain_backward=remat, 3 steps: losses {rl} vs "
           f"stash {losses[:3]}; launches {counts}", flush=True)
@@ -2293,7 +2313,7 @@ def parity_phase(torch, dev, card, work):
     state = train_model(cfg, [batch], metric_writer=writer, device=dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = launch_counts(MAIN_KEYS)
     losses = [r["total_loss"] for r in writer.rows]
     print(f"parity train {PARITY_STEPS} steps in {secs:.2f} s; launches "
           f"{counts}; losses {', '.join(f'{v:.5f}' for v in losses)}",
@@ -2405,7 +2425,7 @@ def parity_phase(torch, dev, card, work):
     reset_launches()
     results = predictor.predict_files(paths, out_dir=os.path.join(
         work, "parity_obj"))
-    k1 = launch_counts()["K1"]
+    k1 = launch_counts(MAIN_KEYS)["K1"]
     for pth, r in zip(paths, results):
         v, e = r["vertices"], r["edges"]
         lv, le = load_wireframe(r["obj_path"])
@@ -2645,23 +2665,22 @@ def f32_yardstick(torch, dev, card, name, m, hidden):
     f32 with TF32 off (the yardstick; the port never calls it), both held
     to the float64 product."""
     from wireframe_tpu_torch.ops import chain_grad as cg
+    from wireframe_tpu_torch.ops._launch import check, row_buffer
 
     k = max(range(len(hidden)), key=lambda i: hidden[i])
     kk, w_out = (8, *hidden)[k], hidden[k]
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
-    h = cg._rows(m, kk, torch.float32, dev).normal_(generator=gen)
-    w = cg._rows(kk, w_out, torch.float32, dev).normal_(generator=gen)
+    h = row_buffer(m, kk, torch.float32, dev).normal_(generator=gen)
+    w = row_buffer(kk, w_out, torch.float32, dev).normal_(generator=gen)
     c = torch.empty(m, w_out, device=dev)
     lib = cg._lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def gemm():
-        err = lib.k23_gemm_f32(0, h.data_ptr(), h.stride(0), w.data_ptr(),
+        check(lib.k23_gemm_f32(0, h.data_ptr(), h.stride(0), w.data_ptr(),
                                w.stride(0), None, c.data_ptr(), w_out, m,
-                               w_out, kk, 1, kk, stream)
-        if err:
-            raise RuntimeError(f"f32 STORE GEMM: cudaError_t {err}")
+                               w_out, kk, 1, kk, stream), "f32 STORE GEMM")
         return c
 
     exact = h.double() @ w.double()
@@ -2876,10 +2895,10 @@ def f32_chain(torch, dev, card):
         chain_backward_plain,
         chain_forward,
         chain_forward_plain,
-        chain_plan,
         remat_chain_backward,
         remat_chain_forward,
     )
+    from wireframe_tpu_torch.ops.hopper_gemm import chain_plan
 
     rng = np.random.default_rng(13)
     gen = torch.Generator(device=dev)
@@ -3146,11 +3165,11 @@ def f32_phase(torch, dev, card, work):
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise AssertionError("the plain f32 versions would run in TF32")
-    none = {k: 0 for k in {**launch_counts(), **f32_launch_counts()}}
+    none = dict.fromkeys(MAIN_KEYS + F32_KEYS, 0)
     out = {}
 
     def counted(want):
-        counts = {**launch_counts(), **f32_launch_counts()}
+        counts = launch_counts(MAIN_KEYS + F32_KEYS)
         if counts != {**none, **want}:
             raise AssertionError(f"launches {counts}, expected "
                                  f"{ {**none, **want} }")
@@ -3324,20 +3343,6 @@ LIMITS_CHAIN = (("recipe with a 4096 stage", 8, 2560, WIDE, 512, 4, 512),
                 ("ragged wide", 2, 328, (2304, 8192), 2304, 4, 328))
 
 
-def limits_counts():
-    """Launches of the split stages' LayerNorm row kernels and of K4's
-    variants (`k4_plan`'s names)."""
-    from wireframe_tpu_torch.ops import layernorm_rows
-    from wireframe_tpu_torch.ops.lockstep_lsa import solve_lsa_rows
-
-    fwd = layernorm_rows.layernorm_relu_forward
-    bwd = layernorm_rows.layernorm_relu_backward
-    return {"LN rows fwd": fwd.launches, "LN rows fwd f32": fwd.launches_f32,
-            "LN rows bwd": bwd.launches, "LN rows bwd f32": bwd.launches_f32,
-            **{f"K4 {k}": v for k, v in
-               solve_lsa_rows.variant_launches.items() if v}}
-
-
 def _limits_paths(work):
     rng = np.random.default_rng(15)
     offset = np.array([534000.0, 6588000.0, 40.0])
@@ -3352,7 +3357,9 @@ def _limits_paths(work):
 def _limits_counted(label, want):
     """The main path's counts, K1 - K5 (bf16 and f32), the row kernels and
     K4's variants, against `want` (every other count 0)."""
-    counts = {**launch_counts(), **f32_launch_counts(), **limits_counts()}
+    counts = launch_counts(MAIN_KEYS + F32_KEYS + LN_KEYS)
+    counts.update((k, v) for k, v in launch_counts().items()
+                  if k.startswith("K4 "))
     expected = {**{k: 0 for k in counts}, **want}
     print(f"limits {label}: launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
@@ -3410,7 +3417,8 @@ def _limits_parity_f32(torch, dev, card):
     (dropout off, targets next to predicted slots)."""
     from wireframe_tpu_torch.config import load_config
     from wireframe_tpu_torch.ops import chain_grad
-    from wireframe_tpu_torch.ops.chain_grad import chain_plan, remat_plan
+    from wireframe_tpu_torch.ops.chain_grad import remat_plan
+    from wireframe_tpu_torch.ops.hopper_gemm import chain_plan
     from wireframe_tpu_torch.train.loop import epoch_seed, init_model
     from wireframe_tpu_torch.utils.synth import (
         make_box_building_batch,
@@ -3621,10 +3629,10 @@ def limits_chain(torch, dev, card):
         chain_backward_plain,
         chain_forward,
         chain_forward_plain,
-        chain_plan,
         remat_chain_backward,
         remat_chain_forward,
     )
+    from wireframe_tpu_torch.ops.hopper_gemm import chain_plan
     from wireframe_tpu_torch.ops.fused_encoder import (
         fused_point_encoder,
         fused_point_encoder_plain,
@@ -3769,7 +3777,7 @@ def limits_rows_ragged(torch, dev, card):
     from the kernel's own stash and from the f32 z) against its plain
     version, within `_rows_close`'s bounds, two launches equal.  Returns
     {dtype: {"forward": largest error, "backward": largest error}}."""
-    from wireframe_tpu_torch.ops.chain_grad import _rows
+    from wireframe_tpu_torch.ops._launch import row_buffer
     from wireframe_tpu_torch.ops.layernorm_rows import (
         layernorm_relu_backward,
         layernorm_relu_backward_plain,
@@ -3782,9 +3790,9 @@ def limits_rows_ragged(torch, dev, card):
     gen.manual_seed(19)
     errs = {tag: {"forward": 0.0, "backward": 0.0} for tag in ("bf16", "f32")}
     for m, w in ROWS_RAGGED:
-        z = _rows(m, w, torch.float32, dev)
+        z = row_buffer(m, w, torch.float32, dev)
         z.copy_(torch.randn((m, w), device=dev, generator=gen) * 2 + 0.5)
-        dh = _rows(m, w, torch.float32, dev)
+        dh = row_buffer(m, w, torch.float32, dev)
         dh.copy_(torch.randn((m, w), device=dev, generator=gen) * 0.1)
         g = 1 + 0.1 * torch.randn(w, device=dev, generator=gen)
         be = 0.1 * torch.randn(w, device=dev, generator=gen)
@@ -3809,7 +3817,7 @@ def limits_rows_ragged(torch, dev, card):
             for zz in ((z,) if sk is None else (sk, z)):
                 src = "f32 z" if zz.dtype == torch.float32 else "stash"
                 d0, tied = _tie_free(torch, zz, dh, g, be)
-                d = _rows(m, w, torch.float32, dev)
+                d = row_buffer(m, w, torch.float32, dev)
                 d.copy_(d0)
                 rebuild = zz is sk or dtype == torch.float32
                 got = layernorm_relu_backward(zz, d, g, be, dz_dtype=dtype,
@@ -3857,18 +3865,17 @@ def limits_rows_ragged(torch, dev, card):
 
 def rows_launches_per_call(torch, dev, card, m=2048, w=4096):
     """The kernels that one call of each row-kernel wrapper launches
-    (forward bf16 and f32, backward bf16 and f32), as the library counts
-    its launches: one each, or AssertionError."""
-    from wireframe_tpu_torch.ops.chain_grad import _rows
+    (forward bf16 and f32, backward bf16 and f32), counted on the device
+    by name (`device_launches`): one each, or AssertionError."""
+    from wireframe_tpu_torch.ops._launch import row_buffer
     from wireframe_tpu_torch.ops.layernorm_rows import (
-        kernels_launched,
         layernorm_relu_backward,
         layernorm_relu_forward,
     )
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
-    z = _rows(m, w, torch.float32, dev)
+    z = row_buffer(m, w, torch.float32, dev)
     z.copy_(torch.randn((m, w), device=dev, generator=gen))
     g = torch.ones(w, device=dev)
     be = torch.zeros(w, device=dev)
@@ -3885,10 +3892,9 @@ def rows_launches_per_call(torch, dev, card, m=2048, w=4096):
             z, z, g, be, dz_dtype=torch.float32, rebuild_h=False)}
     counts = {}
     for name, fn in calls.items():
-        before = kernels_launched()
-        fn()
-        counts[name] = kernels_launched() - before
-    torch.cuda.synchronize()
+        kernels = device_launches(torch, fn, ("ln_fwd_rows_kernel",
+                                              "ln_bwd_rows_kernel"))
+        counts[name] = sum(kernels.values())
     print(f"limits row kernels: kernel launches in one call of each "
           f"wrapper {counts} [{card}]", flush=True)
     if set(counts.values()) != {1}:
@@ -3921,7 +3927,9 @@ def limits_timing(torch, dev, card):
     each row kernel alone, against their plain versions, with their
     bounds.  Returns {dtype: {"fwd": fields, "bwd": fields}}."""
     from wireframe_tpu_torch.ops import chain_grad
-    from wireframe_tpu_torch.ops.fused_encoder import _dot, _ln
+    from wireframe_tpu_torch.ops._launch import tma_rows
+    from wireframe_tpu_torch.ops.fused_encoder import dot, ln
+    from wireframe_tpu_torch.ops.hopper_gemm import chain_plan
     from wireframe_tpu_torch.ops.layernorm_rows import (
         layernorm_relu_backward,
         layernorm_relu_backward_plain,
@@ -3942,35 +3950,34 @@ def limits_timing(torch, dev, card):
         (w, bb, g, be), (wa, *_) = recipe_encoder_params(
             torch, rng, dev, input_dim=k_in, hidden=(width, k_in),
             weight_dtype=dtype)[0]
-        layer = (chain_grad._tma_rows(w, dtype), bb, g, be)
-        a = chain_grad._tma_rows(torch.randn((m, k_in), device=dev), dtype)
-        dza = chain_grad._tma_rows(torch.randn((m, k_in), device=dev) * 0.1,
-                                   dtype)
-        wa = chain_grad._tma_rows(wa, dtype)
+        layer = (tma_rows(w, dtype), bb, g, be)
+        a = tma_rows(torch.randn((m, k_in), device=dev), dtype)
+        dza = tma_rows(torch.randn((m, k_in), device=dev) * 0.1, dtype)
+        wa = tma_rows(wa, dtype)
         lib = chain_grad._lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
         zdt = torch.float32 if f32 else torch.bfloat16
         stage_fwd = lambda: chain_grad._stage_forward(  # noqa: E731
             lib, a, k_in, layer, m, stream, z_dtype=zdt, what="split stage")
         h, z = stage_fwd()
-        plan = chain_grad.chain_plan(m, 8, (width, k_in), 512, dtype)
+        plan = chain_plan(m, 8, (width, k_in), 512, dtype)
         stage_bwd = lambda: chain_grad._stage_backward(  # noqa: E731
             lib, dza, wa, k_in, z, layer, m, plan, True, stream,
             "split stage backward")
 
         def plain_fwd():
-            zz = _dot(a, w, dtype) + bb
-            return torch.clamp_min(_ln(zz, g, be), 0.0).to(dtype), \
+            zz = dot(a, w, dtype) + bb
+            return torch.clamp_min(ln(zz, g, be), 0.0).to(dtype), \
                 zz.to(dtype)
 
         def plain_bwd():
-            dh = _dot(dza, wa.t(), dtype)
+            dh = dot(dza, wa.t(), dtype)
             return layernorm_relu_backward_plain(z, dh, g, be, dz_dtype=dtype,
                                                  rebuild_h=True)
 
         z32 = torch.empty((m, width), device=dev)
-        z32.copy_(_dot(a, w, dtype) + bb)
-        dh32 = _dot(dza, wa.t(), dtype)
+        z32.copy_(dot(a, w, dtype) + bb)
+        dh32 = dot(dza, wa.t(), dtype)
         stash = None if f32 else torch.bfloat16
         rows_fwd = lambda: layernorm_relu_forward(  # noqa: E731
             z32, g, be, h_dtype=dtype, stash_dtype=stash)
@@ -4197,7 +4204,7 @@ def corpus_phase(torch, dev, card, work):
     main_cli.main(train_argv(ck))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    train_counts = launch_counts()
+    train_counts = launch_counts(MAIN_KEYS)
     rows = _losses(ck)
     losses = [r["total_loss"] for r in rows]
     print(f"corpus train CLI: {CORPUS_STEPS} optimizer steps in {secs:.2f} s "
@@ -4303,7 +4310,7 @@ def corpus_phase(torch, dev, card, work):
         aps[label] = evaluate_cli.run(
             base + _sets(eval_sets + ["eval.batch_size=8"]) + extra)
         secs = time.perf_counter() - t0
-        n = launch_counts()["K1"]
+        n = launch_counts(MAIN_KEYS)["K1"]
         k1 += n
         m = aps[label].summarize()
         print(f"corpus evaluate {label}: K1 launches {n} for {batches} "
@@ -4380,7 +4387,7 @@ def corpus_phase(torch, dev, card, work):
     reset_launches()
     test_cli.main(base + _sets(eval_sets + ["eval.batch_size=8"])
                   + ["--out-dir", out_dir])
-    n = launch_counts()["K1"]
+    n = launch_counts(MAIN_KEYS)["K1"]
     k1 += n
     objs = sorted(os.listdir(out_dir))
     verts_total = 0
@@ -4442,7 +4449,7 @@ def _serve_layout(dev, card, work, label, flat, cfg, overrides, paths):
     t0 = time.perf_counter()
     results = predictor.predict_files(paths, out_dir=ckpt + "_obj")
     secs = time.perf_counter() - t0
-    k1 = launch_counts()["K1"]
+    k1 = launch_counts(MAIN_KEYS)["K1"]
     for r in results:
         lv, le = load_wireframe(r["obj_path"])
         if not np.isfinite(r["vertices"]).all() or (
@@ -4493,7 +4500,8 @@ def _train_layout(torch, dev, cfg, batch, flat, plain=False):
         state = train_model(cfg, [batch], metric_writer=writer, state=state,
                             device=dev)
     torch.cuda.synchronize()
-    return [r["total_loss"] for r in writer.rows], launch_counts(), state
+    return ([r["total_loss"] for r in writer.rows], launch_counts(MAIN_KEYS),
+            state)
 
 
 def _loss_grads_saved(torch, model, cfg, dbatch, seed):
@@ -4748,8 +4756,8 @@ def checkpoints_phase(torch, dev, card, work):
         lines[label], verts[label] = _eval_vertices(evaluate_cli,
                                                     argv + _sets(extra))
         torch.cuda.synchronize()
-        counts[label] = launch_counts()
-        f32_counts[label] = f32_launch_counts()
+        counts[label] = launch_counts(MAIN_KEYS)
+        f32_counts[label] = launch_counts(F32_KEYS)
         print(f"checkpoints: evaluate --torch-checkpoint ({label}) "
               f"{time.perf_counter() - t0:.2f} s, {len(verts[label])} "
               f"forward batches; launches {counts[label]}, f32 "
@@ -4805,7 +4813,7 @@ def checkpoints_phase(torch, dev, card, work):
                     start_epoch=start, device=dev)
         runs.append([r["total_loss"] for r in w.rows])
     torch.cuda.synchronize()
-    train_counts = launch_counts()
+    train_counts = launch_counts(MAIN_KEYS)
     n = CKPT_STEPS + 2 * (CKPT_STEPS - CKPT_EPOCH)
     print(f"checkpoints: scan + fused, {CKPT_STEPS} steps {losses}, "
           f"resumed twice from step {latest_step(ckdir)}: {runs}, "
@@ -5080,7 +5088,7 @@ def _sharded_eval(torch, dev, card, work):
                 ap = evaluate_cli.run(base + extra + flags)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            launches = launch_counts()["K1"]
+            launches = launch_counts(MAIN_KEYS)["K1"]
             if run == "sharded":
                 k1 += launches
             vecs[run] = counters_vector(ap)
@@ -5108,7 +5116,7 @@ def parallel_phase(torch, dev, card, work):
     two ranks over gloo on the card against one process; (d) point-
     sharded pooling at mp = 2 through K1.  Returns {kernel: launches}."""
     t0 = time.perf_counter()
-    launches = {k: 0 for k in _counters()}
+    launches = dict.fromkeys(MAIN_KEYS, 0)
     launches["K1"] += _sharded_eval(torch, dev, card, work)
 
     (nccl,) = _run_ranks("nccl", 1, work, timeout=PARALLEL_BUDGET_S)
@@ -5252,7 +5260,7 @@ def _nccl_rank(torch):
         (log, _), t = _timed(torch, lambda: audit_train_step_collectives(
             cfg, dp, batch, torch.Generator(device=dev).manual_seed(i)))
         ms.append(round(t, 2))
-        counts = launch_counts()
+        counts = launch_counts(MAIN_KEYS)
         step_launches.append({k: counts[k] for k in ("K2", "K3", "K4")})
         audit = audit or [(c.op, c.dtype, list(c.shape), c.bytes)
                           for c in log]
@@ -5322,7 +5330,7 @@ def _gloo_rank(torch):
         reset_launches()
         (_, m), t = _timed(torch, lambda: step(state, mine, gen))
         out["ms"].append(round(t, 2))
-        counts = launch_counts()
+        counts = launch_counts(MAIN_KEYS)
         out["step_launches"].append({k: counts[k] for k in ("K2", "K3",
                                                             "K4")})
         if rank == 0:
@@ -5340,7 +5348,7 @@ def _gloo_rank(torch):
     reset_launches()
     pools = sharded_point_pools(x, stages, fw, fb, tile=PARALLEL_POOL_TILE)
     torch.cuda.synchronize()
-    out["pool_launches"] = launch_counts()["K1"]
+    out["pool_launches"] = launch_counts(MAIN_KEYS)["K1"]
     if rank == 0:
         whole = fused_point_encoder(x, stages, fw, fb,
                                     tile=PARALLEL_POOL_TILE)
@@ -5467,7 +5475,7 @@ def _mp_ranks(torch, dev, rank):
                     out["mu_rel"] = _check_mu(state.mu.values(), ref_mu)
                 _check_params(cfg, out, i, state.model.parameters(),
                               ref_params[i])
-        counts = launch_counts()
+        counts = launch_counts(MAIN_KEYS)
         out["launches"] = counts
         if any(counts[k] != MP_STEPS for k in kernels):
             raise AssertionError(f"{name} at mp=2: launches {counts}")
@@ -5534,7 +5542,7 @@ def _bench(torch, dev, card, env, want):
     t0 = time.perf_counter()
     result = bench.run(env, device=dev)
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = launch_counts(MAIN_KEYS)
     print(json.dumps(result), flush=True)
     expected = want(result)
     print(f"bench {env}: {time.perf_counter() - t0:.1f} s; launches "
@@ -5558,7 +5566,7 @@ def bench_phase(torch, dev, card, work):
         trace_ops,
     )
 
-    none = {k: 0 for k in _counters()}
+    none = dict.fromkeys(MAIN_KEYS, 0)
 
     def forward_launches(r):
         return {**none, "K1": r["forward_calls"]}
@@ -5644,7 +5652,7 @@ def bench_phase(torch, dev, card, work):
                "BENCH_LAT_ITERS": "2", "BENCH_PARITY_SECONDARY": "0"}
     f32 = bench.run(f32_env, device=dev)
     torch.cuda.synchronize()
-    counts = {**launch_counts(), **f32_launch_counts()}
+    counts = launch_counts(MAIN_KEYS + F32_KEYS)
     print(json.dumps(f32), flush=True)
     expected = {**{k: 0 for k in counts}, "K1 f32": f32["forward_calls"]}
     print(f"bench {f32_env}: recipe B={f32['batch']} x {f32['points']} in "
@@ -5792,13 +5800,16 @@ def main() -> int:
 
         from wireframe_tpu_torch.ops import subm_conv
 
-        conv0 = subm_conv.kernels_launched()
-        phase = "training"
-        train_launches, _ = training_phase(torch, dev, card, work)
+        # The phases clear the launch registry as they go: the subm conv's
+        # calls over both are counted on the op itself.
+        with mock.patch.object(subm_conv, "subm_conv",
+                               wraps=subm_conv.subm_conv) as conv:
+            phase = "training"
+            train_launches, _ = training_phase(torch, dev, card, work)
 
-        phase = "parity training"
-        parity_launches, _ = parity_phase(torch, dev, card, work)
-        conv_trained = subm_conv.kernels_launched() - conv0
+            phase = "parity training"
+            parity_launches, _ = parity_phase(torch, dev, card, work)
+        conv_trained = conv.call_count
         print(f"subm conv launches in the training and parity phases: "
               f"{conv_trained}", flush=True)
         if conv_trained:

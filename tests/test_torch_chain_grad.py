@@ -34,6 +34,8 @@ from wireframe_tpu.ops.masked_pool import (
     window_max_pool as jax_window_max_pool,
 )
 from wireframe_tpu.ops.pallas_chain_grad import make_differentiable_chain
+from wireframe_tpu_torch.ops import _build
+from wireframe_tpu_torch.ops._launch import launch_counts
 from wireframe_tpu_torch.ops.chain_grad import (
     chain_backward,
     chain_backward_plain,
@@ -232,16 +234,26 @@ def test_plain_backward_is_the_forward_s_gradient(remat):
                                    atol=2e-4, err_msg=f"gradient {i}")
 
 
-def test_wrappers_take_plain_on_cpu_and_remat_raises():
-    """On CPU tensors the K2 / K3 / K5 wrappers take the plain versions and
-    count no launch; remat (formerly refused) saves no stash, and its
-    forward equals the stash forward's (the stash is all it adds)."""
+def no_kernel_library(monkeypatch):
+    """Make loading any kernel library fail the test: the CPU path must
+    load none."""
+    def load(name, *args, **kwargs):
+        raise AssertionError(f"the CPU path loaded the {name} library")
+
+    monkeypatch.setattr(_build, "load", load)
+
+
+def test_wrappers_take_plain_on_cpu_and_remat_raises(monkeypatch):
+    """On CPU tensors the K2 / K3 / K5 wrappers take the plain versions,
+    load no kernel library and count no launch; remat (formerly refused)
+    saves no stash, and its forward equals the stash forward's (the stash
+    is all it adds)."""
     sp, fw, fb = _params(6)
     x = torch.from_numpy(_cloud(7))
     stages = [tuple(torch.from_numpy(a) for a in s) for s in sp]
     fwt, fbt = torch.from_numpy(fw), torch.from_numpy(fb)
-    counts = (chain_forward.launches, chain_backward.launches,
-              remat_chain_forward.launches, remat_chain_backward.launches)
+    no_kernel_library(monkeypatch)
+    counts = launch_counts()
     res = chain_forward(x, stages, fwt, fbt, kv_pool=4, emit_features=False)
     assert set(res) == {"zs", "pooled", "idx", "sums"}
     assert [z.dtype for z in res["zs"]] == [torch.bfloat16] * 2
@@ -255,9 +267,7 @@ def test_wrappers_take_plain_on_cpu_and_remat_raises():
         assert torch.equal(rem[k], res[k]), k
     remat = remat_chain_backward(x, stages, fwt, fbt, **cot)
     assert remat[0].shape == stash[0].shape
-    assert (chain_forward.launches, chain_backward.launches,
-            remat_chain_forward.launches,
-            remat_chain_backward.launches) == counts
+    assert launch_counts() == counts
     xg = x.clone().requires_grad_()
     out = differentiable_chain(xg, stages, fwt, fbt, backward="remat")
     saved = {id(t) for t in (xg, *[p for s in stages for p in s], fwt, fbt)}

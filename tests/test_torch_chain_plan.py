@@ -1,6 +1,6 @@
 """The host-side launch plan of the chain kernels K2 / K3 / K5.
 
-`ops.chain_grad.chain_plan` turns the chain's shapes into what the CUDA
+`ops.hopper_gemm.chain_plan` turns the chain's shapes into what the CUDA
 wrappers launch with (`csrc/hopper_gemm.cuh`): one cluster of
 ceil(W / 256) CTAs per fused LayerNorm stage, within the portable limit of
 8; row strides padded to multiples of 8 elements, as TMA's 16-byte rows
@@ -12,15 +12,13 @@ it is tested here on the CPU at the recipe's widths and at ragged ones.
 import pytest
 import torch
 
-from wireframe_tpu_torch.ops.chain_grad import (
+from wireframe_tpu_torch.ops._launch import pad8, row_buffer, tma_rows
+from wireframe_tpu_torch.ops.hopper_gemm import (
     BK,
     BN,
     MAX_CLUSTER,
-    _rows,
-    _tma_rows,
     chain_plan,
     ln_cluster,
-    pad8,
     split_k,
     stage_mode,
 )
@@ -101,11 +99,11 @@ def test_split_k_fills_the_card_at_the_recipe_shape():
 
 @pytest.mark.parametrize("width", [8, 36, 300, 1100])
 def test_row_buffers_and_tma_copies(width):
-    buf = _rows(5, width, torch.bfloat16, torch.device("cpu"))
+    buf = row_buffer(5, width, torch.bfloat16, torch.device("cpu"))
     assert buf.shape == (5, width) and buf.stride(0) == pad8(width)
     src = torch.arange(5 * width, dtype=torch.float32).reshape(5, width)
-    got = _tma_rows(src, torch.bfloat16)
+    got = tma_rows(src, torch.bfloat16)
     assert got.stride(0) % 8 == 0 and got.data_ptr() % 16 == 0
     assert torch.equal(got, src.to(torch.bfloat16))
     # Already aligned: no copy.
-    assert _tma_rows(buf, torch.bfloat16).data_ptr() == buf.data_ptr()
+    assert tma_rows(buf, torch.bfloat16).data_ptr() == buf.data_ptr()

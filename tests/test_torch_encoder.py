@@ -23,6 +23,7 @@ from wireframe_tpu.ops.pallas_encoder import fused_point_encoder as jax_k1
 from wireframe_tpu_torch.bridge import params_from_flax
 from wireframe_tpu_torch.models.encoder import FusionMLP, PointNetEncoder
 from wireframe_tpu_torch.ops import masked_pool
+from wireframe_tpu_torch.ops._launch import launch_counts
 from wireframe_tpu_torch.ops.fused_encoder import (
     fused_point_encoder,
     fused_point_encoder_plain,
@@ -110,19 +111,22 @@ def test_plain_k1_checks_tiling(rng):
                                   torch.from_numpy(fb), tile=32, kv_pool=8)
 
 
-def test_wrapper_takes_plain_version_on_cpu_only(rng):
-    """A CPU tensor gets the plain version (no launch counted); any other
-    non-CUDA device is refused."""
+def test_wrapper_takes_plain_version_on_cpu_only(rng, monkeypatch):
+    """A CPU tensor gets the plain version (no library loaded, no launch
+    counted); any other non-CUDA device is refused."""
+    from test_torch_chain_grad import no_kernel_library
+
     sp, fw, fb = _params(rng, 8, (32,), 16)
     tsp = [tuple(map(torch.from_numpy, p)) for p in sp]
     x = torch.from_numpy(_cloud(rng, 3, 64))
-    before = fused_point_encoder.launches
+    no_kernel_library(monkeypatch)
+    before = launch_counts()
     got = fused_point_encoder(x, tsp, torch.from_numpy(fw),
                               torch.from_numpy(fb), tile=32, kv_pool=4)
     want = fused_point_encoder_plain(x, tsp, torch.from_numpy(fw),
                                      torch.from_numpy(fb), tile=32,
                                      kv_pool=4)
-    assert fused_point_encoder.launches == before
+    assert launch_counts() == before
     for key in KEYS:
         assert torch.equal(got[key], want[key])
     with pytest.raises(ValueError):
@@ -149,13 +153,13 @@ def test_chain_layer_norm_matches_pallas(rng, scale):
     """The chain's two-pass LayerNorm (eps 1e-6); at scale 1e-3 the
     variance is ~eps, so the eps matters."""
     from wireframe_tpu.ops.pallas_encoder import _ln as jax_ln
-    from wireframe_tpu_torch.ops.fused_encoder import _ln
+    from wireframe_tpu_torch.ops.fused_encoder import ln
 
     x = (rng.normal(size=(4, 24)) * scale + scale).astype(np.float32)
     g = rng.normal(size=24).astype(np.float32)
     b = rng.normal(size=24).astype(np.float32)
     np.testing.assert_allclose(
-        _ln(*map(torch.from_numpy, (x, g, b))).numpy(),
+        ln(*map(torch.from_numpy, (x, g, b))).numpy(),
         np.asarray(jax_ln(*map(jnp.asarray, (x, g, b)))), **TOL["float32"])
 
 

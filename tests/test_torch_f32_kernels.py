@@ -22,20 +22,19 @@ import numpy as np
 import pytest
 import torch
 
-from wireframe_tpu_torch.ops import chain_grad, fused_encoder
-from wireframe_tpu_torch.ops.chain_grad import (
+from wireframe_tpu_torch.ops import chain_grad, fused_encoder, hopper_gemm
+from wireframe_tpu_torch.ops._launch import SMEM_LIMIT, launch_counts, pad8
+from wireframe_tpu_torch.ops.hopper_gemm import (
     BK,
     BK_F32,
     BM,
     BN,
     F32_SPLIT,
     KS,
-    SMEM_LIMIT,
     STAGES,
     STAGES_F32,
     chain_plan,
     kernel_dtype,
-    pad8,
     smem_bytes,
     split_k,
     split_tile_bytes,
@@ -137,27 +136,23 @@ def test_cuda_wrappers_take_f32_to_the_kernel_library(entry, monkeypatch):
 
     monkeypatch.setattr(chain_grad, "_lib", reached)
     monkeypatch.setattr(fused_encoder, "_lib", reached)
-    counts = _counts()
+    counts = launch_counts()
     with pytest.raises(_Reached):
         _call(entry, _cloud(), torch.float32)
-    assert _counts() == counts
-
-
-def _counts():
-    return [(fn.launches, fn.launches_f32)
-            for fn in (fused_encoder.fused_point_encoder,
-                       chain_grad.chain_forward, chain_grad.chain_backward,
-                       chain_grad.remat_chain_forward,
-                       chain_grad.remat_chain_backward)]
+    assert launch_counts() == counts
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cpu_tensors_take_the_plain_versions_and_count_nothing(dtype):
-    """On the CPU every wrapper runs its plain version in either dtype and
-    counts no launch, bf16 or f32."""
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing(dtype,
+                                                               monkeypatch):
+    """On the CPU every wrapper runs its plain version in either dtype,
+    loads no kernel library and counts no launch, bf16 or f32."""
+    from test_torch_chain_grad import no_kernel_library
+
     sp, fw, fb = _params()
     x = _cloud()
-    counts = _counts()
+    no_kernel_library(monkeypatch)
+    counts = launch_counts()
     got = fused_encoder.fused_point_encoder(x, sp, fw, fb, tile=32,
                                             compute_dtype=dtype, kv_pool=4)
     want = fused_encoder.fused_point_encoder_plain(
@@ -168,7 +163,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing(dtype):
     assert [z.dtype for z in fwd["zs"]] == [dtype] * 2
     chain_grad.remat_chain_backward(x, sp, fw, fb, g=fwd["features"],
                                     compute_dtype=dtype)
-    assert _counts() == counts
+    assert launch_counts() == counts
 
 
 @pytest.mark.parametrize("name", list(BF16_PLANS))
@@ -245,10 +240,10 @@ def test_plans_match_the_header_constants():
     assert (const["BM"], const["BN"], const["BK"], const["BK_F32"],
             const["STAGES"], const["STAGES_F32"], const["KS"]) == (
                 BM, BN, BK, BK_F32, STAGES, STAGES_F32, KS)
-    assert const["MAX_CLUSTER"] == chain_grad.MAX_CLUSTER
+    assert const["MAX_CLUSTER"] == hopper_gemm.MAX_CLUSTER
     assert 2 * const["KS"] == const["BK_F32"]
     assert const["FLUSH_STAGES"] * const["BK_F32"] == \
-        chain_grad.F32_FLUSH_K == 2048
+        hopper_gemm.F32_FLUSH_K == 2048
     # 1024 to align + the f32 area (3 x 48 KB + 2 x 32 KB) + the cluster
     # exchange slots + the mbarriers.
     assert smem_bytes() == 1024 + 212992 + 2048 + 64 == 216128

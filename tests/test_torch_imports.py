@@ -9,6 +9,10 @@
   import it either: `viz.plots` is loaded on first use.
 - With no GPU, the entry points raise unless the caller passes
   device="cpu"; chip_smoke.py exits nonzero and prints no `ok` line.
+- The kernel modules of ops/ import downward only: none imports a
+  sibling inside a function or a sibling's private name, the card's
+  facts (`SMEM_LIMIT`, `SMS`) are assigned once, and each module imports
+  on its own in a fresh interpreter.
 """
 
 import ast
@@ -153,3 +157,70 @@ def test_chip_smoke_fails_without_cuda(no_cuda, capsys):
     assert out and '"ok"' not in out[-1]
     with pytest.raises(json.JSONDecodeError):
         json.loads(out[-1])
+
+
+OPS = os.path.join(ROOT, "wireframe_tpu_torch", "ops")
+KERNEL_MODULES = ("_launch", "hopper_gemm", "layernorm_rows",
+                  "fused_encoder", "chain_grad", "lockstep_lsa", "pair_mlp",
+                  "subm_conv")
+
+
+def _ops_tree(name):
+    path = os.path.join(OPS, name + ".py")
+    return ast.parse(open(path).read(), filename=path)
+
+
+def _sibling(node):
+    """The ops/ module an import node names, or None."""
+    if isinstance(node, ast.ImportFrom) and node.module:
+        mods = [node.module] + [f"{node.module}.{a.name}"
+                                for a in node.names]
+    elif isinstance(node, ast.Import):
+        mods = [a.name for a in node.names]
+    else:
+        return None
+    for mod in mods:
+        if mod.startswith("wireframe_tpu_torch.ops."):
+            return mod.split(".")[2]
+    return None
+
+
+def test_kernel_modules_import_downward_only():
+    bad = []
+    for name in KERNEL_MODULES:
+        tree = _ops_tree(name)
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            for node in ast.walk(fn):
+                if _sibling(node):
+                    bad.append((name, fn.name, _sibling(node)))
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.ImportFrom) and node.module
+                    and node.module.startswith("wireframe_tpu_torch.ops.")):
+                bad += [(name, node.module, a.name) for a in node.names
+                        if a.name.startswith("_")]
+    assert not bad
+
+
+def test_card_facts_are_assigned_once():
+    where = {"SMEM_LIMIT": [], "SMS": []}
+    for fname in sorted(os.listdir(OPS)):
+        if not fname.endswith(".py"):
+            continue
+        for node in ast.walk(_ops_tree(fname[:-3])):
+            if isinstance(node, (ast.Assign, ast.AnnAssign)):
+                targets = (node.targets if isinstance(node, ast.Assign)
+                           else [node.target])
+                for t in targets:
+                    if isinstance(t, ast.Name) and t.id in where:
+                        where[t.id].append(fname)
+    assert where == {"SMEM_LIMIT": ["_launch.py"], "SMS": ["_launch.py"]}
+
+
+@pytest.mark.parametrize("name", KERNEL_MODULES)
+def test_kernel_module_imports_alone(name):
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import wireframe_tpu_torch.ops.{name}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

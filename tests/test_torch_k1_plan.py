@@ -16,8 +16,8 @@ import torch
 
 from wireframe_tpu_torch.models import encoder as encoder_module
 from wireframe_tpu_torch.models.encoder import PointNetEncoder
-from wireframe_tpu_torch.ops.chain_grad import ln_cluster
-from wireframe_tpu_torch.ops.fused_encoder import K1_ROW_TILE, k1_plan
+from wireframe_tpu_torch.ops.hopper_gemm import BM, ln_cluster
+from wireframe_tpu_torch.ops.fused_encoder import k1_plan
 
 FULL = (512, 1024, 2048, 1024)
 SHAPES = {
@@ -42,7 +42,7 @@ def test_every_row_lies_in_one_tile_of_its_own_cloud(name):
     seen = torch.zeros(b * n, dtype=torch.int64)
     for cloud in range(b):
         for r0, r1 in plan["tile_rows"]:
-            assert 0 <= r0 < r1 <= n and r1 - r0 <= K1_ROW_TILE
+            assert 0 <= r0 < r1 <= n and r1 - r0 <= BM
             seen[cloud * n + r0: cloud * n + r1] += 1
     assert bool((seen == 1).all())
 

@@ -28,15 +28,18 @@ import torch
 
 from wireframe_tpu.ops.pallas_encoder import _ln
 from wireframe_tpu_torch.ops import layernorm_rows
-from wireframe_tpu_torch.ops.chain_grad import _rows
-from wireframe_tpu_torch.ops.layernorm_rows import (
-    RESIDENT_MAX,
-    ROW_TILE,
+from wireframe_tpu_torch.ops._launch import (
     SMEM_LIMIT,
     SMS,
+    row_args,
+    row_buffer,
+)
+from wireframe_tpu_torch.ops.layernorm_rows import (
+    KERNEL,
+    RESIDENT_MAX,
+    ROW_TILE,
     layernorm_relu_backward,
     layernorm_relu_forward_plain,
-    row_args,
     rows_plan,
     smem_bytes,
 )
@@ -138,20 +141,20 @@ def test_unaligned_row_stride_raises(dtype, w):
     """The kernels move rows 16 bytes at a time: the wrappers' own
     buffers (rows a multiple of 8 elements apart) pass, a row stride
     that is not a multiple of 16 bytes or a start off 16 bytes raises."""
-    good = _rows(3, w, dtype, torch.device("cpu"))
-    assert row_args("z", good) == (good.data_ptr(), good.stride(0))
-    assert row_args("h", None) == (None, 0)
+    good = row_buffer(3, w, dtype, torch.device("cpu"))
+    assert row_args("z", good, KERNEL) == (good.data_ptr(), good.stride(0))
+    assert row_args("h", None, KERNEL) == (None, 0)
     es = good.element_size()
     odd = torch.empty((3, w + 16 // es + 1), dtype=dtype)[:, :w]
     with pytest.raises(ValueError, match="16-byte"):
-        row_args("z", odd)
+        row_args("z", odd, KERNEL)
     shifted = torch.empty((3, w + 16), dtype=dtype)[:, 1:w + 1]
     if shifted.data_ptr() % 16:
         with pytest.raises(ValueError, match="16-byte"):
-            row_args("z", shifted)
+            row_args("z", shifted, KERNEL)
     if w % (16 // es):
         with pytest.raises(ValueError, match="16-byte"):
-            row_args("dh", torch.empty((3, w), dtype=dtype))
+            row_args("dh", torch.empty((3, w), dtype=dtype), KERNEL)
 
 
 # ---------------------------------------------------------------------------

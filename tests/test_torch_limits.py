@@ -7,7 +7,7 @@ beyond, with its costs in shared memory while they fit and in device
 memory otherwise (`lockstep_lsa.k4_plan`); a chain stage wider than one
 cluster of 8 x 256 columns runs split, its GEMM writing the f32 product
 and the LayerNorm row kernels of `ops.layernorm_rows` doing the rest
-(`chain_grad.stage_mode`).  Those kernels run only on the card
+(`hopper_gemm.stage_mode`).  Those kernels run only on the card
 (`python3 chip_smoke.py`, phase "limits"); here, on the CPU:
 
 - K4's plain version (its oracle on the card) is array_equal to the JAX
@@ -40,19 +40,20 @@ from wireframe_tpu.ops.pallas_lsa import (
     solve_lsa_rows_pallas,
 )
 from wireframe_tpu_torch.ops import layernorm_rows
+from wireframe_tpu_torch.ops._launch import SMEM_LIMIT, launch_counts, pad8
 from wireframe_tpu_torch.ops.chain_grad import (
-    BN,
-    MAX_CLUSTER,
     _stage_stats,
     chain_backward_plain,
     chain_forward_plain,
-    chain_plan,
-    pad8,
-    stage_mode,
 )
 from wireframe_tpu_torch.ops.fused_encoder import k1_plan
+from wireframe_tpu_torch.ops.hopper_gemm import (
+    BN,
+    MAX_CLUSTER,
+    chain_plan,
+    stage_mode,
+)
 from wireframe_tpu_torch.ops.lockstep_lsa import (
-    SMEM_LIMIT,
     k4_plan,
     solve_lsa_rows,
     solve_lsa_rows_lockstep_plain,
@@ -292,19 +293,19 @@ def test_row_kernels_plain_versions_are_the_chain_s_stage(dtype, remat):
                                atol=1e-5)
 
 
-def test_row_kernel_wrappers_take_plain_on_cpu_and_count_nothing():
+def test_row_kernel_wrappers_take_plain_on_cpu_and_count_nothing(
+        monkeypatch):
+    from test_torch_chain_grad import no_kernel_library
+
     z = torch.randn(5, 2400)
     g, be = torch.ones(2400), torch.zeros(2400)
-    counts = [(f.launches, f.launches_f32) for f in (
-        layernorm_rows.layernorm_relu_forward,
-        layernorm_rows.layernorm_relu_backward)]
+    no_kernel_library(monkeypatch)
+    counts = launch_counts()
     layernorm_rows.layernorm_relu_forward(z, g, be, h_dtype=torch.float32)
     layernorm_rows.layernorm_relu_backward(z, z, g, be,
                                            dz_dtype=torch.float32,
                                            rebuild_h=True)
-    assert counts == [(f.launches, f.launches_f32) for f in (
-        layernorm_rows.layernorm_relu_forward,
-        layernorm_rows.layernorm_relu_backward)]
+    assert launch_counts() == counts
 
 
 def test_first_step_at_136_vertices_matches_make_train_step():

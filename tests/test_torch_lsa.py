@@ -21,6 +21,7 @@ from wireframe_tpu.ops.pallas_lsa import (
     solve_lsa_rows_lockstep,
     solve_lsa_rows_pallas,
 )
+from wireframe_tpu_torch.ops._launch import launch_counts
 from wireframe_tpu_torch.ops.lockstep_lsa import (
     max_safe_cost,
     solve_lsa_rows,
@@ -114,11 +115,14 @@ def test_device_matcher_equals_jax_xla_loop(kind, shape):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_wrapper_takes_plain_on_cpu_without_counting():
+def test_wrapper_takes_plain_on_cpu_without_counting(monkeypatch):
+    from test_torch_chain_grad import no_kernel_library
+
     cost, nr = _costs("random", (3, 6, 8), 5)
-    before = solve_lsa_rows.launches
+    no_kernel_library(monkeypatch)
+    before = launch_counts()
     got = solve_lsa_rows(torch.from_numpy(cost), torch.from_numpy(nr))
-    assert solve_lsa_rows.launches == before
+    assert launch_counts() == before
     assert got.dtype == torch.int32 and got.shape == (3, 6)
     with pytest.raises(ValueError, match="rows <= cols"):
         solve_lsa_rows(torch.zeros(1, 5, 4), torch.ones(1, dtype=torch.int32))

@@ -10,8 +10,9 @@ chip_smoke.py`, phase "pair MLP").  Here:
 - `pair_mlp_plan`: shared memory within the 227 KB a block may have,
   ragged last tiles, more tiles than SMs at the bulk batch;
 - `pack_weights`' vector against the kernel's layout;
-- the dispatch rule (`engages`): autograd on, f32, dropout (train) or a
-  CPU tensor each take the eager path, shown with the op stubbed to raise;
+- the dispatch rule (`engages`): autograd on, f32, dropout (train), a
+  CPU tensor or a width or slot count outside the kernel's plan each take
+  the eager path, shown with the op stubbed to raise;
 - a non-CPU call on a host without the library raises instead of falling
   back to the plain version.
 """
@@ -32,11 +33,11 @@ from wireframe_tpu_torch.ops.pairs import triu_pairs_on
 F, HEADS, SLOT = 64, 4, 8
 
 
-def _head(dtype, v, seed=0, rate=0.1):
-    """A port EdgePredictor with every bias and LayerNorm term off the
-    init's zeros and ones, and its inputs."""
+def _head(dtype, v, seed=0, rate=0.1, f=F):
+    """A port EdgePredictor of width f with every bias and LayerNorm term
+    off the init's zeros and ones, and its inputs."""
     torch.manual_seed(seed)
-    m = EdgePredictor(hidden_dim=F, num_heads=HEADS, slot_feature_dim=SLOT,
+    m = EdgePredictor(hidden_dim=f, num_heads=HEADS, slot_feature_dim=SLOT,
                       dtype=dtype, attn_dropout=rate, mlp_dropout=rate)
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
@@ -210,33 +211,45 @@ def _stub(*args, **kwargs):
     raise _Reached
 
 
-# (device, dtype, autograd on, train) -> the kernel?
-RULE = [("cuda", torch.bfloat16, False, False, True),
-        ("cuda", torch.bfloat16, True, False, False),
-        ("cuda", torch.float32, False, False, False),
-        ("cuda", torch.bfloat16, False, True, False),
-        ("cpu", torch.bfloat16, False, False, False),
-        ("cpu", torch.float32, True, True, False)]
+# (device, dtype, autograd on, train, F, V) -> the kernel?
+RULE = [("cuda", torch.bfloat16, False, False, 512, 40, True),
+        ("cuda", torch.bfloat16, False, False, 256, 2, True),
+        ("cuda", torch.bfloat16, True, False, 512, 40, False),
+        ("cuda", torch.float32, False, False, 512, 40, False),
+        ("cuda", torch.bfloat16, False, True, 512, 40, False),
+        ("cuda", torch.bfloat16, False, False, 1024, 40, False),
+        ("cuda", torch.bfloat16, False, False, 128, 40, False),
+        ("cuda", torch.bfloat16, False, False, 512, 1, False),
+        ("cpu", torch.bfloat16, False, False, 512, 40, False),
+        ("cpu", torch.float32, True, True, 512, 40, False)]
 
 
 @pytest.mark.parametrize("case", RULE)
 def test_dispatch_rule(case):
-    device, dtype, grad, train, kernel = case
+    device, dtype, grad, train, f, v, kernel = case
     with torch.set_grad_enabled(grad):
-        assert pair_mlp.engages(torch.device(device), dtype, train) is kernel
+        assert pair_mlp.engages(torch.device(device), dtype, train, f,
+                                v) is kernel
 
 
 @pytest.mark.parametrize("mode", ["autograd on", "f32", "train", "cpu",
-                                  "kernel"])
+                                  "width", "kernel"])
 def test_model_takes_eager_path(mode, monkeypatch):
     """With the op stubbed to raise, every path that must stay eager runs
     and matches the plain version; where the rule says kernel (forced for
-    a CPU tensor here), the stub is reached."""
+    a CPU tensor here), the stub is reached.  "width": the rule itself,
+    shown a CUDA device, at edge_hidden_dim 128, which the kernel is not
+    built for."""
     dtype = torch.float32 if mode == "f32" else torch.bfloat16
-    m, verts, feats, live = _head(dtype, 8, rate=0.0)
+    m, verts, feats, live = _head(dtype, 8, rate=0.0,
+                                  f=128 if mode == "width" else F)
     monkeypatch.setattr(pair_mlp, "pair_mlp", _stub)
+    if mode == "width":
+        rule = pair_mlp.engages
+        monkeypatch.setattr(pair_mlp, "engages", lambda d, *a: rule(
+            torch.device("cuda"), *a))
     if mode == "kernel":
-        monkeypatch.setattr(pair_mlp, "engages", lambda d, dt, tr: True)
+        monkeypatch.setattr(pair_mlp, "engages", lambda *a: True)
         with torch.no_grad(), pytest.raises(_Reached):
             m(verts, live, slot_features=feats)
         return

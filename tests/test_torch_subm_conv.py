@@ -9,9 +9,10 @@ against the plain version).  Here:
   the published configuration runs, in float32 and bfloat16;
 - rows with no neighbour (their map rows all M, the zero row), dummy
   rows among them, give the bias;
-- the dispatch rule (`engages`): a CPU tensor, autograd on or float32 take
-  the plain version, shown on the backbone with the op stubbed to raise;
-  the backbone's step counters stay at zero there;
+- the dispatch rule (`engages`): a CPU tensor, autograd on, float32 or a
+  (CIN, COUT, K) outside the kernel's plan take the plain version, shown
+  on the backbone with the op stubbed to raise; the backbone's step
+  counters stay at zero there;
 - the wrapper refuses widths, offsets and dtypes the kernel does not take,
   with no card;
 - the launch plan at the cell's shapes;
@@ -105,18 +106,23 @@ def test_rows_with_no_neighbour_give_the_bias(bias, dtype):
     assert bool((got[rest].float().abs().sum(1) > 0).all())
 
 
-# (device, dtype, autograd on) -> the kernel?
-RULE = [("cuda", torch.bfloat16, False, True),
-        ("cuda", torch.bfloat16, True, False),
-        ("cuda", torch.float32, False, False),
-        ("cpu", torch.bfloat16, False, False),
-        ("cpu", torch.float32, True, False)]
+# (device, dtype, autograd on, CIN, COUT, K) -> the kernel?
+RULE = [("cuda", torch.bfloat16, False, 32, 32, 27, True),
+        ("cuda", torch.bfloat16, False, 8, 32, 125, True),
+        ("cuda", torch.bfloat16, True, 32, 32, 27, False),
+        ("cuda", torch.float32, False, 32, 32, 27, False),
+        ("cuda", torch.bfloat16, False, 16, 16, 27, False),
+        ("cuda", torch.bfloat16, False, 64, 128, 27, False),
+        ("cuda", torch.bfloat16, False, 32, 32, 343, False),
+        ("cpu", torch.bfloat16, False, 32, 32, 27, False),
+        ("cpu", torch.float32, True, 32, 32, 27, False)]
 
 
 @pytest.mark.parametrize("case", RULE)
 def test_dispatch_rule(case):
-    device, dtype, grad, kernel = case
-    assert subm_conv.engages(torch.device(device), dtype, grad) is kernel
+    device, dtype, grad, cin, cout, k, kernel = case
+    assert subm_conv.engages(torch.device(device), dtype, grad, cin, cout,
+                             k) is kernel
 
 
 class _Reached(Exception):
@@ -127,11 +133,15 @@ def _stub(*args, **kwargs):
     raise _Reached
 
 
-def _backbone(dtype):
+def _backbone(dtype, width=None):
+    """A small backbone; with `width`, every stage that wide."""
     torch.manual_seed(0)
-    return PTv3Backbone(in_channels=8, enc_channels=(8, 16, 16, 32, 32),
+    enc, dec = (8, 16, 16, 32, 32), (16, 16, 16, 32)
+    if width:
+        enc, dec = (width,) * 5, (width,) * 4
+    return PTv3Backbone(in_channels=8, enc_channels=enc,
                         enc_num_head=(1, 2, 2, 4, 4),
-                        dec_channels=(16, 16, 16, 32),
+                        dec_channels=dec,
                         dec_num_head=(2, 2, 2, 4), patch_size=16,
                         grid_size=0.08, dtype=dtype).eval()
 
@@ -144,16 +154,23 @@ def _clouds():
     return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("mode", ["autograd on", "f32", "cpu", "kernel"])
+@pytest.mark.parametrize("mode", ["autograd on", "f32", "cpu", "width",
+                                  "kernel"])
 def test_backbone_takes_plain_path(mode, monkeypatch):
     """With the op stubbed to raise, every path that must stay plain runs,
     and the kernel's step counters stay at zero; where the rule says kernel
-    (forced for a CPU tensor here), the stub is reached."""
+    (forced for a CPU tensor here), the stub is reached.  "width": the rule
+    itself, shown a CUDA device, on a backbone whose every conv has a
+    (CIN, COUT) outside `SHAPES`."""
     dtype = torch.float32 if mode == "f32" else torch.bfloat16
-    net = _backbone(dtype)
+    net = _backbone(dtype, 16 if mode == "width" else None)
     monkeypatch.setattr(subm_conv, "subm_conv", _stub)
+    if mode == "width":
+        rule = subm_conv.engages
+        monkeypatch.setattr(subm_conv, "engages", lambda d, *a: rule(
+            torch.device("cuda"), *a))
     if mode == "kernel":
-        monkeypatch.setattr(subm_conv, "engages", lambda d, dt, g: True)
+        monkeypatch.setattr(subm_conv, "engages", lambda *a: True)
         with torch.no_grad(), pytest.raises(_Reached):
             net(_clouds())
         return

@@ -7,7 +7,7 @@ bits, round to nearest, ties away: `cvt.rna.tf32.f32`) and lo = x - hi
 (exact in f32) rounded to TF32 in turn, and a product sums lo(A) hi(B) +
 hi(A) lo(B) + hi(A) hi(B) in f32, dropping lo(A) lo(B) (~2^-22 relative).
 Here the same split and the same three products replace the plain
-versions' f32 matmul (`_dot`), and the chain's outputs and every
+versions' f32 matmul (`dot`), and the chain's outputs and every
 gradient, on seeded numpy inputs with the chain test's padded rows and
 ties, are held against the JAX package's `make_differentiable_chain(
 compute_dtype=float32, interpret=True)`: outputs within the JAX test's
@@ -125,7 +125,7 @@ def test_emulated_chain_matches_jax_f32(monkeypatch, flavour, backward):
     x = _cloud(2)
     want_o, want_g = _run_jax(x, sp, fw, fb, kv_pool, emit, "float32",
                               backward)
-    monkeypatch.setattr(chain_grad, "_dot", dot_3xtf32)
+    monkeypatch.setattr(chain_grad, "dot", dot_3xtf32)
     got_o, got_g = _run_torch(x, sp, fw, fb, kv_pool, emit, "float32",
                               backward)
     assert len(got_o) == len(want_o) and len(got_g) == len(want_g)
@@ -144,7 +144,7 @@ def test_one_tf32_pass_misses_the_f32_bound(monkeypatch, backward):
     x = _cloud(2)
     want_o, want_g = _run_jax(x, sp, fw, fb, kv_pool, emit, "float32",
                               backward)
-    monkeypatch.setattr(chain_grad, "_dot", dot_1xtf32)
+    monkeypatch.setattr(chain_grad, "dot", dot_1xtf32)
     got_o, got_g = _run_torch(x, sp, fw, fb, kv_pool, emit, "float32",
                               backward)
     assert not _allclose(got_o, want_o, BOUND)
@@ -170,7 +170,7 @@ def _k1(monkeypatch, dot, kv_pool):
                   jnp.asarray(fw), jnp.asarray(fb), tile=32,
                   compute_dtype=jnp.float32, kv_pool=kv_pool,
                   interpret=True)
-    monkeypatch.setattr(fused_encoder, "_dot", dot)
+    monkeypatch.setattr(fused_encoder, "dot", dot)
     got = fused_encoder.fused_point_encoder(
         torch.from_numpy(x), [tuple(map(torch.from_numpy, s)) for s in sp],
         torch.from_numpy(fw), torch.from_numpy(fb), tile=32,

@@ -812,9 +812,6 @@ int plan_args(Args& a, int bwd, int zsize, int M, int N, int threads,
     return 0;
 }
 
-// Kernels this library has launched (ln_rows_launched).
-long long launched = 0;
-
 template <typename K>
 int prepare(K kernel) {
     return (int)cudaFuncSetAttribute(
@@ -829,7 +826,6 @@ int fwd(Args a, int threads, int smem, cudaStream_t stream) {
     ln_fwd_rows_kernel<T><<<(a.M + a.rows - 1) / a.rows, threads, smem,
                             stream>>>(a);
     const cudaError_t e = cudaGetLastError();
-    launched += e == cudaSuccess;
     return (int)e;
 }
 
@@ -862,7 +858,6 @@ int bwd(Args a, int threads, int cluster, int smem, cudaStream_t stream) {
         bwd_config<T, ZT>(a, threads, cluster, smem, stream, attr);
     cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
     if (e == cudaSuccess) e = cudaGetLastError();
-    launched += e == cudaSuccess;
     return (int)e;
 }
 
@@ -910,9 +905,6 @@ int ln_rows_const(int which) {
         default: return -1;
     }
 }
-
-// The kernels launched so far by every entry point of this library.
-long long ln_rows_launched() { return launched; }
 
 // Dynamic shared memory of a launch (bwd 0 / 1, z element bytes, block
 // threads, ring slots, rows a CTA, row width).

@@ -51,7 +51,7 @@
 // warpgroup that builds the next A tile is where more would come from.
 //
 // Host side: plain C interface (ops/pair_mlp.py loads it with ctypes);
-// F is 256 or 512; every call counts its launch (pair_mlp_launched).
+// F is 256 or 512.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -554,9 +554,6 @@ bool aligned16(const void* q) {
     return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
 }
 
-// Kernels this library has launched (pair_mlp_launched).
-long long launched = 0;
-
 template <int F>
 int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
     auto kernel = pair_mlp_kernel<F>;
@@ -569,7 +566,6 @@ int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
     if (smem != Layout<F>::TOTAL) return (int)cudaErrorInvalidValue;
     kernel<<<grid, THREADS, smem, stream>>>(p);
     const cudaError_t e = cudaGetLastError();
-    launched += e == cudaSuccess;
     return (int)e;
 }
 
@@ -600,8 +596,6 @@ int pair_mlp_smem(int F) {
         default: return -1;
     }
 }
-
-long long pair_mlp_launched() { return launched; }
 
 // The pair MLP over every pair of every cloud: UI, UJ (B, V, F) bf16 and X
 // (B, V, C) bf16 contiguous, SLOT (B, V) bytes 0 / 1, W3 (F/2, F) and W4

@@ -48,8 +48,7 @@
 //
 // Host side: plain C interface (ops/subm_conv.py loads it with ctypes);
 // (CIN, COUT) in {(8, 32), (32, 32), (64, 64), (128, 128), (256, 256),
-// (512, 512)}, K <= 125; every call counts its launch
-// (subm_conv_launched).
+// (512, 512)}, K <= 125.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,8 +64,6 @@ constexpr int STAGES = 3;         // chunks in the ring
 constexpr int PAD = 8;            // bf16 elements of padding a shared row
 constexpr int MAX_K = 125;        // offsets: size 5
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
-
-long long launched = 0;
 
 struct Params {
     const bf16* x;                // (M, CIN)
@@ -373,7 +370,6 @@ int launch(Params p, cudaStream_t stream) {
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     kernel<<<(unsigned)blocks, THREADS, T::smem(p.K), stream>>>(p);
     const cudaError_t e = cudaGetLastError();
-    launched += e == cudaSuccess;
     return (int)e;
 }
 
@@ -403,8 +399,6 @@ int subm_conv_tile(int cin, int cout, int which) {
 #undef SUBM_TILE
     return -1;
 }
-
-long long subm_conv_launched() { return launched; }
 
 // Y (M, COUT) = the submanifold convolution of X (M, CIN) bf16 over
 // NBR (M, K) int64 (M: no voxel) with W (COUT, K * CIN) bf16 and BIAS

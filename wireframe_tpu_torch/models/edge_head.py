@@ -15,8 +15,9 @@ the first two pair layers.
 
 Everything after PairDense's slot-row products runs once per pair row
 (`ops/pair_mlp.py`): where nothing needs its intermediates (CUDA tensors,
-autograd off, bf16, no dropout; `pair_mlp.engages`) as one kernel, else
-as the eager ops of `pair_mlp_plain`.
+autograd off, bf16, no dropout) and the kernel takes the width and slots
+(`pair_mlp.engages`) as one kernel, else as the eager ops of
+`pair_mlp_plain`.
 """
 
 from __future__ import annotations
@@ -108,7 +109,8 @@ class EdgePredictor(nn.Module):
         x, u_i, u_j = self.slot_rows(vertices, attn_slot_mask, slot_features,
                                      train, generator)
         p = self.pair_params()
-        if pair_mlp.engages(x.device, self.dtype, train):
+        if pair_mlp.engages(x.device, self.dtype, train, u_i.shape[2],
+                            u_i.shape[1]):
             return pair_mlp.pair_mlp(u_i, u_j, x, slot_mask, p,
                                      dtype=self.dtype)
         return pair_mlp.pair_mlp_plain(u_i, u_j, x, slot_mask, p,

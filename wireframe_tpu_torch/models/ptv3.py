@@ -166,8 +166,9 @@ class SubMConv(nn.Module):
     voxel sums W_o x[neighbour at offset o] over the size**3 offsets
     (`voxel.neighbour_map`'s order).  The weight is (out, size**3 * in),
     the offsets' input channels side by side.  `ops.subm_conv`'s kernel
-    where `subm_conv.engages` (inference in bf16 on the card), else its
-    plain gather and GEMM per chunk of rows."""
+    where `subm_conv.engages` (inference in bf16 on the card at a shape
+    the kernel takes), else its plain gather and GEMM per chunk of
+    rows."""
 
     def __init__(self, cin: int, cout: int, size: int, bias: bool):
         super().__init__()
@@ -178,7 +179,8 @@ class SubMConv(nn.Module):
 
     def forward(self, x: torch.Tensor, nbr: torch.Tensor, dtype,
                 counters: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if subm_conv.engages(x.device, dtype, torch.is_grad_enabled()):
+        if subm_conv.engages(x.device, dtype, torch.is_grad_enabled(),
+                             x.shape[1], self.weight.shape[0], nbr.shape[1]):
             return subm_conv.subm_conv(x, nbr, self.weight, self.bias,
                                        dtype=dtype, counters=counters)
         return subm_conv.subm_conv_plain(x, nbr, self.weight, self.bias,

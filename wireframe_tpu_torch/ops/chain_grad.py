@@ -36,15 +36,15 @@ Each kernel has its plain PyTorch version here (`chain_forward_plain`,
 is the remat backward); the wrappers `chain_forward` / `chain_backward`
 (K2 / K3) and `remat_chain_forward` / `remat_chain_backward` (K5) take it
 for CPU tensors and launch the CUDA kernels (`csrc/chain_grad.cu`) for
-CUDA tensors, each counting its kernel launches: `.launches` in bf16,
-`.launches_f32` in f32.  The kernels compute in the JAX kernels' two
-dtypes (`kernel_dtype`): bf16 operands on the wgmma main loop, or f32
-operands, h, stash and dz on a 3xTF32 wgmma main loop (each operand split
-into TF32 hi + lo, hi*hi + hi*lo + lo*hi summed in f32: f32-accurate;
-`chain_plan` says which).  A stage of width <= 2048 runs its LayerNorm in
-its GEMM's epilogue across a cluster of ceil(W / 256) CTAs; a wider stage
-runs split (the GEMM writes its f32 product, `ops.layernorm_rows` does the
-LayerNorm), so every width the JAX kernels take runs on the card.
+CUDA tensors (`ops._launch`), each call counting "K2", "K3", "K5 fwd" or
+"K5 bwd" (+ " f32").  The kernels compute in the JAX kernels' two dtypes
+(`hopper_gemm.kernel_dtype`): bf16 operands on the wgmma main loop, or
+f32 operands, h, stash and dz on a 3xTF32 wgmma main loop (each operand
+split into TF32 hi + lo, hi*hi + hi*lo + lo*hi summed in f32:
+f32-accurate; `hopper_gemm.chain_plan` says which).  A stage of width <=
+2048 runs its LayerNorm in its GEMM's epilogue across a cluster of
+ceil(W / 256) CTAs; a wider stage runs split (the GEMM writes its f32
+product, `ops.layernorm_rows` the LayerNorm): every width runs.
 Products of `compute_dtype` operands with f32 accumulation are written as
 f32 products of rounded operands (exact products, f32 sums), as in
 `ops.fused_encoder`.
@@ -52,12 +52,36 @@ f32 products of rounded operands (exact products, f32 sums), as in
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from wireframe_tpu_torch.ops.fused_encoder import _aligned, _dot, _ln
+from wireframe_tpu_torch.ops._launch import (
+    SMS,
+    check,
+    count,
+    entry,
+    library,
+    on_card,
+    pad8,
+    ptr,
+    row_buffer,
+    tma_rows,
+)
+from wireframe_tpu_torch.ops.fused_encoder import dot, ln
+from wireframe_tpu_torch.ops.hopper_gemm import (
+    BK,
+    BK_F32,
+    BM,
+    BN,
+    MAX_CLUSTER,
+    chain_plan,
+    gemm_operands,
+    kernel_dtype,
+    smem_bytes,
+    split_k,
+    stage_mode,
+)
 from wireframe_tpu_torch.ops.layernorm_rows import (
     layernorm_relu_backward,
     layernorm_relu_forward,
@@ -119,10 +143,10 @@ def chain_forward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
     h = x.float().to(cdt)
     zs = []
     for w, b, g, be in stage_params:
-        z = _dot(h, w, cdt) + b.float()
+        z = dot(h, w, cdt) + b.float()
         zs.append(z.to(cdt))
-        h = torch.clamp_min(_ln(z, g.float(), be.float()), 0.0).to(cdt)
-    out = _dot(h, final_w, cdt) + final_b.float()
+        h = torch.clamp_min(ln(z, g.float(), be.float()), 0.0).to(cdt)
+    out = dot(h, final_w, cdt) + final_b.float()
     result = {"zs": tuple(zs)} if stash else {}
     if emit_features:
         result["features"] = out
@@ -159,7 +183,7 @@ def _recompute_stages(x, stage_params, cdt):
     product in f32 and its statistics come from that f32 z."""
     hs, xhats, rstds = [x.to(cdt)], [], []
     for w, b, g, be in stage_params:
-        z = _dot(hs[-1], w, cdt) + b.float()
+        z = dot(hs[-1], w, cdt) + b.float()
         h, xhat, rstd = _stage_stats(z, g, be, cdt)
         hs.append(h)
         xhats.append(xhat)
@@ -210,8 +234,8 @@ def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
         hs, xhats, rstds = _stages_from_z(x.reshape(m, d),
                                           [z.reshape(m, -1) for z in zs],
                                           stage_params, cdt)
-    dfw = _dot(hs[-1].t(), g_cdt, cdt)
-    dh = _dot(g_cdt, final_w.t(), cdt)
+    dfw = dot(hs[-1].t(), g_cdt, cdt)
+    dh = dot(g_cdt, final_w.t(), cdt)
     dstages: List[Tuple] = [None] * len(stage_params)
     for k in reversed(range(len(stage_params))):
         w, _b, gm, be = stage_params[k]
@@ -220,10 +244,10 @@ def chain_backward_plain(x: torch.Tensor, stage_params: Sequence[Tuple],
         dbeta = torch.sum(dln, dim=0)
         db = torch.sum(dz, dim=0)
         dz_cdt = dz.to(cdt)
-        dw = _dot(hs[k].t(), dz_cdt, cdt)
+        dw = dot(hs[k].t(), dz_cdt, cdt)
         dstages[k] = (dw, db, dgamma, dbeta)
         if k > 0 or need_dx:
-            dh = _dot(dz_cdt, w.t(), cdt)
+            dh = dot(dz_cdt, w.t(), cdt)
     dx = dh.reshape(b, n, d) if need_dx else None
     return dx, tuple(dstages), dfw, dfb
 
@@ -258,14 +282,14 @@ def _remat_backward_chunked(x, stage_params, final_w, g_cdt, dfb, plan, cdt,
 
     def add_slices(acc, h, dz, slices):
         for s0, s1 in slices:
-            acc = acc + _dot(h[s0:s1].t(), dz[s0:s1], cdt)
+            acc = acc + dot(h[s0:s1].t(), dz[s0:s1], cdt)
         return acc
 
     for (r0, r1), slices in zip(plan["chunks"], plan["dw_slices"]):
         hs, xhats, rstds = _recompute_stages(x[r0:r1], stage_params, cdt)
         dz_above = g_cdt[r0:r1]
         dws[-1] = add_slices(dws[-1], hs[-1], dz_above, slices[-1])
-        dh = _dot(dz_above, final_w.t(), cdt)
+        dh = dot(dz_above, final_w.t(), cdt)
         for k in reversed(range(n_stages)):
             w, _b, gm, be = stage_params[k]
             dz, dlnx, dln = _stage_grads(dh, xhats[k], rstds[k], gm, be)
@@ -275,7 +299,7 @@ def _remat_backward_chunked(x, stage_params, final_w, g_cdt, dfb, plan, cdt,
             dz_cdt = dz.to(cdt)
             dws[k] = add_slices(dws[k], hs[k], dz_cdt, slices[k])
             if k > 0 or need_dx:
-                dh = _dot(dz_cdt, w.t(), cdt)
+                dh = dot(dz_cdt, w.t(), cdt)
         if need_dx:
             dx[r0:r1] = dh
     dstages = tuple((dws[k], sums[k][2 * w:], sums[k][:w], sums[k][w:2 * w])
@@ -284,151 +308,11 @@ def _remat_backward_chunked(x, stage_params, final_w, g_cdt, dfb, plan, cdt,
 
 
 # ---------------------------------------------------------------------------
-# The launch plan (pure: shapes in, tiles / strides / slices out)
+# K5's backward by row chunks (pure: shapes in, chunks / slices out; the
+# GEMM's plan is `hopper_gemm.chain_plan`)
 # ---------------------------------------------------------------------------
 
-BM, BN, BK = 128, 256, 64   # the wgmma tile of csrc/hopper_gemm.cuh
-BK_F32 = 32                 # the 3xTF32 main loop's depth a stage (f32)
-STAGES = 4                  # ring stages (bf16)
-STAGES_F32 = 3              # ring stages (f32), beside two split tiles
-KS = 16                     # k of an f32 split tile: 16 hi + 16 lo a row
-F32_FLUSH_K = 2048          # f32: the longest sum the tensor cores keep
-MAX_CLUSTER = 8             # CTAs of a LayerNorm cluster (portable limit)
-_SPLIT_ROWS = 512           # least rows per K-slice of a split h^T dz
-_SMS = 132                  # H100 SXM streaming multiprocessors
 _SEED_ROWS = 32             # rows of a k3_seed block (its d final_b partials)
-SMEM_LIMIT = 232448         # shared memory a block may use on the H100
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-
-
-def kernel_dtype(compute_dtype) -> torch.dtype:
-    """The compute dtype of a K1, K2, K3 or K5 call on the card: bfloat16
-    or float32, the JAX kernels' two; anything else raises."""
-    if compute_dtype not in KERNEL_DTYPES:
-        raise ValueError("the encoder-chain kernels (K1, K2, K3, K5) compute "
-                         f"in bfloat16 or float32, not {compute_dtype}")
-    return compute_dtype
-
-
-# The 3xTF32 main loop, per form: how TMA brings each f32 operand into
-# the ring (as stored: "K-major" or "MN-major") and where it is split
-# into TF32 hi + lo.  A is split into registers (wgmma's register-A
-# form has no majorness); B, which wgmma reads only from shared memory
-# and only K-major in TF32, is split into a K-major hi | lo tile there,
-# transposed on the way when it arrives MN-major.  No operand is copied
-# in device memory.
-F32_SPLIT = {
-    "FWD": {"A": ("K-major", "registers"),
-            "B": ("MN-major", "shared, transposed")},
-    "DH": {"A": ("K-major", "registers"), "B": ("K-major", "shared")},
-    "DW": {"A": ("MN-major", "registers"),
-           "B": ("MN-major", "shared, transposed")},
-}
-
-
-def split_tile_bytes() -> int:
-    """Bytes of one f32 split tile: B's 256 rows of KS TF32 hi and KS lo
-    values, K-major, as the 3xTF32 main loop hands them to wgmma."""
-    return BN * 2 * KS * 4
-
-
-def smem_bytes() -> int:
-    """Dynamic shared memory of one GEMM launch, as csrc/hopper_gemm.cuh
-    reckons it: the largest of the bf16 ring, the epilogue's f32 tile and
-    bf16 z tile, and the f32 ring (STAGES_F32 stages of BK_F32, each a
-    bf16 stage's bytes) with its two split tiles; the cluster exchange
-    slots and the ring's mbarriers, and 1024 bytes to align the ring.
-    One size for every launch of either main loop."""
-    tile_ld = BN + 8
-    stage = (BM * BK + BK * BN) * 2
-    epilogue = BM * tile_ld * 4 + BM * tile_ld * 2
-    f32 = STAGES_F32 * stage + 2 * split_tile_bytes()
-    return 1024 + max(STAGES * stage, epilogue, f32) + 4 * BM * 4 \
-        + 2 * STAGES * 8
-
-
-def pad8(n: int) -> int:
-    """Row stride, in elements, of a buffer TMA reads: 16-byte rows for
-    bf16 (8 elements) and f32 alike."""
-    return -(-n // 8) * 8
-
-
-def ln_cluster(width: int) -> int:
-    """CTAs of one fused LayerNorm stage's cluster: ceil(width / BN), for
-    a stage that runs in cluster mode (`stage_mode`)."""
-    cs = -(-width // BN)
-    if not 1 <= cs <= MAX_CLUSTER:
-        raise ValueError(f"a chain stage of width {width} needs {cs} CTAs "
-                         f"of {BN} columns; a cluster holds 1 to "
-                         f"{MAX_CLUSTER}")
-    return cs
-
-
-def stage_mode(width: int):
-    """How a stage of `width` columns runs its LayerNorm on the card:
-    ("cluster", ctas), fused into its GEMM's epilogue across a cluster of
-    ceil(width / 256) CTAs, up to 8 x 256 columns; "split" beyond (the
-    GEMM writes the f32 product and `ops.layernorm_rows` normalizes)."""
-    if width < 1:
-        raise ValueError(f"a chain stage needs a width >= 1, got {width}")
-    if width > MAX_CLUSTER * BN:
-        return "split"
-    return ("cluster", ln_cluster(width))
-
-
-def split_k(rows: int, i: int, h: int, sms: int = _SMS, bk: int = BK
-            ) -> List[Tuple[int, int]]:
-    """K-slices [start, stop) of dW (i, h) = h^T dz, summed over `rows`:
-    enough slices to fill the card once, each a multiple of bk rows (the
-    main loop's depth a stage; the last takes the rest), in order.  Their
-    partials are summed in this order."""
-    tiles = -(-i // BM) * -(-h // BN)
-    splits = max(1, min(sms // tiles, rows // _SPLIT_ROWS))
-    ksplit = -(-(-(-rows // splits)) // bk) * bk
-    return [(s, min(rows, s + ksplit)) for s in range(0, rows, ksplit)]
-
-
-def chain_plan(m: int, d: int, widths: Sequence[int], out: int,
-               compute_dtype=torch.bfloat16) -> Dict:
-    """What one chain call launches, from its shapes alone: the row
-    tiles, the padded row strides (elements) of x, each stage's buffers
-    and the projection cotangent, each stage's mode (`stage_mode`) and
-    cluster (None for a split stage), the K-slices of
-    every dW product (x^T dz0, h_k^T dz_k+1, ..., h_last^T g); and for the
-    compute dtype the main loop ("wgmma" for bf16, "3xtf32" for f32: wgmma
-    on TF32 hi / lo parts), its tile (rows, columns, depth of a stage),
-    the ring's stages, the bytes of a ring stage, of the f32 split tiles
-    and of a launch's shared memory, where each operand of each form
-    (FWD z = h W, DH dh = dz W^T, DW dW = h^T dz) is read and, in f32,
-    split ("split"), and the dtype of each buffer: x, h, the stash, the
-    cotangents dz and the seed in the compute dtype, K5's recomputed z in
-    f32."""
-    cdt = kernel_dtype(compute_dtype)
-    f32 = cdt == torch.float32
-    bk = BK_F32 if f32 else BK
-    esize = 4 if f32 else 2
-    dims = [d, *widths, out]
-    if out < 1:
-        raise ValueError(f"the chain's output width must be >= 1, got {out}")
-    modes = [stage_mode(w) for w in widths]
-    return {"row_tiles": -(-m // BM),
-            "x_ld": pad8(d),
-            "stage_ld": [pad8(w) for w in widths],
-            "out_ld": pad8(out),
-            "modes": modes,
-            "clusters": [None if mode == "split" else mode[1]
-                         for mode in modes],
-            "dw_slices": [split_k(m, i, o, bk=bk)
-                          for i, o in zip(dims[:-1], dims[1:])],
-            "main_loop": "3xtf32" if f32 else "wgmma",
-            "tile": (BM, BN, bk),
-            "stages": STAGES_F32 if f32 else STAGES,
-            "stage_bytes": (BM * bk + bk * BN) * esize,
-            "split_bytes": 2 * split_tile_bytes() if f32 else 0,
-            "smem_bytes": smem_bytes(),
-            "split": F32_SPLIT if f32 else None,
-            "dtypes": {"x": cdt, "h": cdt, "stash": cdt, "dz": cdt,
-                       "seed": cdt, "recomputed_z": torch.float32}}
 
 
 # K5's backward recomputes the chain's activations chunk by chunk of rows,
@@ -444,7 +328,7 @@ def chain_plan(m: int, d: int, widths: Sequence[int], out: int,
 # REMAT_MIN_ROWS rows, 132 row tiles of 128: every stage GEMM of a chunk
 # still has a row tile for each of the 132 SMs.
 REMAT_CHUNK_BYTES = 1 << 30
-REMAT_MIN_ROWS = _SMS * BM
+REMAT_MIN_ROWS = SMS * BM
 _LARGE = 1 << 20            # PyTorch's caching allocator: large blocks
 
 
@@ -561,83 +445,38 @@ def remat_plan(m: int, d: int, widths: Sequence[int], out: int,
 _FWD, _DH, _DW = 0, 1, 2    # operand forms of k23_gemm
 
 
-# The chain library's typed entry points: name -> argument types, each
-# with an `_f32` twin of the same arguments for the f32 compute dtype.
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_DTYPED = {"k23_prep_x": [_P, _I, _P, _I, _P, _I, _P],
-           "k23_gemm": [_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P],
-           "k2_gemm_ln": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                          _I, _I, _P],
-           "k3_gemm_ln_bwd": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _P,
-                              _I, _P, _I, _I, _I, _P],
-           "k3_seed": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P]}
+# The chain library's entry points: name -> argument types, each with an
+# `_f32` twin of the same arguments for the f32 compute dtype.
+_DTYPED = {"k23_prep_x": "PiPiPiP", "k23_gemm": "iPiPiPPiiiiiiP",
+           "k2_gemm_ln": "PiPiPPPPiPiiiiiP",
+           "k3_gemm_ln_bwd": "PiPiPiiPPPiPiPiiiP",
+           "k3_seed": "PPPPPPiPiiiP"}
+_SIGNATURES = {"k23_tile": "i", "k23_tile_f32": "i", "k23_smem_bytes": "",
+               "k23_max_fused_width": "", "k23_row_chunk": "",
+               "k2_window_pool": "PPPPPiiiP", "k3_colsum": "PPiqP",
+               "k3_colsum_acc": "PPiqP",
+               **_DTYPED, **{k + "_f32": v for k, v in _DTYPED.items()}}
 
 
-def _lib() -> ctypes.CDLL:
-    from wireframe_tpu_torch.ops import _build
-
-    lib = _build.load("chain_grad")
-    if not getattr(lib, "_k23_typed", False):
-        types = {"k23_tile": [_I], "k23_tile_f32": [_I],
-                 "k23_smem_bytes": [], "k23_max_fused_width": [],
-                 "k23_row_chunk": [],
-                 "k2_window_pool": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-                 "k3_colsum": [_P, _P, _I, ctypes.c_longlong, _P],
-                 "k3_colsum_acc": [_P, _P, _I, ctypes.c_longlong, _P]}
-        for name, args in _DTYPED.items():
-            types[name] = types[name + "_f32"] = args
-        for name, args in types.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, ctypes.c_int
-        tiles = {"bf16": tuple(lib.k23_tile(k) for k in range(3)),
-                 "f32": tuple(lib.k23_tile_f32(k) for k in range(3))}
-        want = {"bf16": (BM, BN, BK), "f32": (BM, BN, BK_F32)}
-        if (tiles != want
-                or lib.k23_max_fused_width() != MAX_CLUSTER * BN
-                or lib.k23_smem_bytes() != smem_bytes()
-                or lib.k23_row_chunk() != _SEED_ROWS):
-            raise RuntimeError(
-                f"csrc/hopper_gemm.cuh's tiles {tiles}, widest fused stage "
-                f"{lib.k23_max_fused_width()}, {lib.k23_smem_bytes()} "
-                f"bytes of shared memory and k3_seed's "
-                f"{lib.k23_row_chunk()} rows a block do not match the "
-                f"plan's {want}, {MAX_CLUSTER * BN} (wider stages run "
-                f"split), {smem_bytes()} and {_SEED_ROWS}")
-        lib._k23_typed = True
-    return lib
+def _check_library(lib) -> None:
+    tiles = {"bf16": tuple(lib.k23_tile(k) for k in range(3)),
+             "f32": tuple(lib.k23_tile_f32(k) for k in range(3))}
+    want = {"bf16": (BM, BN, BK), "f32": (BM, BN, BK_F32)}
+    if (tiles != want
+            or lib.k23_max_fused_width() != MAX_CLUSTER * BN
+            or lib.k23_smem_bytes() != smem_bytes()
+            or lib.k23_row_chunk() != _SEED_ROWS):
+        raise RuntimeError(
+            f"csrc/hopper_gemm.cuh's tiles {tiles}, widest fused stage "
+            f"{lib.k23_max_fused_width()}, {lib.k23_smem_bytes()} "
+            f"bytes of shared memory and k3_seed's "
+            f"{lib.k23_row_chunk()} rows a block do not match the "
+            f"plan's {want}, {MAX_CLUSTER * BN} (wider stages run "
+            f"split), {smem_bytes()} and {_SEED_ROWS}")
 
 
-def _fn(lib, name: str, cdt: torch.dtype):
-    """The entry point `name` of the library for compute dtype cdt."""
-    return getattr(lib, name + ("_f32" if cdt == torch.float32 else ""))
-
-
-def _check(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _rows(m: int, width: int, dtype, dev) -> torch.Tensor:
-    """An (m, width) buffer whose rows are pad8(width) apart."""
-    return torch.empty((m, pad8(width)), dtype=dtype, device=dev)[:, :width]
-
-
-def _tma_rows(t: torch.Tensor, dtype) -> torch.Tensor:
-    """t (rows, width) as `dtype` with rows a multiple of 8 elements apart
-    and a 16-byte aligned start, as TMA reads it; copies only when t is
-    not so already."""
-    t = t.to(dtype)
-    if (t.stride(-1) == 1 and t.stride(0) % 8 == 0
-            and t.stride(0) >= t.shape[1] and t.data_ptr() % 16 == 0):
-        return t
-    out = _rows(t.shape[0], t.shape[1], dtype, t.device)
-    out.copy_(t)
-    return out
+def _lib():
+    return library("chain_grad", _SIGNATURES, _check_library)
 
 
 def _prep_x(lib, x, plan, need_valid, stream, what):
@@ -646,11 +485,11 @@ def _prep_x(lib, x, plan, need_valid, stream, what):
     b, n, d = x.shape
     m = b * n
     cdt = plan["dtypes"]["x"]
-    xb = _rows(m, d, cdt, x.device)
+    xb = row_buffer(m, d, cdt, x.device)
     valid = torch.empty(m, dtype=torch.uint8,
                         device=x.device) if need_valid else None
-    _check(_fn(lib, "k23_prep_x", cdt)(_ptr(x), d, _ptr(xb), plan["x_ld"],
-                                       _ptr(valid), m, stream), what)
+    check(entry(lib, "k23_prep_x", cdt)(ptr(x), d, ptr(xb), plan["x_ld"],
+                                        ptr(valid), m, stream), what)
     return xb, valid
 
 
@@ -665,20 +504,20 @@ def _stage_forward(lib, a, k_in, layer, m, stream, *, z_dtype, what):
     width = w.shape[1]
     dev = a.device
     if stage_mode(width) == "split":
-        z32 = _rows(m, width, torch.float32, dev)
-        _check(_fn(lib, "k23_gemm", a.dtype)(
-            _FWD, _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb),
-            _ptr(z32), z32.stride(0), m, width, k_in, 1, k_in, stream),
+        z32 = row_buffer(m, width, torch.float32, dev)
+        check(entry(lib, "k23_gemm", a.dtype)(
+            _FWD, ptr(a), a.stride(0), ptr(w), w.stride(0), ptr(bb),
+            ptr(z32), z32.stride(0), m, width, k_in, 1, k_in, stream),
             what + " (split: GEMM)")
         stash = z_dtype if z_dtype not in (None, torch.float32) else None
         h, z = layernorm_relu_forward(z32, g, be, h_dtype=a.dtype,
                                       stash_dtype=stash)
         return h, z32 if z_dtype == torch.float32 else z
-    h = _rows(m, width, a.dtype, dev)
-    z = None if z_dtype is None else _rows(m, width, z_dtype, dev)
-    _check(_fn(lib, "k2_gemm_ln", a.dtype)(
-        _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb), _ptr(g),
-        _ptr(be), _ptr(h), h.stride(0), _ptr(z),
+    h = row_buffer(m, width, a.dtype, dev)
+    z = None if z_dtype is None else row_buffer(m, width, z_dtype, dev)
+    check(entry(lib, "k2_gemm_ln", a.dtype)(
+        ptr(a), a.stride(0), ptr(w), w.stride(0), ptr(bb), ptr(g),
+        ptr(be), ptr(h), h.stride(0), ptr(z),
         0 if z is None else z.stride(0), int(z_dtype == torch.float32), m,
         width, k_in, stream), what)
     return h, z
@@ -698,23 +537,24 @@ def _stage_backward(lib, dz_above, w_above, above_w, z, layer, m, plan,
     dev = dz_above.device
     cdt = plan["dtypes"]["dz"]
     if stage_mode(width) == "split":
-        dh = _rows(m, width, torch.float32, dev)
-        _check(_fn(lib, "k23_gemm", cdt)(
-            _DH, _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
-            w_above.stride(0), None, _ptr(dh), dh.stride(0), m, width,
+        dh = row_buffer(m, width, torch.float32, dev)
+        check(entry(lib, "k23_gemm", cdt)(
+            _DH, ptr(dz_above), dz_above.stride(0), ptr(w_above),
+            w_above.stride(0), None, ptr(dh), dh.stride(0), m, width,
             above_w, 1, above_w, stream), what + " (split: dh GEMM)")
         return layernorm_relu_backward(z, dh, gm, be, dz_dtype=cdt,
                                        rebuild_h=rebuild_h)
-    dz = _rows(m, width, cdt, dev)
-    hout = _rows(m, width, plan["dtypes"]["h"], dev) if rebuild_h else None
+    dz = row_buffer(m, width, cdt, dev)
+    hout = (row_buffer(m, width, plan["dtypes"]["h"], dev) if rebuild_h
+            else None)
     part = torch.empty((-(-m // BM), 3 * width), dtype=torch.float32,
                        device=dev)
-    _check(_fn(lib, "k3_gemm_ln_bwd", cdt)(
-        _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
-        w_above.stride(0), _ptr(z), z.stride(0),
-        int(z.dtype == torch.float32), _ptr(gm), _ptr(be), _ptr(dz),
-        dz.stride(0), _ptr(hout), 0 if hout is None else hout.stride(0),
-        _ptr(part), m, width, above_w, stream), what)
+    check(entry(lib, "k3_gemm_ln_bwd", cdt)(
+        ptr(dz_above), dz_above.stride(0), ptr(w_above),
+        w_above.stride(0), ptr(z), z.stride(0),
+        int(z.dtype == torch.float32), ptr(gm), ptr(be), ptr(dz),
+        dz.stride(0), ptr(hout), 0 if hout is None else hout.stride(0),
+        ptr(part), m, width, above_w, stream), what)
     return dz, hout, part
 
 
@@ -731,8 +571,8 @@ def _gemm_tn(lib, a, b, slices, rows, i, h, stream, what, acc=None
                       device=b.device) if acc is None else acc
     dst = out if splits == 1 and acc is None else torch.empty(
         (splits, i, h), dtype=torch.float32, device=b.device)
-    _check(_fn(lib, "k23_gemm", b.dtype)(
-        _DW, _ptr(a), a.stride(0), _ptr(b), b.stride(0), None, _ptr(dst), h,
+    check(entry(lib, "k23_gemm", b.dtype)(
+        _DW, ptr(a), a.stride(0), ptr(b), b.stride(0), None, ptr(dst), h,
         i, h, rows, splits, ksplit, stream), what)
     if dst is not out:
         _colsum(lib, dst, out, splits, i * h, acc is not None, stream,
@@ -743,35 +583,8 @@ def _gemm_tn(lib, a, b, slices, rows, i, h, stream, what, acc=None
 def _colsum(lib, part, out, nparts, ncols, acc, stream, what) -> None:
     """out = the nparts rows of part summed in order, or with acc added
     on to out in order (`k3_colsum_acc`)."""
-    _check((lib.k3_colsum_acc if acc else lib.k3_colsum)(
-        _ptr(part), _ptr(out), nparts, ncols, stream), what)
-
-
-def _cuda_params(stage_params, final_w, final_b, x, cdt):
-    """The parameters as the kernels read them: weights in the compute
-    dtype with TMA's rows, biases and LayerNorm terms in f32."""
-    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("the chain kernels take a contiguous (B, N, D) "
-                         f"float32 cloud, got {x.dtype} {tuple(x.shape)}")
-    prev = x.shape[-1]
-    layers = []
-    for w, b, g, be in stage_params:
-        if w.dim() != 2 or w.shape[0] != prev:
-            raise ValueError(f"stage weight {tuple(w.shape)} does not follow "
-                             f"width {prev}")
-        layers.append((_tma_rows(w, cdt),
-                       _aligned(b, torch.float32),
-                       _aligned(g, torch.float32), _aligned(be, torch.float32)))
-        prev = w.shape[1]
-    if final_w.dim() != 2 or final_w.shape[0] != prev:
-        raise ValueError(f"final weight {tuple(final_w.shape)} does not "
-                         f"follow width {prev}")
-    fw = _tma_rows(final_w, cdt)
-    fb = _aligned(final_b, torch.float32)
-    for t in (*[t for layer in layers for t in layer], fw, fb):
-        if t.device != x.device:
-            raise ValueError("chain parameters must lie on the cloud's device")
-    return layers, fw, fb
+    check((lib.k3_colsum_acc if acc else lib.k3_colsum)(
+        ptr(part), ptr(out), nparts, ncols, stream), what)
 
 
 def _check_pool(n, kv_pool):
@@ -783,7 +596,8 @@ def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
                   emit_features, compute_dtype, stash=True):
     """K2 (stash) or K5's forward (no stash)."""
     cdt = kernel_dtype(compute_dtype)
-    layers, fw, fb = _cuda_params(stage_params, final_w, final_b, x, cdt)
+    layers, fw, fb = gemm_operands(x, stage_params, final_w, final_b, cdt,
+                                   "the chain kernels")
     b, n, d = x.shape
     _check_pool(n, kv_pool)
     m = b * n
@@ -804,9 +618,9 @@ def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
             zs.append(z.unflatten(0, (b, n)))
         k_in = layer[0].shape[1]
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
-    _check(_fn(lib, "k23_gemm", cdt)(
-        _FWD, _ptr(a), a.stride(0), _ptr(fw), fw.stride(0), _ptr(fb),
-        _ptr(out), c, m, c, k_in, 1, k_in, stream), "chain projection GEMM")
+    check(entry(lib, "k23_gemm", cdt)(
+        _FWD, ptr(a), a.stride(0), ptr(fw), fw.stride(0), ptr(fb),
+        ptr(out), c, m, c, k_in, 1, k_in, stream), "chain projection GEMM")
     result = {"zs": tuple(zs)} if stash else {}
     if emit_features:
         result["features"] = out
@@ -815,11 +629,11 @@ def _forward_cuda(x, stage_params, final_w, final_b, *, kv_pool,
         pooled = torch.empty((b, nw, c), dtype=torch.float32, device=dev)
         idx = torch.empty((b, nw, c), dtype=torch.int32, device=dev)
         sums = torch.empty((b, nw, c), dtype=torch.float32, device=dev)
-        _check(lib.k2_window_pool(_ptr(out), _ptr(valid), _ptr(pooled),
-                                  _ptr(idx), _ptr(sums), b * nw, c, kv_pool,
-                                  stream), "chain window pool")
+        check(lib.k2_window_pool(ptr(out), ptr(valid), ptr(pooled),
+                                 ptr(idx), ptr(sums), b * nw, c, kv_pool,
+                                 stream), "chain window pool")
         result.update(pooled=pooled, idx=idx, sums=sums)
-    _count(chain_forward if stash else remat_chain_forward, cdt)
+    count("K2" if stash else "K5 fwd", cdt)
     return result
 
 
@@ -832,7 +646,8 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     its row tiles' LayerNorm / bias partials added on to the sums in tile
     order and its dW K-slices added on to each dW in slice order."""
     cdt = kernel_dtype(compute_dtype)
-    layers, fw, _fb = _cuda_params(stage_params, final_w, final_b, x, cdt)
+    layers, fw, _fb = gemm_operands(x, stage_params, final_w, final_b, cdt,
+                                    "the chain kernels")
     b, n, d = x.shape
     _check_pool(n, kv_pool)
     dev = x.device
@@ -849,7 +664,7 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
             if z.shape != (b, n, width) or z.device != dev:
                 raise ValueError(f"stash {tuple(z.shape)} does not match "
                                  f"({b}, {n}, {width})")
-        zs = [_tma_rows(z.reshape(m, width), plan["dtypes"]["stash"])
+        zs = [tma_rows(z.reshape(m, width), plan["dtypes"]["stash"])
               for z, width in zip(zs, widths)]
     cotangents = [("g", g, (b, n, c))]
     if kv_pool:
@@ -874,15 +689,15 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
     # Seed: the projection's cotangent, in the compute dtype, and
     # d final_b.
     nblk = -(-m // lib.k23_row_chunk())
-    gbf = _rows(m, c, plan["dtypes"]["seed"], dev)
+    gbf = row_buffer(m, c, plan["dtypes"]["seed"], dev)
     part = torch.empty((nblk, c), dtype=torch.float32, device=dev)
-    _check(_fn(lib, "k3_seed", cdt)(
-        _ptr(dpool) if kv_pool else None, _ptr(idx) if kv_pool else None,
-        _ptr(dsums) if kv_pool else None, _ptr(valid), _ptr(g), _ptr(gbf),
-        gbf.stride(0), _ptr(part), m, c, kv_pool, stream), f"{kern} seed")
+    check(entry(lib, "k3_seed", cdt)(
+        ptr(dpool) if kv_pool else None, ptr(idx) if kv_pool else None,
+        ptr(dsums) if kv_pool else None, ptr(valid), ptr(g), ptr(gbf),
+        gbf.stride(0), ptr(part), m, c, kv_pool, stream), f"{kern} seed")
     dfb = torch.empty(c, dtype=torch.float32, device=dev)
-    _check(lib.k3_colsum(_ptr(part), _ptr(dfb), nblk, c, stream),
-           f"{kern} d final_b")
+    check(lib.k3_colsum(ptr(part), ptr(dfb), nblk, c, stream),
+          f"{kern} d final_b")
 
     if remat:
         rplan = remat_plan(m, d, widths, c, cdt, **chunking)
@@ -935,16 +750,16 @@ def _backward_cuda(x, stage_params, final_w, final_b, zs, *, g, kv_pool,
             del dz
         del part
         if need_dx:
-            _check(_fn(lib, "k23_gemm", cdt)(
-                _DH, _ptr(dz_above), dz_above.stride(0), _ptr(w_above),
-                w_above.stride(0), None, _ptr(dx) + r0 * d * 4, d, rows, d,
+            check(entry(lib, "k23_gemm", cdt)(
+                _DH, ptr(dz_above), dz_above.stride(0), ptr(w_above),
+                w_above.stride(0), None, ptr(dx) + r0 * d * 4, d, rows, d,
                 above_w, 1, above_w, stream), f"{kern} dx = dz W^T")
         dws[0] = _gemm_tn(lib, xc, dz_above, slices[ci][0], rows, d,
                           widths[0], stream, f"{kern} dW0 = x^T dz", dws[0])
         del dz_above, xc
     dstages = tuple((dws[k], sums[k][2 * w:], sums[k][:w],
                      sums[k][w:2 * w]) for k, w in enumerate(widths))
-    _count(remat_chain_backward if remat else chain_backward, cdt)
+    count("K5 bwd" if remat else "K3", cdt)
     return dx, dstages, dws[n_stages], dfb
 
 
@@ -954,10 +769,8 @@ def chain_forward(x, stage_params, final_w, final_b, *, kv_pool=0,
     cloud.  Same arguments and result as `chain_forward_plain`."""
     kw = dict(kv_pool=kv_pool, emit_features=emit_features,
               compute_dtype=compute_dtype)
-    if x.device.type == "cpu":
+    if not on_card(x, "K2"):
         return chain_forward_plain(x, stage_params, final_w, final_b, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"K2 runs on CUDA or CPU tensors, not {x.device}")
     return _forward_cuda(x, stage_params, final_w, final_b, **kw)
 
 
@@ -971,11 +784,9 @@ def chain_backward(x, stage_params, final_w, final_b, zs, *, g=None,
                          "recomputes it")
     kw = dict(g=g, kv_pool=kv_pool, dpool=dpool, idx=idx, dsums=dsums,
               compute_dtype=compute_dtype, need_dx=need_dx)
-    if x.device.type == "cpu":
+    if not on_card(x, "K3"):
         return chain_backward_plain(x, stage_params, final_w, final_b, zs,
                                     **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"K3 runs on CUDA or CPU tensors, not {x.device}")
     return _backward_cuda(x, stage_params, final_w, final_b, zs, **kw)
 
 
@@ -985,10 +796,8 @@ def remat_chain_forward(x, stage_params, final_w, final_b, *, kv_pool=0,
     `chain_forward`; the result has no "zs"."""
     kw = dict(kv_pool=kv_pool, emit_features=emit_features,
               compute_dtype=compute_dtype, stash=False)
-    if x.device.type == "cpu":
+    if not on_card(x, "K5"):
         return chain_forward_plain(x, stage_params, final_w, final_b, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"K5 runs on CUDA or CPU tensors, not {x.device}")
     return _forward_cuda(x, stage_params, final_w, final_b, **kw)
 
 
@@ -1005,7 +814,7 @@ def remat_chain_backward(x, stage_params, final_w, final_b, *, g=None,
     kw = dict(g=g, kv_pool=kv_pool, dpool=dpool, idx=idx, dsums=dsums,
               compute_dtype=compute_dtype, need_dx=need_dx)
     chunking = dict(chunk_bytes=chunk_bytes, min_rows=min_rows)
-    if x.device.type == "cpu":
+    if not on_card(x, "K5"):
         plan = None
         if chunk_bytes is not None or min_rows is not None:
             b, n, d = x.shape
@@ -1014,24 +823,8 @@ def remat_chain_backward(x, stage_params, final_w, final_b, *, g=None,
                               compute_dtype, **chunking)
         return chain_backward_plain(x, stage_params, final_w, final_b, None,
                                     plan=plan, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"K5 runs on CUDA or CPU tensors, not {x.device}")
     return _backward_cuda(x, stage_params, final_w, final_b, None, **kw,
                           **chunking)
-
-
-def _count(wrapper, cdt) -> None:
-    """One launch of `wrapper`'s kernel in compute dtype cdt."""
-    if cdt == torch.float32:
-        wrapper.launches_f32 += 1
-    else:
-        wrapper.launches += 1
-
-
-for _wrapper in (chain_forward, chain_backward, remat_chain_forward,
-                 remat_chain_backward):
-    _wrapper.launches = 0
-    _wrapper.launches_f32 = 0
 
 
 def _unflatten(flat, n_stages):

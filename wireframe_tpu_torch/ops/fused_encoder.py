@@ -16,10 +16,11 @@ Three functions over one parameter layout:
   (`csrc/fused_encoder.cu` on the wgmma + TMA GEMM of
   `csrc/hopper_gemm.cuh`) for CUDA tensors, in bf16 or f32 (the JAX
   kernel's two compute dtypes; f32 on the GEMM's 3xTF32 main loop), and
-  takes the plain version only for CPU tensors.
-  `fused_point_encoder.launches` counts bf16 kernel launches,
-  `.launches_f32` f32 ones.  `k1_plan` is its launch plan, pure, so the
-  CPU tests reach everything around the kernel.
+  takes the plain version only for CPU tensors (`ops._launch`); each
+  call counts "K1" or "K1 f32".  `k1_plan` is its launch plan, pure, so
+  the CPU tests reach everything around the kernel.
+
+`ln` and `dot` are the plain math K2 / K3 / K5's plain versions share.
 
 bf16 matmuls with f32 accumulation are written as f32 matmuls of
 bf16-rounded operands: every bf16 x bf16 product is exact in f32, so this
@@ -29,16 +30,34 @@ card keeps TF32 off (PyTorch's default), so these run in full f32.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
 
+from wireframe_tpu_torch.ops._launch import (
+    check,
+    count,
+    entry,
+    library,
+    on_card,
+    pad8,
+    ptr,
+    row_buffer,
+)
+from wireframe_tpu_torch.ops.hopper_gemm import (
+    BM,
+    F32_FLUSH_K,
+    chain_plan,
+    gemm_operands,
+    kernel_dtype,
+)
+from wireframe_tpu_torch.ops.layernorm_rows import layernorm_relu_forward
+
 _NEG_INF = -1e30
 
 
-def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+def ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         eps: float = 1e-6) -> torch.Tensor:
     """Two-pass LayerNorm, as pallas_encoder.py:_ln."""
     mean = torch.mean(x, dim=-1, keepdim=True)
@@ -46,7 +65,7 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
-def _dot(h: torch.Tensor, w: torch.Tensor,
+def dot(h: torch.Tensor, w: torch.Tensor,
          compute_dtype: torch.dtype) -> torch.Tensor:
     """`compute_dtype` operands, f32 accumulation."""
     return torch.matmul(h.to(compute_dtype).float(),
@@ -61,14 +80,14 @@ def point_encoder_reference(x: torch.Tensor,
     ln_bias), ...].  Returns point features (..., output_dim) in f32."""
     h = x.to(compute_dtype)
     for w, b, g, be in stage_params:
-        h = _dot(h, w, compute_dtype) + b.float()
-        h = _ln(h, g.float(), be.float())
+        h = dot(h, w, compute_dtype) + b.float()
+        h = ln(h, g.float(), be.float())
         # torch.maximum, not relu: its gradient at an exact 0 is half the
         # cotangent, as jnp.maximum's (the plain chain is the training
         # path when the kernels are off).
         h = torch.maximum(h, torch.zeros_like(h))
         h = h.to(compute_dtype)
-    return _dot(h, final_w, compute_dtype) + final_b.float()
+    return dot(h, final_w, compute_dtype) + final_b.float()
 
 
 def _check_tiling(n: int, tile: int, kv_pool: int) -> None:
@@ -126,9 +145,6 @@ def fused_point_encoder_plain(x: torch.Tensor,
 # The launch plan (pure: shapes in, tiles / windows / strides out)
 # ---------------------------------------------------------------------------
 
-K1_ROW_TILE = 128   # rows of a projection tile (csrc/hopper_gemm.cuh's BM)
-
-
 @functools.lru_cache(maxsize=64)
 def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
             kv_pool: int, compute_dtype=torch.bfloat16) -> Dict:
@@ -145,7 +161,7 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
     window that crosses a tile boundary with the (tile, slot) partials it
     takes the max of; "edges" says whether the edge slots exist at all.
     Row strides are padded for TMA.  Each stage's "modes" entry says how
-    it runs its LayerNorm (`chain_grad.stage_mode`): ("cluster", ctas) in
+    it runs its LayerNorm (`hopper_gemm.stage_mode`): ("cluster", ctas) in
     its GEMM's epilogue across a cluster of ceil(W / 256) <= 8 CTAs, or
     "split" for a stage wider than 2048 (its f32 z in device memory, then
     the LayerNorm row kernel); "clusters" the CTAs (None when split).  For
@@ -158,13 +174,7 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
     in f32 after a stage wider than F32_FLUSH_K also the f32 features, in
     which the projection parks its partial sums), whichever is more,
     beside the rows' validity."""
-    from wireframe_tpu_torch.ops.chain_grad import (
-        F32_FLUSH_K,
-        chain_plan,
-        pad8,
-    )
-
-    bm = K1_ROW_TILE
+    bm = BM                     # rows of a projection tile
     tiles = -(-n // bm)
     spans = [(t * bm, min(n, (t + 1) * bm)) for t in range(tiles)]
     windows, merges = None, []
@@ -217,92 +227,42 @@ def k1_plan(b: int, n: int, d: int, widths: Tuple[int, ...], out: int,
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
-    from wireframe_tpu_torch.ops import _build
-
-    lib = _build.load("fused_encoder")
-    if not getattr(lib, "_k1_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        types = {"k1_row_tile": [],
-                 "k1_prep": [p, i, p, i, p, i, p],
-                 "k1_stage": [p, i, p, i, p, p, p, p, i, i, i, i, p],
-                 "k1_gemm_z": [p, i, p, i, p, p, i, i, i, i, p],
-                 "k1_project": [p, i, p, i, p, p, p, i, p, p, p, i, i, i,
-                                i, i, p],
-                 "k1_finalize": [p, p, p, p, i, i, i, i, p]}
-        for name in ("k1_prep", "k1_stage", "k1_gemm_z", "k1_project"):
-            types[name + "_f32"] = types[name]
-        for name, args in types.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, ctypes.c_int
-        if lib.k1_row_tile() != K1_ROW_TILE:
-            raise RuntimeError(f"csrc/hopper_gemm.cuh's row tile "
-                               f"{lib.k1_row_tile()} does not match the "
-                               f"plan's {K1_ROW_TILE}")
-        lib._k1_typed = True
-    return lib
+_DTYPED = {"k1_prep": "PiPiPiP", "k1_stage": "PiPiPPPPiiiiP",
+           "k1_gemm_z": "PiPiPPiiiiP", "k1_project": "PiPiPPPiPPPiiiiiP"}
+_SIGNATURES = {"k1_row_tile": "", "k1_finalize": "PPPPiiiiP", **_DTYPED,
+               **{k + "_f32": v for k, v in _DTYPED.items()}}
 
 
-def _check(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"K1 {what} launch failed: cudaError_t {err}")
+def _check_library(lib) -> None:
+    if lib.k1_row_tile() != BM:
+        raise RuntimeError(f"csrc/hopper_gemm.cuh's row tile "
+                           f"{lib.k1_row_tile()} does not match the "
+                           f"plan's {BM}")
 
 
-def _aligned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Contiguous `dtype` copy of a parameter whose pointer is 16-byte
-    aligned (the kernels load 16-byte vectors)."""
-    t = t.to(dtype).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def _lib():
+    return library("fused_encoder", _SIGNATURES, _check_library)
 
 
 def _launch(x, stage_params, final_w, final_b, *, tile,
             return_point_features, compute_dtype, kv_pool):
-    from wireframe_tpu_torch.ops.chain_grad import (
-        F32_FLUSH_K,
-        _count,
-        _fn,
-        _ptr,
-        _rows,
-        _tma_rows,
-        kernel_dtype,
-    )
-    from wireframe_tpu_torch.ops.layernorm_rows import layernorm_relu_forward
-
     cdt = kernel_dtype(compute_dtype)
-    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("K1 takes a contiguous (B, N, D) float32 cloud, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    layers, fw, fb = gemm_operands(x, stage_params, final_w, final_b, cdt,
+                                   "K1")
     b, n, d = x.shape
     _check_tiling(n, tile, kv_pool)
     dev = x.device
-    layers = []
-    prev = d
-    for w, bb, g, be in stage_params:
-        if w.dim() != 2 or w.shape[0] != prev:
-            raise ValueError(f"stage weight {tuple(w.shape)} does not follow "
-                             f"width {prev}")
-        layers.append((_tma_rows(w, cdt),
-                       *(_aligned(t, torch.float32) for t in (bb, g, be))))
-        prev = w.shape[1]
-    if final_w.dim() != 2 or final_w.shape[0] != prev:
-        raise ValueError(f"final weight {tuple(final_w.shape)} does not "
-                         f"follow width {prev}")
-    fw = _tma_rows(final_w, cdt)
-    fb = _aligned(final_b, torch.float32)
     c = fw.shape[1]
-    for t in (*[t for layer in layers for t in layer], fw, fb):
-        if t.device != dev:
-            raise ValueError("K1 parameters must lie on the cloud's device")
     plan = k1_plan(b, n, d, tuple(w.shape[1] for w, *_ in layers), c,
                    kv_pool, cdt)
 
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     m = b * n
-    a = _rows(m, d, cdt, dev)
+    a = row_buffer(m, d, cdt, dev)
     valid = torch.empty(m, dtype=torch.uint8, device=dev)
-    _check(_fn(lib, "k1_prep", cdt)(_ptr(x), d, _ptr(a), plan["x_ld"],
-                                    _ptr(valid), m, stream), "input prep")
+    check(entry(lib, "k1_prep", cdt)(ptr(x), d, ptr(a), plan["x_ld"],
+                                     ptr(valid), m, stream), "K1 input prep")
     k_in = d
     for (w, bb, g, be), mode in zip(layers, plan["modes"]):
         # Each stage's h is the only activation in device memory (with a
@@ -310,19 +270,19 @@ def _launch(x, stage_params, final_w, final_b, *, tile,
         # soon as this stage's launches are queued.
         width = w.shape[1]
         if mode == "split":
-            z = _rows(m, width, torch.float32, dev)
-            _check(_fn(lib, "k1_gemm_z", cdt)(
-                _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb),
-                _ptr(z), z.stride(0), m, width, k_in, stream),
-                "stage GEMM (split)")
+            z = row_buffer(m, width, torch.float32, dev)
+            check(entry(lib, "k1_gemm_z", cdt)(
+                ptr(a), a.stride(0), ptr(w), w.stride(0), ptr(bb),
+                ptr(z), z.stride(0), m, width, k_in, stream),
+                "K1 stage GEMM (split)")
             h, _ = layernorm_relu_forward(z, g, be, h_dtype=cdt)
             del z
         else:
-            h = _rows(m, width, cdt, dev)
-            _check(_fn(lib, "k1_stage", cdt)(
-                _ptr(a), a.stride(0), _ptr(w), w.stride(0), _ptr(bb),
-                _ptr(g), _ptr(be), _ptr(h), h.stride(0), m, width, k_in,
-                stream), "stage GEMM + LayerNorm")
+            h = row_buffer(m, width, cdt, dev)
+            check(entry(lib, "k1_stage", cdt)(
+                ptr(a), a.stride(0), ptr(w), w.stride(0), ptr(bb),
+                ptr(g), ptr(be), ptr(h), h.stride(0), m, width, k_in,
+                stream), "K1 stage GEMM + LayerNorm")
         a, k_in = h, width
     p = kv_pool
     # In f32 past F32_FLUSH_K the projection parks its partial sums in the
@@ -337,13 +297,13 @@ def _launch(x, stage_params, final_w, final_b, *, tile,
                        dtype=torch.float32, device=dev) \
         if plan["edges"] else None
     pools = torch.empty((b, 4, c), dtype=torch.float32, device=dev)
-    _check(_fn(lib, "k1_project", cdt)(
-        _ptr(a), a.stride(0), _ptr(fw), fw.stride(0), _ptr(fb), _ptr(valid),
-        _ptr(feats), c, _ptr(part), _ptr(kv), _ptr(edge), p, b, n, c, k_in,
-        stream), "projection GEMM + pools")
-    _check(lib.k1_finalize(_ptr(part), _ptr(edge), _ptr(kv), _ptr(pools), b,
-                           n, p, c, stream), "pool finalize")
-    _count(fused_point_encoder, cdt)
+    check(entry(lib, "k1_project", cdt)(
+        ptr(a), a.stride(0), ptr(fw), fw.stride(0), ptr(fb), ptr(valid),
+        ptr(feats), c, ptr(part), ptr(kv), ptr(edge), p, b, n, c, k_in,
+        stream), "K1 projection GEMM + pools")
+    check(lib.k1_finalize(ptr(part), ptr(edge), ptr(kv), ptr(pools), b,
+                          n, p, c, stream), "K1 pool finalize")
+    count("K1", cdt)
     result = {"masked_mean": pools[:, 0], "masked_max": pools[:, 1],
               "mean": pools[:, 2], "max": pools[:, 3]}
     if return_point_features:
@@ -367,13 +327,7 @@ def fused_point_encoder(x: torch.Tensor,
     ragged tiling)."""
     kwargs = dict(tile=tile, return_point_features=return_point_features,
                   compute_dtype=compute_dtype, kv_pool=kv_pool)
-    if x.device.type == "cpu":
+    if not on_card(x, "K1"):
         return fused_point_encoder_plain(x, stage_params, final_w, final_b,
                                          **kwargs)
-    if x.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {x.device}")
     return _launch(x, stage_params, final_w, final_b, **kwargs)
-
-
-fused_point_encoder.launches = 0
-fused_point_encoder.launches_f32 = 0

@@ -28,18 +28,31 @@ atomics) and the variance is centred.
 
 Each wrapper takes its plain version (`*_plain`, the arithmetic of
 `chain_grad.chain_forward_plain` / `chain_backward_plain` for one stage)
-for CPU tensors and launches its kernel for CUDA tensors, counting
-`.launches` (bf16) or `.launches_f32` (f32); a CUDA tensor that the
-kernel does not take raises.  `chain_grad.chain_plan` and
+for CPU tensors and launches its kernel for CUDA tensors (`ops._launch`),
+counting "LN rows fwd" / "LN rows bwd" (+ " f32"); a CUDA tensor that the
+kernel does not take raises.  `hopper_gemm.chain_plan` and
 `fused_encoder.k1_plan` name the stages that run split.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from wireframe_tpu_torch.ops._launch import (
+    SMEM_LIMIT,
+    SMS,
+    aligned,
+    check,
+    count,
+    entry,
+    library,
+    on_card,
+    row_args,
+    row_buffer,
+)
+from wireframe_tpu_torch.ops.hopper_gemm import KERNEL_DTYPES
 
 ROW_TILE = 128          # rows of a backward partial (the GEMM's row tile)
 LN_EPS = 1e-6
@@ -50,16 +63,14 @@ MAX_THREADS = 512       # resident rows up to VEC * UNITS * 512 = 8192
 CHUNK_THREADS = 256     # wider rows: chunks of VEC * UNITS * 256 columns
 MAX_RING = 4
 MAX_CLUSTER = 8
-SMEM_LIMIT = 232448     # dynamic shared memory a block may have
 RESIDENT_MAX = VEC * UNITS * MAX_THREADS
 FWD_ROWS = 8            # rows a forward block takes
 MAX_WARPS = MAX_THREADS // 32
-# One H100 SXM, for the plan's occupancy estimate: SMs, and per SM the
+# One H100 SXM, for the plan's occupancy estimate: SMS, and per SM the
 # shared memory (228 KB, 1 KB of it kept per block), threads, blocks and
 # registers.  Registers a thread are taken at ptxas's count rounded up:
 # the backward at its launch bound's ceiling (128 at 512 threads), the
 # forward at 64 (59); `ln_rows_occupancy` asks the runtime on the card.
-SMS = 132
 SM_SMEM, BLOCK_RESERVED = 233472, 1024
 SM_THREADS, SM_BLOCKS, SM_REGS = 2048, 32, 65536
 ASSUMED_REGS = {"fwd": 64, "bwd": 128}
@@ -211,56 +222,41 @@ _CONSTS = (ROW_TILE, VEC, UNITS, MAX_THREADS, CHUNK_THREADS, MAX_RING,
 _PROBE_WIDTHS = (2049, 2304, 4096, 4100, 8192, 8193, 12288, 65536)
 
 
-def _lib() -> ctypes.CDLL:
-    from wireframe_tpu_torch.ops import _build
-
-    lib = _build.load("layernorm_rows")
-    if not getattr(lib, "_ln_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for sfx in ("", "_f32"):
-            fn = getattr(lib, "ln_rows_fwd" + sfx)
-            fn.argtypes = [p, i, p, p, p, i, p, i, i, i, i, i, i, i, p]
-            fn.restype = i
-            fn = getattr(lib, "ln_rows_bwd" + sfx)
-            fn.argtypes = [p, i, i, p, i, p, p, p, i, p, i, p, i, i, i, i,
-                           i, i, i, p]
-            fn.restype = i
-        lib.ln_rows_const.argtypes, lib.ln_rows_const.restype = [i], i
-        lib.ln_rows_smem.argtypes = [i, i, i, i, i, i]
-        lib.ln_rows_smem.restype = i
-        lib.ln_rows_occupancy.argtypes = [i, i, i, i, i, i, i]
-        lib.ln_rows_occupancy.restype = i
-        lib.ln_rows_launched.argtypes = []
-        lib.ln_rows_launched.restype = ctypes.c_longlong
-        got = tuple(lib.ln_rows_const(k) for k in range(len(_CONSTS)))
-        if got != _CONSTS:
-            raise RuntimeError(f"csrc/layernorm_rows.cu's constants {got} "
-                               f"are not ops/layernorm_rows.py's {_CONSTS}")
-        for w in _PROBE_WIDTHS:
-            for dt, direction, zdt in (
-                    (torch.bfloat16, "fwd", None),
-                    (torch.float32, "fwd", None),
-                    (torch.bfloat16, "bwd", torch.bfloat16),
-                    (torch.bfloat16, "bwd", torch.float32),
-                    (torch.float32, "bwd", torch.float32)):
-                pl = rows_plan(20480, w, dt, direction, zdt)
-                zs = 2 if zdt == torch.bfloat16 else 4
-                c_smem = lib.ln_rows_smem(
-                    int(direction == "bwd"), zs, pl["threads"], pl["ring"],
-                    pl["rows_per_cta"], w)
-                if c_smem != pl["smem_bytes"]:
-                    raise RuntimeError(
-                        f"csrc/layernorm_rows.cu lays out {c_smem} bytes of "
-                        f"shared memory for {direction} W={w}; rows_plan "
-                        f"says {pl['smem_bytes']}")
-        lib._ln_typed = True
-    return lib
+_SIGNATURES = {"ln_rows_fwd": "PiPPPiPiiiiiiiP",
+               "ln_rows_fwd_f32": "PiPPPiPiiiiiiiP",
+               "ln_rows_bwd": "PiiPiPPPiPiPiiiiiiiP",
+               "ln_rows_bwd_f32": "PiiPiPPPiPiPiiiiiiiP",
+               "ln_rows_const": "i", "ln_rows_smem": "iiiiii",
+               "ln_rows_occupancy": "iiiiiii"}
+KERNEL = "the LayerNorm row kernel"
 
 
-def kernels_launched() -> int:
-    """The kernels the row-kernel library has launched in this process
-    (the wrappers' `.launches` count calls; this counts launches)."""
-    return _lib().ln_rows_launched()
+def _check_library(lib) -> None:
+    got = tuple(lib.ln_rows_const(k) for k in range(len(_CONSTS)))
+    if got != _CONSTS:
+        raise RuntimeError(f"csrc/layernorm_rows.cu's constants {got} "
+                           f"are not ops/layernorm_rows.py's {_CONSTS}")
+    for w in _PROBE_WIDTHS:
+        for dt, direction, zdt in (
+                (torch.bfloat16, "fwd", None),
+                (torch.float32, "fwd", None),
+                (torch.bfloat16, "bwd", torch.bfloat16),
+                (torch.bfloat16, "bwd", torch.float32),
+                (torch.float32, "bwd", torch.float32)):
+            pl = rows_plan(20480, w, dt, direction, zdt)
+            zs = 2 if zdt == torch.bfloat16 else 4
+            c_smem = lib.ln_rows_smem(
+                int(direction == "bwd"), zs, pl["threads"], pl["ring"],
+                pl["rows_per_cta"], w)
+            if c_smem != pl["smem_bytes"]:
+                raise RuntimeError(
+                    f"csrc/layernorm_rows.cu lays out {c_smem} bytes of "
+                    f"shared memory for {direction} W={w}; rows_plan "
+                    f"says {pl['smem_bytes']}")
+
+
+def _lib():
+    return library("layernorm_rows", _SIGNATURES, _check_library)
 
 
 def occupancy(plan: Dict, dtype, z_dtype=None) -> int:
@@ -282,28 +278,11 @@ def _check_rows(what, t, m, w, dtypes):
                          f"{t.dtype} {tuple(t.shape)} {t.stride()}")
 
 
-def row_args(what, t: Optional[torch.Tensor]):
-    """(pointer, row stride) of a row-major buffer the kernels read or
-    write 16 bytes at a time: its start and every row 16-byte aligned, or
-    ValueError; (None, 0) for None."""
-    if t is None:
-        return None, 0
-    if t.data_ptr() % 16 or t.stride(0) * t.element_size() % 16:
-        raise ValueError(
-            f"{what}: the row kernels take rows that start 16-byte aligned "
-            f"(a multiple of {16 // t.element_size()} {t.dtype} elements "
-            f"apart); got a start {t.data_ptr() % 16} bytes past 16 and "
-            f"rows {t.stride(0)} elements apart")
-    return t.data_ptr(), t.stride(0)
-
-
 def _params(gamma, beta, w, dev):
     for t in (gamma, beta):
         if t.shape != (w,) or t.device != dev:
             raise ValueError(f"LayerNorm terms must be ({w},) on {dev}")
-    out = [t.to(torch.float32).contiguous() for t in (gamma, beta)]
-    # The kernels copy them 16 bytes at a time.
-    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in out]
+    return [aligned(t, torch.float32) for t in (gamma, beta)]
 
 
 def layernorm_relu_forward(z: torch.Tensor, gamma: torch.Tensor,
@@ -314,19 +293,9 @@ def layernorm_relu_forward(z: torch.Tensor, gamma: torch.Tensor,
     version for a CPU z.  z (M, W) f32 with unit column stride; h_dtype
     bf16 or f32; stash_dtype None or, with bf16 h, bf16.  On the card h
     and the stash have rows a multiple of 8 elements apart."""
-    if z.device.type == "cpu":
+    if not on_card(z, "the LayerNorm rows forward"):
         return layernorm_relu_forward_plain(z, gamma, beta, h_dtype=h_dtype,
                                             stash_dtype=stash_dtype)
-    if z.device.type != "cuda":
-        raise ValueError(f"the LayerNorm rows run on CUDA or CPU tensors, "
-                         f"not {z.device}")
-    from wireframe_tpu_torch.ops.chain_grad import (
-        KERNEL_DTYPES,
-        _check,
-        _count,
-        _rows,
-    )
-
     m, w = z.shape
     _check_rows("z", z, m, w, (torch.float32,))
     if h_dtype not in KERNEL_DTYPES or stash_dtype not in (
@@ -336,18 +305,17 @@ def layernorm_relu_forward(z: torch.Tensor, gamma: torch.Tensor,
                          f"bf16 h; got {h_dtype}, {stash_dtype}")
     dev = z.device
     g, b = _params(gamma, beta, w, dev)
-    zp = row_args("z", z)
-    h = _rows(m, w, h_dtype, dev)
-    stash = None if stash_dtype is None else _rows(m, w, stash_dtype, dev)
+    zp = row_args("z", z, KERNEL)
+    h = row_buffer(m, w, h_dtype, dev)
+    stash = (None if stash_dtype is None
+             else row_buffer(m, w, stash_dtype, dev))
     plan = rows_plan(m, w, h_dtype, "fwd")
-    f32 = h_dtype == torch.float32
-    lib = _lib()
-    _check(getattr(lib, "ln_rows_fwd" + ("_f32" if f32 else ""))(
-        *zp, g.data_ptr(), b.data_ptr(), *row_args("h", h),
-        *row_args("stash", stash), m, w, plan["threads"],
+    check(entry(_lib(), "ln_rows_fwd", h_dtype)(
+        *zp, g.data_ptr(), b.data_ptr(), *row_args("h", h, KERNEL),
+        *row_args("stash", stash, KERNEL), m, w, plan["threads"],
         plan["rows_per_cta"], plan["ring"], plan["smem_bytes"],
         torch.cuda.current_stream(dev).cuda_stream), "LayerNorm rows forward")
-    _count(layernorm_relu_forward, h_dtype)
+    count("LN rows fwd", h_dtype)
     return h, stash
 
 
@@ -358,20 +326,10 @@ def layernorm_relu_backward(z: torch.Tensor, dh: torch.Tensor,
     plain version for CPU tensors.  z (M, W): the bf16 stash (with bf16
     dz) or the f32 z; dh (M, W) f32.  Returns (dz, h or None, part); on
     the card dz and h have rows a multiple of 8 elements apart."""
-    if z.device.type == "cpu":
+    if not on_card(z, "the LayerNorm rows backward"):
         return layernorm_relu_backward_plain(z, dh, gamma, beta,
                                              dz_dtype=dz_dtype,
                                              rebuild_h=rebuild_h)
-    if z.device.type != "cuda":
-        raise ValueError(f"the LayerNorm rows run on CUDA or CPU tensors, "
-                         f"not {z.device}")
-    from wireframe_tpu_torch.ops.chain_grad import (
-        KERNEL_DTYPES,
-        _check,
-        _count,
-        _rows,
-    )
-
     m, w = z.shape
     _check_rows("z", z, m, w, KERNEL_DTYPES)
     _check_rows("dh", dh, m, w, (torch.float32,))
@@ -383,24 +341,17 @@ def layernorm_relu_backward(z: torch.Tensor, dh: torch.Tensor,
     if dh.device != dev:
         raise ValueError("dh must lie on z's device")
     g, b = _params(gamma, beta, w, dev)
-    zp, dhp = row_args("z", z), row_args("dh", dh)
-    dz = _rows(m, w, dz_dtype, dev)
-    h = _rows(m, w, dz_dtype, dev) if rebuild_h else None
+    zp, dhp = row_args("z", z, KERNEL), row_args("dh", dh, KERNEL)
+    dz = row_buffer(m, w, dz_dtype, dev)
+    h = row_buffer(m, w, dz_dtype, dev) if rebuild_h else None
     plan = rows_plan(m, w, dz_dtype, "bwd", z.dtype)
     part = torch.empty(plan["part"], dtype=torch.float32, device=dev)
-    f32 = dz_dtype == torch.float32
-    lib = _lib()
-    _check(getattr(lib, "ln_rows_bwd" + ("_f32" if f32 else ""))(
+    check(entry(_lib(), "ln_rows_bwd", dz_dtype)(
         zp[0], zp[1], int(z.dtype == torch.float32), *dhp, g.data_ptr(),
-        b.data_ptr(), *row_args("dz", dz), *row_args("h", h),
-        part.data_ptr(), m, w, plan["threads"], plan["rows_per_cta"],
-        plan["ring"], plan["cluster"], plan["smem_bytes"],
-        torch.cuda.current_stream(dev).cuda_stream),
-        "LayerNorm rows backward")
-    _count(layernorm_relu_backward, dz_dtype)
+        b.data_ptr(), *row_args("dz", dz, KERNEL),
+        *row_args("h", h, KERNEL), part.data_ptr(), m, w, plan["threads"],
+        plan["rows_per_cta"], plan["ring"], plan["cluster"],
+        plan["smem_bytes"],
+        torch.cuda.current_stream(dev).cuda_stream), "LayerNorm rows backward")
+    count("LN rows bwd", dz_dtype)
     return dz, h, part
-
-
-for _wrapper in (layernorm_relu_forward, layernorm_relu_backward):
-    _wrapper.launches = 0
-    _wrapper.launches_f32 = 0

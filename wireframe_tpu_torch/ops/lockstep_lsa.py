@@ -14,9 +14,8 @@ state live.
   and every dynamic index is a one-hot mask-and-reduce.  It is the CPU
   path and the kernel's oracle on the card.
 - `solve_lsa_rows`: the wrapper.  CPU tensors take the plain version;
-  CUDA tensors launch the kernel (or it raises).  `solve_lsa_rows.launches`
-  counts kernel launches, `.variant_launches` the same per
-  `k4_plan(...)["name"]`.
+  CUDA tensors launch the kernel (or it raises; `ops._launch`).  Each
+  launch counts "K4" and "K4 " + `k4_plan(...)["name"]`.
 
 Ties resolve as in the JAX code: in the Dijkstra scan the lowest-index
 UNASSIGNED column at the exact frontier minimum wins, otherwise the
@@ -26,10 +25,18 @@ lowest index.  Costs must be finite and non-negative, with R <= C and
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional
 
 import torch
+
+from wireframe_tpu_torch.ops._launch import (
+    SMEM_LIMIT,
+    check,
+    count,
+    library,
+    on_card,
+    ptr,
+)
 
 PAD_COST = 1e9   # padded-column cost of the TPU kernel's lane padding
 
@@ -166,7 +173,6 @@ def solve_lsa_rows_lockstep_plain(cost: torch.Tensor,
 # plan_for computes the same and the library is checked against it)
 # ---------------------------------------------------------------------------
 
-SMEM_LIMIT = 232448      # shared memory one H100 block can use
 WARP_MAX_COLS = 32 * 16  # the warp variant's widest row: 16 columns a lane
 BLOCK_COLS_PER_WARP = 256
 BLOCK_MAX_WARPS = 32
@@ -185,7 +191,7 @@ def k4_plan(r: int, c: int) -> Dict:
     column and row state live ("registers" for the warp variant; "shared"
     or, past ~12,000 columns, "global": a per-sample scratch area of
     "scratch_bytes"); "smem_bytes": the launch's dynamic shared memory;
-    "name": the variant's key in `solve_lsa_rows.variant_launches`."""
+    "name": the variant, as its launches are counted ("K4 " + name)."""
     if not 0 <= r <= c:
         raise ValueError(f"K4 needs 0 <= rows <= cols; got ({r}, {c})")
     if c <= WARP_MAX_COLS:
@@ -236,24 +242,18 @@ def _c_plan(lib, r, c) -> Dict:
             else "registers", "smem_bytes": raw[5], "scratch_bytes": raw[6]}
 
 
-def _lib() -> ctypes.CDLL:
-    from wireframe_tpu_torch.ops import _build
+def _check_library(lib) -> None:
+    for r, c in _PROBES:
+        want = {k: k4_plan(r, c)[k] for k in _FIELDS}
+        if _c_plan(lib, r, c) != want:
+            raise RuntimeError(
+                f"csrc/lockstep_lsa.cu plans ({r}, {c}) as "
+                f"{_c_plan(lib, r, c)}; k4_plan says {want}")
 
-    lib = _build.load("lockstep_lsa")
-    if not getattr(lib, "_k4_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.k4_lsa.argtypes = [p, p, p, p, p, i, i, i, p]
-        lib.k4_lsa.restype = ctypes.c_int
-        lib.k4_plan.argtypes = [i, i, i]
-        lib.k4_plan.restype = ctypes.c_longlong
-        for r, c in _PROBES:
-            want = {k: k4_plan(r, c)[k] for k in _FIELDS}
-            if _c_plan(lib, r, c) != want:
-                raise RuntimeError(
-                    f"csrc/lockstep_lsa.cu plans ({r}, {c}) as "
-                    f"{_c_plan(lib, r, c)}; k4_plan says {want}")
-        lib._k4_typed = True
-    return lib
+
+def _lib():
+    return library("lockstep_lsa", {"k4_lsa": "PPPPPiiiP",
+                                    "k4_plan": "iii->q"}, _check_library)
 
 
 def _launch(cost, num_rows, steps_out):
@@ -273,16 +273,11 @@ def _launch(cost, num_rows, steps_out):
                          "cost's device")
     scratch = (torch.empty(b * plan["scratch_bytes"], dtype=torch.uint8,
                            device=dev) if plan["scratch_bytes"] else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.k4_lsa(cost.data_ptr(), nr.data_ptr(), out.data_ptr(),
-                     steps_out.data_ptr() if steps_out is not None else None,
-                     None if scratch is None else scratch.data_ptr(),
-                     b, r, c, stream)
-    if err:
-        raise RuntimeError(f"K4 launch failed: cudaError_t {err}")
-    solve_lsa_rows.launches += 1
-    solve_lsa_rows.variant_launches[plan["name"]] = \
-        solve_lsa_rows.variant_launches.get(plan["name"], 0) + 1
+    check(lib.k4_lsa(ptr(cost), ptr(nr), ptr(out), ptr(steps_out),
+                     ptr(scratch), b, r, c,
+                     torch.cuda.current_stream(dev).cuda_stream), "K4")
+    count("K4")
+    count("K4 " + plan["name"])
     return out
 
 
@@ -292,12 +287,6 @@ def solve_lsa_rows(cost: torch.Tensor, num_rows: torch.Tensor,
     cost.  Same contract as `solve_lsa_rows_lockstep_plain`.  On the card,
     `steps_out` ((B,) int32) optionally receives each sample's number of
     Dijkstra scan steps."""
-    if cost.device.type == "cpu":
+    if not on_card(cost, "K4"):
         return solve_lsa_rows_lockstep_plain(cost, num_rows)
-    if cost.device.type != "cuda":
-        raise ValueError(f"K4 runs on CUDA or CPU tensors, not {cost.device}")
     return _launch(cost, num_rows, steps_out)
-
-
-solve_lsa_rows.launches = 0
-solve_lsa_rows.variant_launches = {}

@@ -13,22 +13,32 @@ once per pair row, B E = B V (V - 1) / 2 rows:
   autograd or dropout needs it, and the op runs it for CPU tensors.
 - `pair_mlp` launches `csrc/pair_mlp.cu` for CUDA tensors: one kernel
   from the pair sum to the sigmoid, with no (B, E, .) intermediate in
-  device memory.  It takes bf16 and F = 256 or 512, and raises on
-  anything else; it never falls back to the plain version.
-- `engages(device, dtype, train)` is the model's rule: the kernel where
-  nothing needs the intermediates (a CUDA tensor, autograd off, no
-  dropout) and the compute dtype is bf16.
+  device memory.  It takes bf16, F = 256 or 512 and V >= 2, and raises on
+  anything else; it never falls back to the plain version.  Each launch
+  counts "pair MLP" (`ops._launch`).
+- `engages(device, dtype, train, f, v)` is the model's rule: the kernel
+  where nothing needs the intermediates (a CUDA tensor, autograd off, no
+  dropout), the compute dtype is bf16 and `pair_mlp_plan` takes (F, V).
 - `pair_mlp_plan(B, V, F)` is what one call launches.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from wireframe_tpu_torch.models.layers import dense, dropout, gelu, layer_norm
+from wireframe_tpu_torch.ops._launch import (
+    SMEM_LIMIT,
+    SMS,
+    check,
+    count,
+    library,
+    on_card,
+    ptr,
+    row_args,
+)
 from wireframe_tpu_torch.ops.pairs import num_pairs, triu_pairs_on
 
 # The kernel's constants (`csrc/pair_mlp.cu`, checked at load).
@@ -37,8 +47,6 @@ THREADS = 256
 KC = 64                 # depth of a weight chunk in the ring
 STAGES = 2
 PAD = 8                 # bf16 elements of padding a shared-memory row
-SMEM_LIMIT = 232448
-SMS = 132               # one H100 SXM: the persistent grid's ceiling
 WIDTHS = (256, 512)     # the widths F the library is built for
 
 
@@ -60,11 +68,19 @@ class PairMlpParams(NamedTuple):
     b5: torch.Tensor
 
 
-def engages(device: torch.device, dtype, train: bool) -> bool:
+def engages(device: torch.device, dtype, train: bool, f: int, v: int
+            ) -> bool:
     """Whether the model takes the kernel: CUDA tensors, autograd off
-    (`no_grad` or `inference_mode`), compute dtype bf16, no dropout."""
-    return (device.type == "cuda" and not torch.is_grad_enabled()
-            and dtype == torch.bfloat16 and not train)
+    (`no_grad` or `inference_mode`), compute dtype bf16, no dropout, and
+    a width F and V slots that `pair_mlp_plan` takes."""
+    if (device.type != "cuda" or torch.is_grad_enabled()
+            or dtype != torch.bfloat16 or train):
+        return False
+    try:
+        pair_mlp_plan(1, v, f)
+    except ValueError:
+        return False
+    return True
 
 
 def pair_mlp_plain(u_i, u_j, x, slot_mask, p: PairMlpParams, *, dtype,
@@ -142,35 +158,23 @@ def pair_mlp_plan(b: int, v: int, f: int) -> Dict:
 _CONSTS = (BM, THREADS, KC, STAGES, PAD, SMEM_LIMIT)
 
 
-def _lib() -> ctypes.CDLL:
-    from wireframe_tpu_torch.ops import _build
-
-    lib = _build.load("pair_mlp")
-    if not getattr(lib, "_pair_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pair_mlp.argtypes = [p] * 10 + [i] * 6 + [p]
-        lib.pair_mlp.restype = i
-        lib.pair_mlp_const.argtypes, lib.pair_mlp_const.restype = [i], i
-        lib.pair_mlp_smem.argtypes, lib.pair_mlp_smem.restype = [i], i
-        lib.pair_mlp_launched.argtypes = []
-        lib.pair_mlp_launched.restype = ctypes.c_longlong
-        got = tuple(lib.pair_mlp_const(k) for k in range(len(_CONSTS)))
-        if got != _CONSTS:
-            raise RuntimeError(f"csrc/pair_mlp.cu's constants {got} are not "
-                               f"ops/pair_mlp.py's {_CONSTS}")
-        for f in WIDTHS:
-            if lib.pair_mlp_smem(f) != smem_bytes(f):
-                raise RuntimeError(
-                    f"csrc/pair_mlp.cu lays out {lib.pair_mlp_smem(f)} bytes "
-                    f"of shared memory at F={f}; smem_bytes says "
-                    f"{smem_bytes(f)}")
-        lib._pair_typed = True
-    return lib
+def _check_library(lib) -> None:
+    got = tuple(lib.pair_mlp_const(k) for k in range(len(_CONSTS)))
+    if got != _CONSTS:
+        raise RuntimeError(f"csrc/pair_mlp.cu's constants {got} are not "
+                           f"ops/pair_mlp.py's {_CONSTS}")
+    for f in WIDTHS:
+        if lib.pair_mlp_smem(f) != smem_bytes(f):
+            raise RuntimeError(
+                f"csrc/pair_mlp.cu lays out {lib.pair_mlp_smem(f)} bytes "
+                f"of shared memory at F={f}; smem_bytes says "
+                f"{smem_bytes(f)}")
 
 
-def kernels_launched() -> int:
-    """The kernels the pair MLP library has launched in this process."""
-    return _lib().pair_mlp_launched()
+def _lib():
+    return library("pair_mlp", {"pair_mlp": "P" * 10 + "i" * 6 + "P",
+                                "pair_mlp_const": "i", "pair_mlp_smem": "i"},
+                   _check_library)
 
 
 class PackedWeights(NamedTuple):
@@ -198,18 +202,11 @@ def pack_weights(p: PairMlpParams) -> PackedWeights:
                          p.w4.detach().to(bf16).contiguous(), vec)
 
 
-def _rows16(what: str, t: torch.Tensor) -> torch.Tensor:
-    if t.data_ptr() % 16:
-        raise ValueError(f"{what}: the pair MLP kernel reads rows 16 bytes "
-                         f"at a time from a 16-byte aligned start")
-    return t
-
-
 def pair_mlp(u_i, u_j, x, slot_mask, p: PairMlpParams, *, dtype
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`pair_mlp_plain` without dropout: the plain version for CPU
     tensors, the kernel for CUDA tensors."""
-    if u_i.device.type == "cpu":
+    if not on_card(u_i, "the pair MLP"):
         return pair_mlp_plain(u_i, u_j, x, slot_mask, p, dtype=dtype)
     return _launch(u_i, u_j, x, slot_mask, p, dtype=dtype)
 
@@ -233,22 +230,20 @@ def _launch(u_i, u_j, x, slot_mask, p, *, dtype):
                                             packed.w4, packed.vec)):
         raise ValueError("the pair MLP's tensors and weights must lie on "
                          "one device")
-    ui = _rows16("u_i", u_i.contiguous())
-    uj = _rows16("u_j", u_j.contiguous())
-    w3 = _rows16("W3", packed.w3)
-    w4 = _rows16("W4", packed.w4)
+    kernel = "the pair MLP kernel"
+    ui, _ = row_args("u_i", u_i.contiguous(), kernel)
+    uj, _ = row_args("u_j", u_j.contiguous(), kernel)
+    w3, _ = row_args("W3", packed.w3, kernel)
+    w4, _ = row_args("W4", packed.w4, kernel)
     xs, sm = x.contiguous(), slot_mask.contiguous()
     e = num_pairs(v)
     logits = torch.empty((b, e), dtype=torch.float32, device=u_i.device)
     probs = torch.empty_like(logits)
     pair_mask = torch.empty((b, e), dtype=torch.bool, device=u_i.device)
-    lib = _lib()
-    err = lib.pair_mlp(
-        ui.data_ptr(), uj.data_ptr(), xs.data_ptr(), sm.data_ptr(),
-        w3.data_ptr(), w4.data_ptr(), packed.vec.data_ptr(),
-        logits.data_ptr(), probs.data_ptr(), pair_mask.data_ptr(), b, v,
-        x.shape[2], f, plan["grid"], plan["smem_bytes"],
-        torch.cuda.current_stream(u_i.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"pair MLP launch failed: cudaError_t {err}")
+    check(_lib().pair_mlp(
+        ui, uj, ptr(xs), ptr(sm), w3, w4, ptr(packed.vec), ptr(logits),
+        ptr(probs), ptr(pair_mask), b, v, x.shape[2], f, plan["grid"],
+        plan["smem_bytes"],
+        torch.cuda.current_stream(u_i.device).cuda_stream), "pair MLP")
+    count("pair MLP")
     return probs, logits, pair_mask

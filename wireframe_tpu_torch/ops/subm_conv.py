@@ -15,11 +15,11 @@ side:
   that loads each row's neighbours straight into the product's operand
   tiles in shared memory and writes no gathered copy.  It takes bf16,
   K <= 125 and the (CIN, COUT) of `SHAPES`, and raises on anything else;
-  it never falls back to the plain version.
-- `engages(device, dtype, grad)` is the model's rule: the kernel for a
-  CUDA tensor with autograd off and compute dtype bf16 (the kernel has no
-  backward).
-- `kernels_launched()` is the library's launch count.
+  it never falls back to the plain version.  Each launch counts
+  "subm conv" (`ops._launch`).
+- `engages(device, dtype, grad, cin, cout, k)` is the model's rule: the
+  kernel for a CUDA tensor with autograd off (the kernel has no
+  backward), compute dtype bf16 and a shape its plan takes.
 
 The kernel replaces no TPU kernel: the JAX package has no PTv3.  It was
 added because the eager gathers took ~110 ms of a ~276 ms batch-128 call;
@@ -29,10 +29,17 @@ written once: ~0.5 ms a call on one H100).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional
 
 import torch
+
+from wireframe_tpu_torch.ops._launch import (
+    check,
+    count,
+    library,
+    on_card,
+    ptr,
+)
 
 # Bytes of the gathered neighbour rows one chunk of the plain version holds.
 CONV_CHUNK_BYTES = 512 << 20
@@ -47,10 +54,18 @@ SHAPES = {(8, 32): (128, 32, 16, 4), (32, 32): (128, 32, 32, 4),
           (256, 256): (64, 128, 64, 2), (512, 512): (64, 128, 64, 2)}
 
 
-def engages(device: torch.device, dtype, grad: bool) -> bool:
+def engages(device: torch.device, dtype, grad: bool, cin: int, cout: int,
+            k: int) -> bool:
     """Whether the model takes the kernel: a CUDA tensor, autograd off
-    (`grad` is `torch.is_grad_enabled()`), compute dtype bf16."""
-    return device.type == "cuda" and not grad and dtype == torch.bfloat16
+    (`grad` is `torch.is_grad_enabled()`), compute dtype bf16, and
+    (CIN, COUT, K) that `subm_conv_plan` takes."""
+    if device.type != "cuda" or grad or dtype != torch.bfloat16:
+        return False
+    try:
+        subm_conv_plan(1, k, cin, cout)
+    except ValueError:
+        return False
+    return True
 
 
 def subm_conv_plain(x: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
@@ -94,32 +109,19 @@ def subm_conv_plan(m: int, k: int, cin: int, cout: int) -> Dict:
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
-    from wireframe_tpu_torch.ops import _build
-
-    lib = _build.load("subm_conv")
-    if not getattr(lib, "_subm_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.subm_conv.argtypes = [p] * 6 + [i] * 4 + [p]
-        lib.subm_conv.restype = i
-        lib.subm_conv_tile.argtypes = [i] * 3
-        lib.subm_conv_tile.restype = i
-        lib.subm_conv_launched.argtypes = []
-        lib.subm_conv_launched.restype = ctypes.c_longlong
-        built = {shape: tuple(lib.subm_conv_tile(*shape, n) for n in range(4))
-                 for shape in SHAPES}
-        if built != SHAPES or lib.subm_conv_tile(0, 0, 4) != MAX_K:
-            raise RuntimeError(f"csrc/subm_conv.cu tiles {built} up to K = "
-                               f"{lib.subm_conv_tile(0, 0, 4)}; "
-                               f"ops/subm_conv.py says {SHAPES} up to {MAX_K}")
-        lib._subm_typed = True
-    return lib
+def _check_library(lib) -> None:
+    built = {shape: tuple(lib.subm_conv_tile(*shape, n) for n in range(4))
+             for shape in SHAPES}
+    if built != SHAPES or lib.subm_conv_tile(0, 0, 4) != MAX_K:
+        raise RuntimeError(f"csrc/subm_conv.cu tiles {built} up to K = "
+                           f"{lib.subm_conv_tile(0, 0, 4)}; "
+                           f"ops/subm_conv.py says {SHAPES} up to {MAX_K}")
 
 
-def kernels_launched() -> int:
-    """The kernels the submanifold conv library has launched in this
-    process."""
-    return _lib().subm_conv_launched()
+def _lib():
+    return library("subm_conv", {"subm_conv": "P" * 6 + "i" * 4 + "P",
+                                 "subm_conv_tile": "iii"},
+                   _check_library)
 
 
 def subm_conv(x: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
@@ -128,7 +130,7 @@ def subm_conv(x: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
     """`subm_conv_plain`: the plain version for CPU tensors, the kernel for
     CUDA tensors.  `counters`, two int64 on the device, gain the kernel's
     (block, offset) steps run and skipped."""
-    if x.device.type == "cpu":
+    if not on_card(x, "the submanifold conv"):
         return subm_conv_plain(x, nbr, weight, bias, dtype=dtype)
     return _launch(x, nbr, weight, bias, dtype=dtype, counters=counters)
 
@@ -162,12 +164,9 @@ def _launch(x, nbr, weight, bias, *, dtype, counters=None):
     bb = None if bias is None else bias.to(dtype).contiguous()
     nb = nbr.contiguous()
     y = torch.empty((m, cout), dtype=dtype, device=x.device)
-    err = _lib().subm_conv(
-        xb.data_ptr(), nb.data_ptr(), wb.data_ptr(),
-        None if bb is None else bb.data_ptr(), y.data_ptr(),
-        None if counters is None else counters.data_ptr(), m, k, cin, cout,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"submanifold conv launch failed: cudaError_t "
-                           f"{err}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    check(_lib().subm_conv(ptr(xb), ptr(nb), ptr(wb), ptr(bb), ptr(y),
+                           ptr(counters), m, k, cin, cout, stream),
+          "submanifold conv")
+    count("subm conv")
     return y
