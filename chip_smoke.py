@@ -135,7 +135,13 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 neighbour exactly the bias), its ms beside its bound and
                 the plain version's, 23 launches a ptv3 forward (23
                 subm_conv_kernel on the device) and none in the training
-                and parity phases, the share of its steps skipped;
+                and parity phases, the share of its steps skipped; the
+                neighbour map kernel (neighbour_map.cu) at the 6 maps of
+                an (8, 16384) and a (128, 16384) call, torch.equal to its
+                plain version with equal pairs, its ms beside its bound
+                and the plain version's, the hit share, 6 launches a ptv3
+                forward (6 nbr_table_kernel and 6 nbr_query_kernel on the
+                device); the (128, 16384) forward under sync debug mode;
  13. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
@@ -1656,6 +1662,85 @@ def subm_conv_shapes(torch, card, model, fwd, xb):
     return rows
 
 
+# The neighbour map kernel (csrc/neighbour_map.cu): the maps of one ptv3
+# forward (the stem's size 5 on level 0, then a size 3 on each of the five
+# levels for its xCPE convs).
+NEIGHBOUR_MAPS = 6
+
+
+def neighbour_map_bound_ms(m, k):
+    """Least time for one map on M capacity rows: the level's key, grid,
+    batch and valid read once (41 bytes a row), the map written once."""
+    return _bound(0.0, 41 * m + 8 * m * k, False)
+
+
+def captured_maps(torch, call):
+    """((key, grid, batch, valid, size), (nbr, pairs)) of each neighbour
+    map that one `call()` builds, in order."""
+    from wireframe_tpu_torch.ops import voxel
+
+    seen = []
+    real = voxel.neighbour_map
+
+    def capture(*args):
+        out = real(*args)
+        seen.append((args, out))
+        return out
+
+    with mock.patch.object(voxel, "neighbour_map", capture):
+        call()
+        torch.cuda.synchronize()
+    if len(seen) != NEIGHBOUR_MAPS:
+        raise AssertionError(f"neighbour map: {len(seen)} maps in a "
+                             f"forward, not {NEIGHBOUR_MAPS}")
+    return seen
+
+
+def neighbour_map_shapes(torch, card, call, label):
+    """Hold the kernel's map and pairs at every map of one `call()` to
+    `neighbour_map_plain` on the same tensors (`torch.equal`); time both
+    beside the bound; print the hit share (pairs over capacity rows x
+    offsets).  Returns the per-map records."""
+    from wireframe_tpu_torch.ops import voxel
+
+    rows = []
+    for i, (args, (nbr, pairs)) in enumerate(captured_maps(torch, call)):
+        key, grid, batch, valid, size = args
+        m, k = nbr.shape
+        with torch.inference_mode():
+            want, want_pairs = voxel.neighbour_map_plain(*args)
+            equal = (torch.equal(nbr, want)
+                     and int(pairs) == int(want_pairs))
+            del want
+            ms = cuda_ms(torch, lambda: voxel.neighbour_map(*args), 10)
+            plain_ms = cuda_ms(torch, lambda: voxel.neighbour_map_plain(
+                *args), 3)
+        bound, _ = neighbour_map_bound_ms(m, k)
+        row = {"map": i, "shape": f"M={m} K={k}", "valid": int(valid.sum()),
+               "pairs": int(pairs), "hit_pct": 100.0 * int(pairs) / (m * k),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "pct_of_bound": 100.0 * bound / ms, "equal": equal}
+        rows.append(row)
+        print(f"neighbour map {label} {i} (M={m}, K={k}, {row['valid']} "
+              f"valid rows): {row['pairs']} pairs, hit share "
+              f"{row['hit_pct']:.2f}% of M x K; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms, "
+              f"{row['pct_of_bound']:.1f}% of bound; torch.equal to the "
+              f"plain map with equal pairs: {equal} [{card}]", flush=True)
+        if not equal:
+            raise AssertionError(f"neighbour map {label} {i}: the kernel's "
+                                 "map or pairs differ from the plain "
+                                 "version's")
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"neighbour map {label}, the {NEIGHBOUR_MAPS} maps of a call: "
+          f"kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
+          f"bound {total['bound_ms']:.4f} ms, "
+          f"{100.0 * total['bound_ms'] / total['ms']:.2f}% of bound "
+          f"[{card}]", flush=True)
+    return rows
+
+
 def ptv3_phase(torch, dev, card, work):
     """Point Transformer V3 as the recipe's backbone at its published
     widths: the forward at (8, 16384) against the benchmark's plain
@@ -1665,14 +1750,17 @@ def ptv3_phase(torch, dev, card, work):
     16384) with one pair MLP kernel launch a forward; a call over a
     stage's capacity raises on readback and the next call is served; one
     train step at (2, 4096) with every backbone parameter's Adam moment
-    finite and nonzero.  Returns the gaps and the pair MLP's launches
-    over the timed forwards."""
+    finite and nonzero; at (8, 16384) and (128, 16384) every neighbour
+    map held to its plain version (`neighbour_map_shapes`), and the (128,
+    16384) forward under sync debug mode too.  Returns the gaps, the pair
+    MLP's launches over the timed forwards and the per-map records."""
     from port_bench.drivers.common import FORWARD_KEYS, forward_gaps
     from port_bench.drivers.infer_ptv3 import build_model, ptv3_batch
     from port_bench.reference import ptv3 as ref_ptv3
     from port_bench.reference.model import Precision
     from wireframe_tpu_torch.models.ptv3 import (
         CapacityOverflow,
+        capacity_rows,
         raise_on_overflow,
     )
     from wireframe_tpu_torch.train.step import make_forward_fn
@@ -1708,7 +1796,9 @@ def ptv3_phase(torch, dev, card, work):
 
     ptv3_split(torch, lambda: fwd(model, x), os.path.join(work, "ptv3_8"),
                "(8, 16384)", card)
-    forwards, launches, convs = 0, 0, {}
+    forwards, launches, convs, maps = 0, 0, {}, {}
+    ptv3_rows = {b: [capacity_rows(f, b * 16384)
+                     for f in cfg.model.ptv3_capacity] for b in (8, 128)}
     for b in (8, 128):
         xb = torch.from_numpy(ptv3_batch(rng, b, 16384, 0.25)).to(dev)
         fwd(model, xb)
@@ -1721,22 +1811,35 @@ def ptv3_phase(torch, dev, card, work):
             calls[0] += 1
             return fwd(model, xb)
 
-        keys = ("pair MLP", "subm conv")
+        keys = ("pair MLP", "subm conv", "neighbour map")
         before = launch_counts(keys)
         ms = cuda_ms(torch, timed, 3)
-        launched, conv_launched = (launch_counts(keys)[k] - before[k]
-                                   for k in keys)
+        launched, conv_launched, map_launched = (
+            launch_counts(keys)[k] - before[k] for k in keys)
         if (launched != calls[0]
-                or conv_launched != SUBM_CONVS * calls[0]):
-            raise AssertionError(f"ptv3 ({b}, 16384): {launched} pair MLP "
-                                 f"and {conv_launched} subm conv launches "
+                or conv_launched != SUBM_CONVS * calls[0]
+                or map_launched != NEIGHBOUR_MAPS * calls[0]):
+            raise AssertionError(f"ptv3 ({b}, 16384): {launched} pair MLP, "
+                                 f"{conv_launched} subm conv and "
+                                 f"{map_launched} neighbour map launches "
                                  f"in {calls[0]} forwards")
         forwards += calls[0]
         launches += launched
         c = model.encoder.backbone.counters()
         steps = c["conv_steps_run"] + c["conv_steps_skipped"]
         skipped = 100.0 * c["conv_steps_skipped"] / steps
+        hits = [100.0 * c[f"conv_pairs.{n}"] / (c["calls"] * m * k)
+                for n, m, k in [("stem", ptv3_rows[b][0], 125)]
+                + [(f"stage{i}", r, 27) for i, r in enumerate(ptv3_rows[b])]]
+        maps[b] = neighbour_map_shapes(torch, card, lambda: fwd(model, xb),
+                                       f"({b}, 16384)")
         if b == 128:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fwd(model, xb)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
             ptv3_split(torch, lambda: fwd(model, xb),
                        os.path.join(work, "ptv3_128"), "(128, 16384)", card)
             convs = {"rows": subm_conv_shapes(torch, card, model, fwd, xb),
@@ -1750,17 +1853,24 @@ def ptv3_phase(torch, dev, card, work):
               f"padding {100 * c['attn_padded_rows'] / c['attn_real_rows']:.2f}"
               f" % of attention rows, dropped by grid sampling "
               f"{100 * c['grid_dropped'] / c['input_rows']:.1f} %, pair MLP "
-              f"launches {launched} and subm conv launches {conv_launched} "
-              f"in {calls[0]} forwards, subm conv steps skipped "
-              f"{c['conv_steps_skipped']} of {steps} ({skipped:.2f} %) "
-              f"[{card}]", flush=True)
-        # Kernels a forward, on the device: one pair MLP, one per conv.
+              f"launches {launched}, subm conv launches {conv_launched} "
+              f"and neighbour map launches {map_launched} in {calls[0]} "
+              f"forwards, subm conv steps skipped "
+              f"{c['conv_steps_skipped']} of {steps} ({skipped:.2f} %), "
+              f"map hit share (conv_pairs over capacity rows x offsets: "
+              f"stem, stages 0-4) {[round(h, 2) for h in hits]} %"
+              f" [{card}]", flush=True)
+        # Kernels a forward, on the device: one pair MLP, one per conv,
+        # a table build and a lookup pass per map.
         kernels = device_launches(torch, lambda: fwd(model, xb),
-                                  ("pair_mlp_kernel", "subm_conv_kernel"))
+                                  ("pair_mlp_kernel", "subm_conv_kernel",
+                                   "nbr_table_kernel", "nbr_query_kernel"))
         print(f"ptv3 ({b}, 16384): device kernels in one forward "
               f"{kernels} [{card}]", flush=True)
         assert kernels == {"pair_mlp_kernel": 1,
-                           "subm_conv_kernel": SUBM_CONVS}, kernels
+                           "subm_conv_kernel": SUBM_CONVS,
+                           "nbr_table_kernel": NEIGHBOUR_MAPS,
+                           "nbr_query_kernel": NEIGHBOUR_MAPS}, kernels
         del xb
 
     # A stage over its capacity: the call raises when its outputs are
@@ -1808,7 +1918,7 @@ def ptv3_phase(torch, dev, card, work):
           f"gradient; phase {time.perf_counter() - t0:.1f} s [{card}]",
           flush=True)
     return {"gaps": gaps, "pair_mlp_launches": launches,
-            "forwards": forwards, "subm_conv": convs}
+            "forwards": forwards, "subm_conv": convs, "neighbour_map": maps}
 
 
 def pair_mlp_phase(torch, dev, card, work):
@@ -5753,7 +5863,8 @@ def main() -> int:
         t0 = time.perf_counter()
         built = _build.build_all(["fused_encoder", "chain_grad",
                                   "lockstep_lsa", "layernorm_rows",
-                                  "pair_mlp", "subm_conv"])
+                                  "pair_mlp", "subm_conv",
+                                  "neighbour_map"])
         print(f"build: {len(built)} libraries in "
               f"{time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
         for name, (path, secs, log) in built.items():
@@ -6009,6 +6120,17 @@ def main() -> int:
             "shape": f"the {SUBM_CONVS} convolutions of a (128, 16384) call",
             "max_abs_err": max(r["kernel_vs_plain"] for r in conv["rows"]),
             "library_ms": None})
+        nmap = ptv3["neighbour_map"][128]
+        kernels.append({
+            "name": "neighbour map (PTv3 levels)", "route": "cuda",
+            "source": f"{src}neighbour_map.cu",
+            "replaces": "none (the JAX package has no PTv3)",
+            "launches": NEIGHBOUR_MAPS * ptv3["forwards"],
+            "forwards": ptv3["forwards"],
+            **{k: sum(r[k] for r in nmap)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "shape": f"the {NEIGHBOUR_MAPS} maps of a (128, 16384) call",
+            "equal": all(r["equal"] for r in nmap), "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:
         traceback.print_exc()

@@ -7,7 +7,14 @@ brute force:
   cell of a small grid once, consecutive Hilbert cells are neighbours,
   and the port's 16-bit codes with its axis rotation equal the
   reference's codes at the batch's own depth;
-- the k=3 and k=5 neighbour maps against a brute-force search;
+- the k=3 and k=5 neighbour maps against a brute-force search, by the
+  plain version and through the wrapper's CPU route; a meta tensor
+  raises; a level of dummies only, grid coordinates at 0 and 0xFFFF,
+  clouds over the same cells, the smallest capacity; the kernel's table
+  size and refusals, and its arithmetic (dilated Morton addition, hash
+  table, linear probing) transcribed, against the plain map in random
+  insertion orders (the kernel itself runs on the card: `chip_smoke.py`'s
+  ptv3 phase); `ptv3_map_roofline_pct.infer`'s arithmetic;
 - the patch padding rule for clouds above and below the patch size,
   against a transcription of Pointcept's `get_padding_and_inverse`;
 - grid coordinates and grid sampling exactly equal to the reference's;
@@ -129,35 +136,52 @@ def test_morton_is_bit_interleaving_x_first():
 
 # --- neighbours ------------------------------------------------------------
 
-@pytest.mark.parametrize("size", [3, 5])
-def test_neighbour_map_against_brute_force(size):
-    gen = torch.Generator().manual_seed(size)
-    grids = [torch.unique(torch.randint(0, 6, (120, 3), generator=gen),
-                          dim=0) for _ in range(2)]
-    batch = torch.cat([torch.full((len(g),), i) for i, g in
-                       enumerate(grids)])
-    grid = torch.cat(grids)
-    key = (batch << voxel.BATCH_SHIFT) | voxel.morton_encode(grid)
-    order = torch.argsort(key)
-    key, grid, batch = key[order], grid[order], batch[order]
-    pad = 5                                          # dummy rows last
-    key = torch.cat([key, torch.full((pad,), voxel.DUMMY_KEY)])
-    grid = torch.cat([grid, torch.zeros(pad, 3, dtype=torch.long)])
-    batch = torch.cat([batch, torch.full((pad,), 2)])
-    valid = key != voxel.DUMMY_KEY
-    nbr, pairs = voxel.neighbour_map(key, grid, batch, valid, size)
-    m = len(key)
+def _brute_force(grid, batch, valid, size):
+    """The map by comparing every valid row's neighbour cells with every
+    valid row, and its pairs."""
+    m = len(grid)
     r = size // 2
     offsets = torch.cartesian_prod(*[torch.arange(-r, r + 1)] * 3)
     want = torch.full((m, size ** 3), m)
-    for i in range(m - pad):
+    for i in torch.nonzero(valid).squeeze(1).tolist():
         for k, o in enumerate(offsets):
             hit = ((grid == grid[i] + o).all(1) & (batch == batch[i])
                    & valid).nonzero()
             if len(hit):
                 want[i, k] = hit[0, 0]
-    assert torch.equal(nbr, want)
-    assert int(pairs) == int((want[:m - pad] < m).sum())
+    return want, int((want < m).sum())
+
+
+def _packed(grids, pad):
+    """A level of the clouds' voxels `grids`, sorted by key, then `pad`
+    dummy rows: (key, grid, batch, valid)."""
+    batch = torch.cat([torch.full((len(g),), i, dtype=torch.long)
+                       for i, g in enumerate(grids)])
+    grid = torch.cat(grids).long()
+    key = (batch << voxel.BATCH_SHIFT) | voxel.morton_encode(grid)
+    order = torch.argsort(key)
+    key, grid, batch = key[order], grid[order], batch[order]
+    key = torch.cat([key, torch.full((pad,), voxel.DUMMY_KEY)])
+    grid = torch.cat([grid, torch.zeros(pad, 3, dtype=torch.long)])
+    batch = torch.cat([batch, torch.full((pad,), len(grids))])
+    return key, grid, batch, key != voxel.DUMMY_KEY
+
+
+@pytest.mark.parametrize("size", [3, 5])
+def test_neighbour_map_against_brute_force(size):
+    """`neighbour_map_plain`, and `neighbour_map` on CPU tensors, against
+    a brute-force search and the reference's dense-table search."""
+    gen = torch.Generator().manual_seed(size)
+    grids = [torch.unique(torch.randint(0, 6, (120, 3), generator=gen),
+                          dim=0) for _ in range(2)]
+    pad = 5                                          # dummy rows last
+    key, grid, batch, valid = _packed(grids, pad)
+    m = len(key)
+    want, want_pairs = _brute_force(grid, batch, valid, size)
+    for fn in (voxel.neighbour_map_plain, voxel.neighbour_map):
+        nbr, pairs = fn(key, grid, batch, valid, size)
+        assert torch.equal(nbr, want)
+        assert int(pairs) == want_pairs
     # The reference's dense-table search, cloud by cloud.
     start = 0
     for b in range(2):
@@ -167,6 +191,252 @@ def test_neighbour_map_against_brute_force(size):
             local, n))
         assert torch.equal(local, R.neighbours(grid[start:start + n], size))
         start += n
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_neighbour_map_route(device, monkeypatch):
+    """A CPU tensor takes the plain version and counts no launch; a meta
+    tensor raises with the route's message."""
+    from wireframe_tpu_torch.ops import _launch
+
+    key, grid, batch, valid = _packed([torch.tensor([[1, 1, 1], [1, 1, 2]])],
+                                      2)
+    if device == "meta":
+        args = [t.to("meta") for t in (key, grid, batch, valid)]
+        with pytest.raises(ValueError, match="the neighbour map runs on "
+                           "CUDA or CPU tensors, not meta"):
+            voxel.neighbour_map(*args, 3)
+        return
+    monkeypatch.setattr(voxel, "_launch_map", _stub)
+    before = _launch.launch_counts(["neighbour map"])
+    nbr, pairs = voxel.neighbour_map(key, grid, batch, valid, 3)
+    want, _ = voxel.neighbour_map_plain(key, grid, batch, valid, 3)
+    assert torch.equal(nbr, want) and int(pairs) == 4   # itself, the other
+    assert _launch.launch_counts(["neighbour map"]) == before
+
+
+class _Reached(Exception):
+    pass
+
+
+def _stub(*args, **kwargs):
+    raise _Reached
+
+
+def _edge_level(case):
+    """(grids a cloud, dummy rows) of each edge case."""
+    top = 0xFFFF
+    if case == "dummies only":
+        return [], 8
+    if case == "grid edges":
+        return [torch.tensor([[0, 0, 0], [0, 0, 1], [1, 1, 0], [top, top,
+                              top], [top, top - 1, top], [top - 2, top,
+                              top], [0, top, 0], [0, top, 1]])], 3
+    if case == "cloud boundary":
+        # Two clouds over the same cells: none sees the other's voxels.
+        cells = torch.tensor([[2, 2, 2], [2, 2, 3], [3, 2, 2], [4, 4, 4]])
+        return [cells, cells.clone()], 0
+    return [torch.tensor([[5, 5, 5], [5, 6, 5], [6, 6, 6]]),
+            torch.tensor([[5, 5, 5]])], 4            # M = 8
+
+
+@pytest.mark.parametrize("size", [3, 5])
+@pytest.mark.parametrize("case", ["dummies only", "grid edges",
+                                  "cloud boundary", "smallest capacity"])
+def test_neighbour_map_edge_cases(case, size):
+    grids, pad = _edge_level(case)
+    if grids:
+        key, grid, batch, valid = _packed(grids, pad)
+    else:
+        key = torch.full((pad,), voxel.DUMMY_KEY)
+        grid = torch.zeros(pad, 3, dtype=torch.long)
+        batch, valid = torch.zeros(pad, dtype=torch.long), key < 0
+    m = len(key)
+    nbr, pairs = voxel.neighbour_map(key, grid, batch, valid, size)
+    want, want_pairs = _brute_force(grid, batch, valid, size)
+    assert torch.equal(nbr, want) and int(pairs) == want_pairs
+    assert bool((nbr[~valid] == m).all())
+    if case == "dummies only":
+        assert int(pairs) == 0 and bool((nbr == m).all())
+    elif case == "grid edges":
+        # Offsets past 0 or 0xFFFF find nothing; the corner voxels find
+        # each other.
+        corner = int(torch.nonzero((grid == 0xFFFF).all(1))[0, 0])
+        r = size // 2
+        k = size ** 3 - 1            # (+r, +r, +r): past the top
+        assert int(nbr[corner, k]) == m
+        centre = (size ** 3) // 2
+        assert int(nbr[corner, centre]) == corner
+        assert int(nbr[corner, centre - size]) < m   # (0, -1, 0)
+        origin = int(torch.nonzero((grid == 0).all(1))[0, 0])
+        assert bool((nbr[origin, :r * size * size] == m).all())  # dx < 0
+    elif case == "cloud boundary":
+        for i in range(m):
+            hits = nbr[i][nbr[i] < m]
+            assert bool((batch[hits] == batch[i]).all())
+        assert want_pairs > 4
+    else:
+        assert m == 8 and want_pairs > 4
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 3992, 14056, 54528, 203424, 608176,
+                               1 << 20])
+def test_neighbour_table_size(m):
+    """The kernel's hash table: a power of two of at least 2M slots (at
+    most half full), under 4M; 2**21 at the cell's level 0."""
+    slots = voxel.table_slots(m)
+    assert slots & (slots - 1) == 0 and 2 * m <= slots < 4 * m
+    if m == 608176:
+        assert slots == 1 << 21
+
+
+@pytest.mark.parametrize("what", ["size", "grid shape", "dtype", "rows"])
+def test_neighbour_map_wrapper_refuses(what):
+    """What the kernel does not take raises before any library loads."""
+    key, grid, batch, valid = _packed([torch.tensor([[1, 1, 1]])], 7)
+    size = 3
+    if what == "size":
+        size = 7
+    elif what == "grid shape":
+        grid = grid[:, :2]
+    elif what == "dtype":
+        batch = batch.int()
+    else:
+        key = key[:0]
+    with pytest.raises(ValueError):
+        voxel._launch_map(key, grid, batch, valid, size)
+
+
+# The kernel's arithmetic, transcribed: csrc/neighbour_map.cu's spread
+# bits, dilated addition, multiplicative hash and linear probing.
+DILATED = 0x1249249249249249
+U64 = (1 << 64) - 1
+
+
+def _dilated_add(s, d):
+    step = 8 if abs(d) == 2 else abs(d)
+    return (((s | (~DILATED & U64)) + step) & DILATED if d >= 0
+            else (s - step) & DILATED)
+
+
+def test_dilated_addition_is_the_spread_of_the_sum():
+    coords = list(range(0, 40)) + list(range(0xFFFF - 40, 0x10000)) + [
+        0x5555, 0xAAAA, 0x7FFF, 0x8000, 0x0FFF, 0x1000]
+    c = torch.tensor(coords)
+    for d in range(-2, 3):
+        inside = (c + d >= 0) & (c + d <= 0xFFFF)
+        want = voxel._spread(c + d)
+        got = [_dilated_add(int(s), d) for s in voxel._spread(c)]
+        assert [g for g, i in zip(got, inside) if i] == want[inside].tolist()
+
+
+def _emulate_kernel(key, grid, batch, valid, size, order):
+    """The kernel's table built inserting the valid rows in `order`, then
+    every query looked up."""
+    m = len(key)
+    slots = voxel.table_slots(m)
+    shift = 64 - (slots.bit_length() - 1)
+    keys = [k & U64 for k in key.tolist()]
+    table = [0] * slots
+
+    def slot_of(k):
+        return ((k * 0x9E3779B97F4A7C15) & U64) >> shift
+
+    for r in order:
+        h = slot_of(keys[r])
+        while table[h] and keys[table[h] - 1] != keys[r]:
+            h = (h + 1) % slots
+        table[h] = min(table[h] or r + 1, r + 1)
+    r_ = size // 2
+    offsets = torch.cartesian_prod(*[torch.arange(-r_, r_ + 1)] * 3)
+    nbr, pairs = torch.full((m, size ** 3), m), 0
+    for i in torch.nonzero(valid).squeeze(1).tolist():
+        s = [int(v) for v in voxel._spread(grid[i])]
+        for k, o in enumerate(offsets.tolist()):
+            g = [int(grid[i, a]) + o[a] for a in range(3)]
+            if not all(0 <= v <= 0xFFFF for v in g):
+                continue
+            code = ((_dilated_add(s[0], o[0]) << 2)
+                    | (_dilated_add(s[1], o[1]) << 1)
+                    | _dilated_add(s[2], o[2]))
+            q = (int(batch[i]) << voxel.BATCH_SHIFT) | code
+            h = slot_of(q)
+            while table[h] and keys[table[h] - 1] != q:
+                h = (h + 1) % slots
+            if table[h]:
+                nbr[i, k] = table[h] - 1
+                pairs += 1
+    return nbr, pairs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_transcription_equals_the_plain_map(seed):
+    """Insertion order (the atomics' race) moves where a key lands, never
+    a lookup's answer."""
+    gen = torch.Generator().manual_seed(10 + seed)
+    grids = [torch.unique(torch.randint(0, 7, (150, 3), generator=gen),
+                          dim=0) for _ in range(3)]
+    key, grid, batch, valid = _packed(grids, 6)
+    order = torch.nonzero(valid).squeeze(1)[torch.randperm(
+        int(valid.sum()), generator=gen)].tolist()
+    for size in (3, 5):
+        nbr, pairs = _emulate_kernel(key, grid, batch, valid, size, order)
+        want, want_pairs = voxel.neighbour_map_plain(key, grid, batch,
+                                                     valid, size)
+        assert torch.equal(nbr, want) and pairs == int(want_pairs)
+
+
+# The map roofline's reader, on a fake profiled window of two calls at the
+# cell's capacities.
+MAP_METRIC = "ptv3_map_roofline_pct.infer"
+LEVEL_ROWS = [608176, 203424, 54528, 14056, 3992]
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+def _map_reading(device=((0.0, 0.001), (0.002, 0.0025)), device_name=H100,
+                 rows=True):
+    from port_bench import harness
+    from port_bench.trace import Segment
+
+    cell = harness.load_cell(ROOT, "ptv3-infer-b128-16k")
+    names = ["void (anonymous namespace)::nbr_query_kernel<5>((anonymous "
+             "namespace)::Params)", "(anonymous namespace)::nbr_table_kernel"
+             "((anonymous namespace)::Params)"]
+    seg = Segment(device=[(names[i % 2], a, b) for i, (a, b) in
+                          enumerate(device)]
+                  + [("void at::native::vectorized_elementwise_kernel", 0.0,
+                      1.0)], start=0.0, end=1.0, units=2)
+    window = {"segment_units": 2,
+              "ptv3_capacity_rows": LEVEL_ROWS if rows else None}
+    return harness.Reading(cell=cell, device_name=device_name,
+                           window=window, spans=None, segment=seg)
+
+
+def test_map_roofline_metric_arithmetic():
+    """Each level's inputs read once (41 bytes a capacity row), the six
+    maps written once, at 3.35 TB/s, over the kernels' 0.75 ms a call."""
+    from port_bench import harness
+
+    read = harness.metric_module(ROOT, MAP_METRIC).read
+    nbytes = 41 * sum(LEVEL_ROWS) + 8 * 125 * LEVEL_ROWS[0] + sum(
+        8 * 27 * m for m in LEVEL_ROWS)
+    assert nbytes / 3.35e12 == pytest.approx(2.494e-4, rel=1e-3)
+    assert read(_map_reading()) == pytest.approx(
+        100.0 * nbytes / 3.35e12 / 0.75e-3, rel=1e-12)
+
+
+@pytest.mark.parametrize("case", ["kernels never ran", "cpu", "no segment",
+                                  "no rows"])
+def test_map_roofline_metric_is_none(case):
+    from port_bench import harness
+
+    read = harness.metric_module(ROOT, MAP_METRIC).read
+    r = _map_reading(device=() if case == "kernels never ran" else
+                     ((0.0, 0.001),), device_name="cpu" if case == "cpu"
+                     else H100, rows=case != "no rows")
+    if case == "no segment":
+        r.segment = None
+    assert read(r) is None
 
 
 # --- the padding rule ------------------------------------------------------

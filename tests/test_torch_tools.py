@@ -105,6 +105,12 @@ NAMES = {
     "int*, int*, int, int, int)": "K4 (lockstep JV)",
     "void (anonymous namespace)::pair_mlp_kernel<512>((anonymous "
     "namespace)::Params)": "pair MLP (edge head)",
+    "(anonymous namespace)::nbr_table_kernel((anonymous namespace)::"
+    "Params)": "PTv3 maps and convs",
+    "void (anonymous namespace)::nbr_query_kernel<5>((anonymous "
+    "namespace)::Params)": "PTv3 maps and convs",
+    "void (anonymous namespace)::subm_conv_kernel<64, 128, 64, 64, 4>("
+    "(anonymous namespace)::Params)": "PTv3 maps and convs",
     "nvjet_tst_128x256_64x4_1x2_h_bz_coopB_NNT":
         "library GEMM (cuBLAS / CUTLASS)",
     "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64":

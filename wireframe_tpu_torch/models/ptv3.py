@@ -48,7 +48,8 @@ Pointcept's `shuffle_orders`; inference keeps the published order.
 
 Under a `torch.profiler` the work is in spans: serialize (grid sampling,
 codes, orders, patch layouts), sparse_conv (neighbour maps and the
-gather-GEMM convolutions), patch_attn, grid_pool, grid_unpool.
+gather-GEMM convolutions: `csrc/neighbour_map.cu` and `csrc/subm_conv.cu`
+on the card), patch_attn, grid_pool, grid_unpool.
 `counters()` reads the device-side counters the forwards accumulate.
 """
 

@@ -3,8 +3,9 @@ Transformer V3's stem and xCPE convs (`models/ptv3.py`'s `SubMConv`).
 
 For M rows x (M, CIN), the level's map nbr (M, K) (`voxel.neighbour_map`:
 the row of the voxel at each of the K = size**3 offsets, M where there is
-none) and a weight (COUT, K * CIN), the offsets' input channels side by
-side:
+none; built by `csrc/neighbour_map.cu` for CUDA tensors and by
+`voxel.neighbour_map_plain` on the CPU) and a weight (COUT, K * CIN), the
+offsets' input channels side by side:
 
     y[r] = sum_o W_o x[nbr[r, o]] + b
 

@@ -1,6 +1,11 @@
 """Voxels of a packed batch of clouds: grid sampling, space-filling-curve
 codes, submanifold neighbour maps and segment reductions.
 
+All of it is PyTorch ops, on any device, except the neighbour map of a
+CUDA tensor: `neighbour_map` launches `csrc/neighbour_map.cu` there (a
+hash table of the level's keys, one lookup a query) and runs
+`neighbour_map_plain` (binary searches in the sorted keys) on the CPU.
+
 Everything here is sync-free: every shape is fixed by the caller (a row
 capacity), data-dependent counts stay on the device, and rows past a
 count are dummies that no real row reads.  A count above its capacity is
@@ -28,6 +33,14 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from wireframe_tpu_torch.ops._launch import (
+    check,
+    count,
+    library,
+    on_card,
+    ptr,
+)
 
 COORD_BITS = 16
 BATCH_SHIFT = 3 * COORD_BITS
@@ -192,22 +205,18 @@ def segment_max(values: torch.Tensor, slot: torch.Tensor, capacity: int
     return out[:capacity]
 
 
-# Queries (rows x offsets) of one neighbour search chunk.
+# Queries (rows x offsets) of one chunk of the plain neighbour search.
 NEIGHBOUR_QUERIES = 1 << 24
+# The map sizes `csrc/neighbour_map.cu` is built for (held to it at load).
+MAP_SIZES = (3, 5)
 
 
-def neighbour_map(key: torch.Tensor, grid: torch.Tensor, batch: torch.Tensor,
-                  valid: torch.Tensor, size: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Submanifold neighbours of the packed rows (sorted by `key`).
-
-    Returns (nbr (M, size**3) int64: for each row and offset the packed
-    row of the active voxel there, M (a zero row) where there is none;
-    pairs 0-d: the number of (row, offset) pairs found over valid rows).
-    A hash-free search: every neighbour's key is looked up by binary
-    search in the sorted keys, all offsets of a chunk of rows at once.
-    The offsets (dx, dy, dz) over [-r, r]^3, r = size // 2, run in
-    lexicographic order, dz fastest."""
+def neighbour_map_plain(key: torch.Tensor, grid: torch.Tensor,
+                        batch: torch.Tensor, valid: torch.Tensor, size: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`neighbour_map` in PyTorch ops, a chunk of rows at a time: every
+    (row, offset) query's key looked up by binary search in the sorted
+    keys."""
     m = key.shape[0]
     r = torch.arange(-(size // 2), size // 2 + 1, device=key.device)
     offsets = torch.cartesian_prod(r, r, r)
@@ -224,6 +233,77 @@ def neighbour_map(key: torch.Tensor, grid: torch.Tensor, batch: torch.Tensor,
         nbr.append(torch.where(hit, idx, torch.full_like(idx, m)))
         found = found + hit.sum()
     return torch.cat(nbr) if len(nbr) > 1 else nbr[0], found
+
+
+def neighbour_map(key: torch.Tensor, grid: torch.Tensor, batch: torch.Tensor,
+                  valid: torch.Tensor, size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Submanifold neighbours of the packed rows (sorted by `key`, valid
+    rows' keys distinct).
+
+    Returns (nbr (M, size**3) int64: for each row and offset the packed
+    row of the active voxel there, M (a zero row) where there is none or
+    the row is not valid; pairs 0-d int64: the number of (row, offset)
+    pairs found).  The offsets (dx, dy, dz) over [-r, r]^3, r = size //
+    2, run in lexicographic order, dz fastest.  A CPU tensor takes
+    `neighbour_map_plain`, a CUDA tensor the kernel (`csrc/
+    neighbour_map.cu`: a hash table of the level's keys, then one lookup
+    a query; sizes `MAP_SIZES`), any other device raises.  Each kernel
+    call counts "neighbour map" (`ops._launch`)."""
+    if not on_card(key, "the neighbour map"):
+        return neighbour_map_plain(key, grid, batch, valid, size)
+    return _launch_map(key, grid, batch, valid, size)
+
+
+def table_slots(m: int) -> int:
+    """Slots of the kernel's hash table for M rows: the least power of
+    two of at least 2M, so the table is at most half full."""
+    return 1 << (2 * m - 1).bit_length()
+
+
+def _check_library(lib) -> None:
+    built = tuple(s for s in (lib.nbr_map_size(i) for i in range(3))
+                  if s > 0)
+    if built != MAP_SIZES:
+        raise RuntimeError(f"csrc/neighbour_map.cu is built for sizes "
+                           f"{built}; ops/voxel.py says {MAP_SIZES}")
+
+
+def _lib():
+    return library("neighbour_map", {"neighbour_map": "P" * 6 + "iii" + "P",
+                                     "nbr_map_size": "i"}, _check_library)
+
+
+def _launch_map(key, grid, batch, valid, size):
+    m = key.shape[0]
+    if size not in MAP_SIZES:
+        raise ValueError(f"the neighbour map kernel is built for sizes "
+                         f"{MAP_SIZES}, not {size}")
+    if not 1 <= m < (1 << 30):
+        raise ValueError(f"the neighbour map kernel takes 1 <= M < 2**30 "
+                         f"rows; got {m}")
+    if (key.shape != (m,) or grid.shape != (m, 3) or batch.shape != (m,)
+            or valid.shape != (m,)):
+        raise ValueError(f"key (M,), grid (M, 3), batch (M,), valid (M,) "
+                         f"for M = {m}; got {tuple(key.shape)}, "
+                         f"{tuple(grid.shape)}, {tuple(batch.shape)}, "
+                         f"{tuple(valid.shape)}")
+    if (key.dtype, grid.dtype, batch.dtype, valid.dtype) != (
+            torch.int64, torch.int64, torch.int64, torch.bool):
+        raise ValueError("key, grid and batch int64, valid bool")
+    if any(t.device != key.device for t in (grid, batch, valid)):
+        raise ValueError("the neighbour map's tensors must lie on one device")
+    slots = table_slots(m)
+    nbr = torch.empty((m, size ** 3), dtype=torch.int64, device=key.device)
+    # The pairs count, then the table's int32 slots; the kernel zeroes it.
+    work = torch.empty(1 + slots // 2, dtype=torch.int64, device=key.device)
+    args = [t.contiguous() for t in (key, grid, batch, valid)]
+    stream = torch.cuda.current_stream(key.device).cuda_stream
+    check(_lib().neighbour_map(*map(ptr, args), ptr(nbr), ptr(work), m, size,
+                               slots.bit_length() - 1, stream),
+          "neighbour map")
+    count("neighbour map")
+    return nbr, work[0]
 
 
 def cloud_counts(batch: torch.Tensor, valid: torch.Tensor, clouds: int

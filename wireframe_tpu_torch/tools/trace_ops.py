@@ -4,9 +4,9 @@ Port of the repository's `tools/trace_ops.py`.  Profiles N train steps
 (`utils.profiling.trace`, CPU + CUDA activities), reads the exported
 Chrome trace back, sums the device time of every kernel, copy and memset
 by name, and sorts the names into groups (`GROUPS`): the port's kernels
-K1, K2/K3/K5, K4 and the pair MLP, the library GEMMs, attention /
-softmax, elementwise / reduce, copy / cast and the rest, so the step's
-milliseconds have names.
+K1, K2/K3/K5, K4, the pair MLP and PTv3's maps and convs, the library
+GEMMs, attention / softmax, elementwise / reduce, copy / cast and the
+rest, so the step's milliseconds have names.
 When it captures the trace itself it also prints the profiler's own
 device total (`utils.profiling.device_rows`), which the groups must sum
 to.
@@ -60,7 +60,9 @@ GROUPS = (
     # chain's kernels (csrc/chain_grad.cu + hopper_gemm.cuh).  K1's stage
     # GEMMs and input prep are K5's forward kernels, so a forward trace
     # counts them under the chain; a train step runs no K1.  The edge
-    # head's pair MLP at inference is csrc/pair_mlp.cu's pair_mlp_kernel.
+    # head's pair MLP at inference is csrc/pair_mlp.cu's pair_mlp_kernel;
+    # PTv3's neighbour maps and submanifold convs, csrc/neighbour_map.cu's
+    # and csrc/subm_conv.cu's kernels.
     ("K4 (lockstep JV)", re.compile(r"lsa_kernel")),
     ("K1 (fused encoder)", re.compile(
         r"k1_finalize|wgmma_chain_kernel<0, 3")),
@@ -68,6 +70,8 @@ GROUPS = (
         r"wgmma_chain_kernel|prep_x_kernel|window_pool_kernel|seed_kernel"
         r"|colsum_kernel")),
     ("pair MLP (edge head)", re.compile(r"pair_mlp_kernel")),
+    ("PTv3 maps and convs", re.compile(
+        r"nbr_table_kernel|nbr_query_kernel|subm_conv_kernel")),
     ("library GEMM (cuBLAS / CUTLASS)", re.compile(
         r"gemm|gemv|nvjet|cutlass|cublas|xmma|splitKreduce|dot_kernel",
         re.I)),
