@@ -142,6 +142,19 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 and the plain version's, the hit share, 6 launches a ptv3
                 forward (6 nbr_table_kernel and 6 nbr_query_kernel on the
                 device); the (128, 16384) forward under sync debug mode;
+ 12b. ptv2    — Point Transformer V2 (`PT-v2m2`) as the recipe's
+                backbone at its published widths (`model.encoder: ptv2`):
+                the kNN kernel (knn.cu) at every level of an (8, 16384)
+                and a (128, 16384) call torch.equal to `knn_plain`, its ms
+                beside its bound and the plain version's; 5 launches a
+                forward (5 knn_kernel and one pair_mlp_kernel on the
+                device); the forward at (8, 16384) against the benchmark's
+                plain reference (`port_bench/reference/ptv2.py`) within
+                the cell's limits; both forwards under CUDA's sync debug
+                mode at "error"; the five spans inside the encoder's; ms,
+                peak memory and the device counters; a call over a level's
+                capacity raising on readback and the next one served; the
+                train step refused at build;
  13. serving  — the full-width recipe WireframePredictor (random weights
                 from a numpy seed, carried over through the flax bridge)
                 serves synthetic .xyz clouds across all four point
@@ -1527,9 +1540,11 @@ def ptv3_config(extra=()):
     return load_config(RECIPE, sets + list(extra))
 
 
-def ptv3_split(torch, call, trace_dir, label, card):
-    """Profile one call: the five spans inside the encoder's, every
-    launch found on the host (`tools/trace_ops`), device ms by span."""
+def ptv3_split(torch, call, trace_dir, label, card, spans=PTV3_SPANS,
+               model="ptv3"):
+    """Profile one call: the backbone's five spans inside the encoder's,
+    every launch found on the host (`tools/trace_ops`), device ms by
+    span."""
     from torch.profiler import ProfilerActivity, profile
 
     from wireframe_tpu_torch.tools.trace_ops import (
@@ -1552,19 +1567,19 @@ def ptv3_split(torch, call, trace_dir, label, card):
               and e.get("cat") == "user_annotation"]
     enc = [(a, b) for n, a, b in ranges if n == "encoder"]
     assert len(enc) == 1, ranges
-    for name in PTV3_SPANS:
+    for name in spans:
         inside = [(a, b) for n, a, b in ranges if n == name]
         assert inside and all(enc[0][0] <= a and b <= enc[0][1]
                               for a, b in inside), name
     totals, _, span_us, span_own = aggregate_device_events(trace_dir)
     lost = sum(span_own.get(NOT_FOUND, {}).values())
-    assert lost == 0 and all(n in span_us for n in PTV3_SPANS), (
+    assert lost == 0 and all(n in span_us for n in spans), (
         lost, sorted(span_us))
-    print(f"ptv3 {label} device ms by span (inclusive, self; trace_ops; "
+    print(f"{model} {label} device ms by span (inclusive, self; trace_ops; "
           "every launch found): "
           + ", ".join(f"{n} {span_us.get(n, 0) / 1e3:.2f} "
                       f"{sum(span_own.get(n, {}).values()) / 1e3:.2f}"
-                      for n in ("encoder",) + PTV3_SPANS
+                      for n in ("encoder",) + spans
                       + ("vertex_head", "edge_head"))
           + f"; outside every span {span_us.get(NO_SPAN, 0) / 1e3:.2f}"
           f"; total {sum(totals.values()) / 1e3:.2f} [{card}]",
@@ -1919,6 +1934,223 @@ def ptv3_phase(torch, dev, card, work):
           flush=True)
     return {"gaps": gaps, "pair_mlp_launches": launches,
             "forwards": forwards, "subm_conv": convs, "neighbour_map": maps}
+
+
+# The PTv2 phase's bounds on the program against the benchmark's plain
+# reference, both bf16 with f32 accumulation: the cell's correctness
+# limits (port_bench/limits/ptv2-infer-b128-16k.json).
+PTV2_LIMITS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "port_bench", "limits", "ptv2-infer-b128-16k.json")
+PTV2_SPANS = ("grid_sample", "knn", "gva", "grid_pool", "grid_unpool")
+# kNN searches a ptv2 forward: one a level (the patch embed's and the
+# four encoder stages').
+KNN_SEARCHES = 5
+
+
+def ptv2_config(extra=()):
+    """The benchmark's ptv2 configuration (the recipe with Point
+    Transformer V2 as its backbone, published widths) as overrides."""
+    with open(os.path.join(os.path.dirname(RECIPE), os.pardir,
+                           "port_bench", "configs", "ptv2.json")) as f:
+        model = json.load(f)["model"]
+    sets = ["model.encoder=ptv2", "data.num_points=16384"]
+    for k, v in model.items():
+        if k.startswith("ptv2_"):
+            sets.append(f"model.{k}=" + (",".join(map(str, v))
+                                         if isinstance(v, list) else str(v)))
+    from wireframe_tpu_torch.config import load_config
+
+    return load_config(RECIPE, sets + list(extra))
+
+
+def knn_bound_ms(m, k):
+    """Least time for one search on M capacity rows: the coordinates,
+    cloud id and validity read once (21 bytes a row), the indices
+    written once (8 bytes a slot)."""
+    return _bound(0.0, 21 * m + 8 * m * k, False)
+
+
+def knn_shapes(torch, card, call, label):
+    """Hold the kernel's indices at every kNN search of one `call()` to
+    `knn_plain` on the same tensors (`torch.equal`); time both beside the
+    bound.  Returns the per-level records."""
+    from wireframe_tpu_torch.ops import knn as knn_op
+
+    seen = []
+    real = knn_op.knn
+
+    def capture(*args):
+        out = real(*args)
+        seen.append((args, out))
+        return out
+
+    with mock.patch.object(knn_op, "knn", capture):
+        call()
+        torch.cuda.synchronize()
+    if len(seen) != KNN_SEARCHES:
+        raise AssertionError(f"knn: {len(seen)} searches in a forward, not "
+                             f"{KNN_SEARCHES}")
+    rows = []
+    for level, (args, got) in enumerate(seen):
+        xyz, batch, offsets, k = args
+        m = xyz.shape[0]
+        with torch.inference_mode():
+            want = knn_op.knn_plain(*args)
+            equal = bool(torch.equal(got, want))
+            real_slots = int((got >= 0).sum())
+            del want
+            ms = cuda_ms(torch, lambda: knn_op.knn(*args), 10)
+            plain_ms = cuda_ms(torch, lambda: knn_op.knn_plain(*args), 1)
+        bound, _ = knn_bound_ms(m, k)
+        row = {"level": level, "shape": f"M={m} K={k}",
+               "valid": int(offsets[-1]), "real_slots": real_slots,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "pct_of_bound": 100.0 * bound / ms, "equal": equal}
+        rows.append(row)
+        print(f"knn {label} level {level} (M={m}, K={k}, {row['valid']} "
+              f"real rows, {real_slots} real slots): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms, "
+              f"{row['pct_of_bound']:.2f}% of bound; torch.equal to the "
+              f"plain version: {equal} [{card}]", flush=True)
+        if not equal:
+            raise AssertionError(f"knn {label} level {level}: the kernel's "
+                                 "indices differ from the plain version's")
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"knn {label}, the {KNN_SEARCHES} searches of a call: kernel "
+          f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.4f} ms, "
+          f"{100.0 * total['bound_ms'] / total['ms']:.2f}% of bound "
+          f"[{card}]", flush=True)
+    return rows
+
+
+def ptv2_phase(torch, dev, card, work):
+    """Point Transformer V2 as the recipe's backbone at its published
+    widths: at (8, 16384) and (128, 16384) every kNN search held to its
+    plain version (`knn_shapes`), 5 kNN launches a forward in the launch
+    registry and 5 `knn_kernel` (and one `pair_mlp_kernel`) in a profile,
+    the forward under CUDA's sync debug mode "error", ms, peak memory and
+    the device counters; at (8, 16384) the forward against the
+    benchmark's plain reference within the cell's limits and the five
+    spans inside the encoder's; a call over a level's capacity raises on
+    readback and the next call is served; `make_train_step` refuses the
+    configuration.  Returns the gaps and the per-search records."""
+    from port_bench.drivers.common import FORWARD_KEYS, forward_gaps
+    from port_bench.drivers.infer_ptv3 import build_model, ptv3_batch
+    from port_bench.reference import ptv2 as ref_ptv2
+    from port_bench.reference.model import Precision
+    from wireframe_tpu_torch.models.ptv3 import (
+        CapacityOverflow,
+        capacity_rows,
+        raise_on_overflow,
+    )
+    from wireframe_tpu_torch.train.step import make_forward_fn
+
+    t0 = time.perf_counter()
+    with open(PTV2_LIMITS) as f:
+        limits = {k: v for k, v in json.load(f).items()
+                  if not k.startswith("_")}
+    cfg = ptv2_config()
+    rng = np.random.default_rng(23)
+    model, weights = build_model(cfg, 23, dev)
+    model.eval()
+    fwd = make_forward_fn(cfg)
+    searches, forwards = {}, 0
+    gaps = None
+    for b in (8, 128):
+        xb = torch.from_numpy(ptv3_batch(rng, b, 16384, 0.25)).to(dev)
+        out = fwd(model, xb)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fwd(model, xb)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if b == 8:
+            prog = {k: out[k].float().cpu().numpy() for k in FORWARD_KEYS}
+            m = dataclasses.asdict(cfg.model)
+            p = Precision(torch.bfloat16)
+            with torch.no_grad(), p.matmul_mode():
+                ref = ref_ptv2.forward(p, weights, m, xb)
+            gaps = forward_gaps(prog, ref, b)
+            print(f"ptv2 (8, 16384) against the reference: {gaps}, limits "
+                  f"{limits} [{card}]", flush=True)
+            bad = {k: v for k, v in gaps.items() if v > limits[k]}
+            assert not bad, bad
+            ptv3_split(torch, lambda: fwd(model, xb),
+                       os.path.join(work, "ptv2_8"), "(8, 16384)", card,
+                       PTV2_SPANS, "ptv2")
+        torch.cuda.reset_peak_memory_stats(dev)
+        model.encoder.backbone.reset_counters()
+        calls = [0]
+
+        def timed():
+            calls[0] += 1
+            return fwd(model, xb)
+
+        keys = ("pair MLP", "knn")
+        before = launch_counts(keys)
+        ms = cuda_ms(torch, timed, 3)
+        pair, knn = (launch_counts(keys)[k] - before[k] for k in keys)
+        if pair != calls[0] or knn != KNN_SEARCHES * calls[0]:
+            raise AssertionError(f"ptv2 ({b}, 16384): {pair} pair MLP and "
+                                 f"{knn} knn launches in {calls[0]} "
+                                 f"forwards")
+        forwards += calls[0]
+        c = model.encoder.backbone.counters()
+        caps = [capacity_rows(f, b * 16384) for f in cfg.model.ptv2_capacity]
+        print(f"ptv2 forward ({b}, 16384): {ms:.2f} ms, "
+              f"{1e3 * b / ms:.1f} clouds/s, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
+              f"rows a call by level "
+              f"{[c[f'rows.level{i}'] // c['calls'] for i in range(5)]} of "
+              f"{caps}, most {[c[f'rows_max.level{i}'] for i in range(5)]}, "
+              f"GVA slots real {c['gva_real_slots'] // c['calls']} of "
+              f"{c['gva_slots'] // c['calls']} a call, dropped by grid "
+              f"sampling {100 * c['grid_dropped'] / c['input_rows']:.1f} %, "
+              f"pair MLP launches {pair} and knn launches {knn} in "
+              f"{calls[0]} forwards [{card}]", flush=True)
+        searches[b] = knn_shapes(torch, card, lambda: fwd(model, xb),
+                                 f"({b}, 16384)")
+        kernels = device_launches(torch, lambda: fwd(model, xb),
+                                  ("pair_mlp_kernel", "knn_kernel"))
+        print(f"ptv2 ({b}, 16384): device kernels in one forward "
+              f"{kernels} [{card}]", flush=True)
+        assert kernels == {"pair_mlp_kernel": 1,
+                           "knn_kernel": KNN_SEARCHES}, kernels
+        del xb, out
+
+    small = ptv2_config([f"model.ptv2_capacity={','.join(['0.02'] * 5)}"])
+    smodel, _ = build_model(small, 23, dev)
+    smodel.eval()
+    sfwd = make_forward_fn(small)
+    x = torch.from_numpy(ptv3_batch(rng, 8, 16384, 0.25)).to(dev)
+    try:
+        raise_on_overflow(sfwd(smodel, x))
+        raise AssertionError("ptv2: a call over capacity did not raise")
+    except CapacityOverflow:
+        pass
+    tiny = torch.zeros_like(x)
+    tiny[:, :64] = x[:, :64]
+    after = sfwd(smodel, tiny)
+    raise_on_overflow(after)
+    assert bool(torch.isfinite(after["vertices"]).all())
+    print(f"ptv2 capacity 0.02: (8, 16384) raised CapacityOverflow on "
+          f"readback, then (8, 64 points) served [{card}]", flush=True)
+    del smodel
+
+    from wireframe_tpu_torch.train.step import make_train_step
+
+    try:
+        make_train_step(cfg)
+        raise AssertionError("ptv2: make_train_step built a step")
+    except ValueError as e:
+        assert "X-ptv2-train" in str(e), e
+    print(f"ptv2 train step refused at build; phase "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return {"gaps": gaps, "forwards": forwards, "knn": searches}
 
 
 def pair_mlp_phase(torch, dev, card, work):
@@ -5864,7 +6096,7 @@ def main() -> int:
         built = _build.build_all(["fused_encoder", "chain_grad",
                                   "lockstep_lsa", "layernorm_rows",
                                   "pair_mlp", "subm_conv",
-                                  "neighbour_map"])
+                                  "neighbour_map", "knn"])
         print(f"build: {len(built)} libraries in "
               f"{time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
         for name, (path, secs, log) in built.items():
@@ -5929,6 +6161,9 @@ def main() -> int:
 
         phase = "ptv3"
         ptv3 = ptv3_phase(torch, dev, card, work)
+
+        phase = "ptv2"
+        ptv2 = ptv2_phase(torch, dev, card, work)
 
         phase = "serving"
         launches, batches = serving_phase(torch, dev, card, work)
@@ -6131,6 +6366,17 @@ def main() -> int:
                for k in ("ms", "plain_ms", "bound_ms")},
             "shape": f"the {NEIGHBOUR_MAPS} maps of a (128, 16384) call",
             "equal": all(r["equal"] for r in nmap), "library_ms": None})
+        searches = ptv2["knn"][128]
+        kernels.append({
+            "name": "kNN search (PTv2 levels)", "route": "cuda",
+            "source": f"{src}knn.cu",
+            "replaces": "none (the JAX package has no PTv2)",
+            "launches": KNN_SEARCHES * ptv2["forwards"],
+            "forwards": ptv2["forwards"],
+            **{k: sum(r[k] for r in searches)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "shape": f"the {KNN_SEARCHES} searches of a (128, 16384) call",
+            "equal": all(r["equal"] for r in searches), "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:
         traceback.print_exc()

@@ -22,8 +22,9 @@ is written as a port checkpoint (`save_port_checkpoint`) that
 `serve.WireframePredictor` serves.  `flax_param_shapes` lists the JAX
 package's tree for every model shape it builds: the query decoder
 unrolled, with fused cross-attention K/V, scanned, or both, and the
-MLP head; and the port's own PTv3 encoder (`model.encoder: ptv3`), whose
-backbone leaves keep their torch names and layouts.
+MLP head; and the port's own PTv3 and PTv2 encoders (`model.encoder:
+ptv3` or `ptv2`), whose backbone leaves keep their torch names and
+layouts.
 
 The port's checkpoint is a directory with `params.npz` (flax paths ->
 float32 arrays) and `config.json` (`config_to_dict` layout).  Reading
@@ -49,7 +50,8 @@ _RAW_KERNELS = ("edge_predictor/Dense_2/kernel",)
 _HEAD_INPUT = ("out", "cross_out")
 # The scanned decoder's stacked leaves (`model.decoder_scan`).
 SCANNED = "vertex_decoder/blocks/"
-# BatchNorm running statistics (the ptv3 backbone): buffers, not params.
+# BatchNorm running statistics (the ptv3 and ptv2 backbones): buffers,
+# not params.
 _STATISTICS = ("/running_mean", "/running_var")
 
 
@@ -151,7 +153,7 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         into[f"{path}/out/bias"] = (d,)
 
     prev, c = cfg.input_dim, cfg.encoder_output_dim
-    if cfg.encoder == "ptv3":
+    if cfg.encoder != "pointnet":
         # A port-only tree: the backbone's state_dict (BatchNorm running
         # statistics included) under its own names, `/` for `.`.
         from wireframe_tpu_torch.models.wireframe import PointCloudToWireframe
@@ -161,7 +163,7 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         for k, v in backbone.state_dict().items():
             shapes["encoder/backbone/" + k.replace(".", "/")] = tuple(v.shape)
         prev = backbone.out_channels
-    for i, h in enumerate(() if cfg.encoder == "ptv3"
+    for i, h in enumerate(() if cfg.encoder != "pointnet"
                           else cfg.encoder_hidden_dims):
         shapes[f"encoder/stage{i}_w"] = (prev, h)
         for k in ("b", "ln_scale", "ln_bias"):

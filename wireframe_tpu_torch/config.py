@@ -178,6 +178,29 @@ class ModelConfig:
     ptv3_drop_path: float = 0.3
     ptv3_grid_size: float = 0.02
     ptv3_capacity: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0)
+    # "ptv2": Point Transformer V2 (models/ptv2.py, `PT-v2m2`), whose
+    # 48-channel output the encoder projects to encoder_output_dim.  The
+    # ptv2_ keys are Pointcept's `PointTransformerV2` arguments (defaults:
+    # its ScanNet base config; qkv bias, the positional bias without the
+    # multiplier, the map unpooling and drop path 0.3 are constants of
+    # models/ptv2.py); `ptv2_grid_size` is the grid sampling before the
+    # backbone and `ptv2_capacity` each level's packed rows as a share of
+    # B * N, as `ptv3_capacity` (1.0 can never overflow).
+    ptv2_patch_embed_depth: int = 1
+    ptv2_patch_embed_channels: int = 48
+    ptv2_patch_embed_groups: int = 6
+    ptv2_patch_embed_neighbours: int = 8
+    ptv2_enc_depths: Tuple[int, ...] = (2, 2, 6, 2)
+    ptv2_enc_channels: Tuple[int, ...] = (96, 192, 384, 512)
+    ptv2_enc_groups: Tuple[int, ...] = (12, 24, 48, 64)
+    ptv2_enc_neighbours: Tuple[int, ...] = (16, 16, 16, 16)
+    ptv2_dec_depths: Tuple[int, ...] = (1, 1, 1, 1)
+    ptv2_dec_channels: Tuple[int, ...] = (48, 96, 192, 384)
+    ptv2_dec_groups: Tuple[int, ...] = (6, 12, 24, 48)
+    ptv2_dec_neighbours: Tuple[int, ...] = (16, 16, 16, 16)
+    ptv2_grid_sizes: Tuple[float, ...] = (0.06, 0.12, 0.24, 0.48)
+    ptv2_grid_size: float = 0.02
+    ptv2_capacity: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0)
 
 
 @dataclass
@@ -384,14 +407,23 @@ def load_config(yaml_path: Optional[str] = None,
 
 PORT_ONLY_MODEL_KEYS = tuple(
     f.name for f in dataclasses.fields(ModelConfig)
-    if f.name == "encoder" or f.name.startswith("ptv3_"))
+    if f.name == "encoder" or f.name.startswith(("ptv3_", "ptv2_")))
+
+
+def unused_model_keys(encoder: str) -> Tuple[str, ...]:
+    """The port-only keys a model with this point backbone does not read:
+    all of them for "pointnet" (whose tree so stays the JAX package's),
+    the other backbone's `ptv*_` keys otherwise."""
+    if encoder == "pointnet":
+        return PORT_ONLY_MODEL_KEYS
+    return tuple(k for k in PORT_ONLY_MODEL_KEYS
+                 if k != "encoder" and not k.startswith(encoder + "_"))
 
 
 def config_to_dict(cfg: Config) -> dict:
     out = dataclasses.asdict(cfg)
-    if cfg.model.encoder == "pointnet":
-        for key in PORT_ONLY_MODEL_KEYS:
-            del out["model"][key]
+    for key in unused_model_keys(cfg.model.encoder):
+        del out["model"][key]
     return out
 
 

@@ -56,6 +56,7 @@ from wireframe_tpu_torch.ops.masked_pool import (
     masked_mean,
     point_validity_mask,
 )
+from wireframe_tpu_torch.ops.voxel import DROP_SINKS, spread_drops
 from wireframe_tpu_torch.parallel.collective_audit import (
     gather_over_ranks,
     sum_over_ranks,
@@ -308,8 +309,9 @@ class PointNetEncoder(nn.Module):
 
 class PTv3Encoder(nn.Module):
     """The recipe's encoder with Point Transformer V3 in the point MLP's
-    place: the backbone (`models.ptv3`) on the clouds' grid-sampled rows,
-    its features projected to `output_dim` (proj_w (C, out), proj_b; the
+    place: the backbone (`models.ptv3`, or `models.ptv2`'s Point
+    Transformer V2, which returns the same) on the clouds' grid-sampled
+    rows, its features projected to `output_dim` (proj_w (C, out), proj_b; the
     product in the compute dtype, the bias added in float32), then the
     masked pools and the fusion MLP as `PointNetEncoder` computes them.
     The rows the backbone does not keep (padding, and the rows grid
@@ -346,14 +348,15 @@ class PTv3Encoder(nn.Module):
         rows.scatter_(0, slot, torch.arange(b * n, device=x.device))
         rows = rows[:m]
         cloud = torch.div(rows, n, rounding_mode="floor")
-        sums = f.new_zeros((b + 1, c)).index_add_(0, cloud, f)[:b]
+        sums = f.new_zeros((b + DROP_SINKS, c)).index_add_(
+            0, spread_drops(cloud, b), f)[:b]
         count = torch.clamp_min(kept.sum(-1, dtype=torch.float32), 1.0)
         pooled = {"masked_mean": sums / count[:, None], OVERFLOW: over}
         w = self.kv_pool
         if w > 1:
             nw = -(-n // w)
-            win = cloud * nw + (rows - cloud * n) // w
-            kv = f.new_zeros((b * nw + 1, c)).scatter_reduce(
+            win = spread_drops(cloud * nw + (rows - cloud * n) // w, b * nw)
+            kv = f.new_zeros((b * nw + DROP_SINKS, c)).scatter_reduce(
                 0, win[:, None].expand(-1, c), f, reduce="amax",
                 include_self=False)[:b * nw].reshape(b, nw, c)
             pad = nw * w - n

@@ -94,9 +94,9 @@ def raise_on_overflow(outputs) -> None:
     flag = outputs.get(OVERFLOW)
     if flag is not None and bool(flag):
         raise CapacityOverflow(
-            "PTv3: a stage's rows exceed its capacity (model.ptv3_capacity) "
-            "or a grid coordinate is 2**16 or more; this call's outputs "
-            "leave rows out")
+            "a stage's rows exceed its capacity (model.ptv3_capacity or "
+            "model.ptv2_capacity) or a grid coordinate is 2**16 or more; "
+            "this call's outputs leave rows out")
 
 
 def capacity_rows(fraction: float, rows: int) -> int:

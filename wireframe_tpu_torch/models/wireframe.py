@@ -22,6 +22,7 @@ from torch import nn
 from wireframe_tpu_torch.config import ModelConfig
 from wireframe_tpu_torch.models.edge_head import EdgePredictor
 from wireframe_tpu_torch.models.encoder import PointNetEncoder, PTv3Encoder
+from wireframe_tpu_torch.models.ptv2 import PTv2Backbone
 from wireframe_tpu_torch.models.ptv3 import OVERFLOW, PTv3Backbone
 from wireframe_tpu_torch.models.vertex_head import VertexPredictor
 from wireframe_tpu_torch.models.vertex_query_head import QueryVertexDecoder
@@ -44,9 +45,30 @@ class PointCloudToWireframe(nn.Module):
             raise ValueError(f"unknown slot_mask_mode {cfg.slot_mask_mode!r}")
         self.config = cfg
         dt = torch_dtype(cfg.compute_dtype)
-        if cfg.encoder not in ("pointnet", "ptv3"):
+        if cfg.encoder not in ("pointnet", "ptv3", "ptv2"):
             raise ValueError(f"unknown encoder {cfg.encoder!r}")
-        if cfg.encoder == "ptv3":
+        if cfg.encoder == "ptv2":
+            self.encoder = PTv3Encoder(
+                PTv2Backbone(
+                    in_channels=cfg.input_dim,
+                    patch_embed_depth=cfg.ptv2_patch_embed_depth,
+                    patch_embed_channels=cfg.ptv2_patch_embed_channels,
+                    patch_embed_groups=cfg.ptv2_patch_embed_groups,
+                    patch_embed_neighbours=cfg.ptv2_patch_embed_neighbours,
+                    enc_depths=cfg.ptv2_enc_depths,
+                    enc_channels=cfg.ptv2_enc_channels,
+                    enc_groups=cfg.ptv2_enc_groups,
+                    enc_neighbours=cfg.ptv2_enc_neighbours,
+                    dec_depths=cfg.ptv2_dec_depths,
+                    dec_channels=cfg.ptv2_dec_channels,
+                    dec_groups=cfg.ptv2_dec_groups,
+                    dec_neighbours=cfg.ptv2_dec_neighbours,
+                    grid_sizes=cfg.ptv2_grid_sizes,
+                    grid_size=cfg.ptv2_grid_size,
+                    capacity=cfg.ptv2_capacity, dtype=dt),
+                output_dim=cfg.encoder_output_dim, dtype=dt,
+                kv_pool=cfg.decoder_kv_pool if query else 0)
+        elif cfg.encoder == "ptv3":
             self.encoder = PTv3Encoder(
                 PTv3Backbone(
                     in_channels=cfg.input_dim,
@@ -194,6 +216,7 @@ class PointCloudToWireframe(nn.Module):
         if point_features is not None:
             out["point_features"] = point_features
         if OVERFLOW in pooled:
-            # The ptv3 encoder's flag; `ptv3.raise_on_overflow` reads it.
+            # The ptv3 or ptv2 encoder's flag; `ptv3.raise_on_overflow`
+            # reads it.
             out[OVERFLOW] = pooled[OVERFLOW]
         return out

@@ -1,5 +1,7 @@
 """Voxels of a packed batch of clouds: grid sampling, space-filling-curve
-codes, submanifold neighbour maps and segment reductions.
+codes, submanifold neighbour maps and segment reductions; for Point
+Transformer V2, grid cells of continuous coordinates (`grid_clusters`),
+segment means and the packed clouds' row offsets.
 
 All of it is PyTorch ops, on any device, except the neighbour map of a
 CUDA tensor: `neighbour_map` launches `csrc/neighbour_map.cu` there (a
@@ -194,14 +196,30 @@ def scatter_rows(values: torch.Tensor, slot: torch.Tensor, capacity: int,
     return out[:capacity]
 
 
+# Rows past the kept ones that a segment reduction sends its dropped rows
+# to (`spread_drops`).
+DROP_SINKS = 1024
+
+
+def spread_drops(slot: torch.Tensor, capacity: int) -> torch.Tensor:
+    """`slot` with each entry at `capacity` (a dropped row) sent to one of
+    `DROP_SINKS` rows past it, by its position: a level's dummy rows (~30%
+    of its capacity) would otherwise queue their atomics on one address,
+    in a time that grows with their number and so with the clouds."""
+    sink = capacity + torch.arange(slot.shape[0], device=slot.device) \
+        % DROP_SINKS
+    return torch.where(slot < capacity, slot, sink)
+
+
 def segment_max(values: torch.Tensor, slot: torch.Tensor, capacity: int
                 ) -> torch.Tensor:
     """(capacity, C): the max of the rows of `values` sent to each slot
     (`capacity` drops the row); a slot no row reaches holds 0."""
     c = values.shape[-1]
-    out = values.new_zeros((capacity + 1, c))
-    out = out.scatter_reduce(0, slot[:, None].expand(-1, c), values,
-                             reduce="amax", include_self=False)
+    out = values.new_zeros((capacity + DROP_SINKS, c))
+    out = out.scatter_reduce(
+        0, spread_drops(slot, capacity)[:, None].expand(-1, c), values,
+        reduce="amax", include_self=False)
     return out[:capacity]
 
 
@@ -304,6 +322,52 @@ def _launch_map(key, grid, batch, valid, size):
           "neighbour map")
     count("neighbour map")
     return nbr, work[0]
+
+
+def grid_clusters(xyz: torch.Tensor, batch: torch.Tensor,
+                  valid: torch.Tensor, clouds: int, grid_size: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grid cells of rows at continuous coordinates (Point Transformer V2's
+    GridPool): cell = floor((xyz - the cloud's start) / grid_size) in
+    float32, the start the least coordinate over the cloud's valid rows.
+
+    Returns (key (M,) int64: batch << 48 | x << 32 | y << 16 | z, so rows
+    sorted by key hold each cloud's cells in (x, y, z) order, DUMMY_KEY on
+    invalid rows; over 0-d bool: a valid row's cell at 2^16 or more)."""
+    b = torch.where(valid, batch, torch.full_like(batch, clouds))
+    lo = xyz.new_full((clouds + DROP_SINKS, 3), torch.inf).scatter_reduce(
+        0, spread_drops(b, clouds)[:, None].expand(-1, 3), xyz,
+        reduce="amin", include_self=True)
+    cell = torch.floor((xyz - lo[b]) / grid_size)
+    cell = torch.where(valid[:, None] & torch.isfinite(cell), cell,
+                       torch.zeros_like(cell)).long().clamp_min(0)
+    over = (cell >= (1 << COORD_BITS)).any()
+    cell = cell & 0xFFFF
+    key = ((b << BATCH_SHIFT) | (cell[:, 0] << 32) | (cell[:, 1] << 16)
+           | cell[:, 2])
+    return torch.where(valid, key, torch.full_like(key, DUMMY_KEY)), over
+
+
+def segment_mean(values: torch.Tensor, slot: torch.Tensor, capacity: int
+                 ) -> torch.Tensor:
+    """(capacity, C): the mean of the rows of `values` sent to each slot
+    (`capacity` drops the row), summed in float64 and rounded once to
+    `values`' dtype, so the order of the sum does not show; a slot no row
+    reaches holds 0."""
+    c = values.shape[-1]
+    slot = spread_drops(slot, capacity)
+    sums = values.new_zeros((capacity + DROP_SINKS, c), dtype=torch.float64)
+    sums.index_add_(0, slot, values.double())
+    n = values.new_zeros((capacity + DROP_SINKS,), dtype=torch.float64)
+    n.index_add_(0, slot, torch.ones_like(slot, dtype=torch.float64))
+    return (sums[:capacity] / n[:capacity].clamp_min(1.0)[:, None]).to(
+        values.dtype)
+
+
+def cloud_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """(B + 1,) int64: each cloud's first packed row, then the real
+    rows' count, for clouds packed one after another."""
+    return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
 
 
 def cloud_counts(batch: torch.Tensor, valid: torch.Tensor, clouds: int

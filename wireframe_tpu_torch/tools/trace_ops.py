@@ -4,9 +4,9 @@ Port of the repository's `tools/trace_ops.py`.  Profiles N train steps
 (`utils.profiling.trace`, CPU + CUDA activities), reads the exported
 Chrome trace back, sums the device time of every kernel, copy and memset
 by name, and sorts the names into groups (`GROUPS`): the port's kernels
-K1, K2/K3/K5, K4, the pair MLP and PTv3's maps and convs, the library
-GEMMs, attention / softmax, elementwise / reduce, copy / cast and the
-rest, so the step's milliseconds have names.
+K1, K2/K3/K5, K4, the pair MLP, PTv3's maps and convs and PTv2's kNN,
+the library GEMMs, attention / softmax, elementwise / reduce, copy /
+cast and the rest, so the step's milliseconds have names.
 When it captures the trace itself it also prints the profiler's own
 device total (`utils.profiling.device_rows`), which the groups must sum
 to.
@@ -62,7 +62,7 @@ GROUPS = (
     # counts them under the chain; a train step runs no K1.  The edge
     # head's pair MLP at inference is csrc/pair_mlp.cu's pair_mlp_kernel;
     # PTv3's neighbour maps and submanifold convs, csrc/neighbour_map.cu's
-    # and csrc/subm_conv.cu's kernels.
+    # and csrc/subm_conv.cu's kernels; PTv2's kNN search, csrc/knn.cu's.
     ("K4 (lockstep JV)", re.compile(r"lsa_kernel")),
     ("K1 (fused encoder)", re.compile(
         r"k1_finalize|wgmma_chain_kernel<0, 3")),
@@ -72,6 +72,7 @@ GROUPS = (
     ("pair MLP (edge head)", re.compile(r"pair_mlp_kernel")),
     ("PTv3 maps and convs", re.compile(
         r"nbr_table_kernel|nbr_query_kernel|subm_conv_kernel")),
+    ("PTv2 kNN", re.compile(r"knn_kernel")),
     ("library GEMM (cuBLAS / CUTLASS)", re.compile(
         r"gemm|gemv|nvjet|cutlass|cublas|xmma|splitKreduce|dot_kernel",
         re.I)),

@@ -48,10 +48,10 @@ from wireframe_tpu_torch.bridge import (
     state_dict_to_flax,
 )
 from wireframe_tpu_torch.config import (
-    PORT_ONLY_MODEL_KEYS,
     Config,
     apply_saved_model_config,
     config_to_dict,
+    unused_model_keys,
 )
 from wireframe_tpu_torch.train.state import TrainState
 
@@ -242,8 +242,9 @@ def apply_checkpoint_model_config(cfg: Config, meta: dict) -> Config:
     saved = meta.get("config", {})
     model = saved.get("model")
     if model:
-        # A pointnet tree leaves the port-only keys out by design.
-        skip = () if "encoder" in model else PORT_ONLY_MODEL_KEYS
+        # A tree leaves out the port-only keys its backbone does not read
+        # (a pointnet tree all of them) by design.
+        skip = unused_model_keys(model.get("encoder", "pointnet"))
         stale = sorted(k for k in vars(cfg.model)
                        if k not in model and k not in skip)
         if stale:

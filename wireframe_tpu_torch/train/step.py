@@ -156,6 +156,9 @@ def make_train_step(cfg, steps_per_epoch: int = 1,
     and dropout draws; with `layout`, seeded alike on every rank).  The
     state is updated in place and returned.
     """
+    if cfg.model.encoder == "ptv2":
+        raise ValueError("model.encoder=ptv2 runs at inference only: its "
+                         "training step is ROADMAP X-ptv2-train")
     loss_cfg = loss_config(cfg)
     do_augment = cfg.train.device_augment and cfg.data.augment
     optimizer = Optimizer(cfg, steps_per_epoch)
