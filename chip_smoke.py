@@ -146,8 +146,12 @@ Phases (any failure exits nonzero and prints no final `ok` line):
                 backbone at its published widths (`model.encoder: ptv2`):
                 the kNN kernel (knn.cu) at every level of an (8, 16384)
                 and a (128, 16384) call torch.equal to `knn_plain`, its ms
-                beside its bound and the plain version's; 5 launches a
-                forward (5 knn_kernel and one pair_mlp_kernel on the
+                beside its bound and the plain version's; the GVA kernel
+                (gva.cu) at every GVA of the same calls within 0.01 of
+                `gva_plain` in bf16, its skipped rows those without a
+                neighbour, its ms beside its bound and the plain
+                version's; 5 knn and 17 gva launches a forward (5
+                knn_kernel, 17 gva_kernel and one pair_mlp_kernel on the
                 device); the forward at (8, 16384) against the benchmark's
                 plain reference (`port_bench/reference/ptv2.py`) within
                 the cell's limits; both forwards under CUDA's sync debug
@@ -2025,11 +2029,116 @@ def knn_shapes(torch, card, call, label):
     return rows
 
 
+# GVAs a ptv2 forward: the patch embed's 1, the encoder's 2 + 2 + 6 + 2
+# and the decoder's 4 blocks.
+GVA_CALLS = 17
+# The largest gap of the GVA kernel's output to its plain version's, both
+# bf16 (the plain version's own gap to float32 is printed beside it).
+GVA_GAP = 0.01
+
+
+def gva_bound_ms(m, c, g, k, real_slots):
+    """Least time for one GVA on M capacity rows: the products on the
+    real neighbour slots (pe1, pe2, we1, we2 and the weighted sum) at the
+    bf16 peak, or q, k and v read once in bf16, xyz (12 bytes a row), the
+    indices (8 bytes a slot), the weights once (f32) and the output
+    written once (f32) at HBM rate."""
+    flops = 2.0 * real_slots * (3 * c + c * c + c * g + g * g + c)
+    nbytes = (m * (3 * 2 * c + 12 + 8 * k + 4 * c)
+              + 4 * (c * c + g * c + g * g + 20 * c + 6 * g))
+    return _bound(flops, nbytes, False)
+
+
+def gva_shapes(torch, card, call, label):
+    """Hold the GVA kernel's output at every GVA of one `call()` to
+    `gva_plain` on the same inputs (bf16; the largest gap within
+    GVA_GAP), with the plain version's own gap to float32 beside it, and
+    its counters to the level's real slots, slots and the rows of warps
+    without a neighbour; time both beside the bound.  Returns the
+    per-call records."""
+    from wireframe_tpu_torch.ops import gva as gva_op
+
+    seen = []
+    real = gva_op.gva
+
+    def capture(attn, level, x, k, dt, counters=None):
+        probe = torch.zeros(3, dtype=torch.int64, device=x.device)
+        out = real(attn, level, x, k, dt, probe)
+        if counters is not None:
+            counters.add_(probe)
+        seen.append((attn, level, x, k, dt, out, probe))
+        return out
+
+    with mock.patch.object(gva_op, "gva", capture):
+        call()
+        torch.cuda.synchronize()
+    if len(seen) != GVA_CALLS:
+        raise AssertionError(f"gva: {len(seen)} calls in a forward, not "
+                             f"{GVA_CALLS}")
+    rows = []
+    for n, (attn, level, x, k, dt, got, probe) in enumerate(seen):
+        m, c = x.shape
+        g = attn.groups
+        with torch.inference_mode():
+            want = gva_op.gva_plain(attn, level, x, k, dt)
+            f32 = gva_op.gva_plain(attn, level, x, k, torch.float32)
+            gap = float((got - want).abs().max())
+            own = float((want - f32).abs().max())
+            scale = float(want.abs().max())
+            del want, f32
+            has = level.nbr[:, :k] >= 0
+            real_slots = int((has & level.valid[:, None]).sum())
+            # The rows of warps (16 / k query rows each) none of whose
+            # rows has a neighbour: the ones the kernel skips.
+            per = 16 // k
+            pad = torch.ones(-(-m // per) * per, dtype=torch.bool,
+                             device=x.device)
+            pad[:m] = ~has.any(1)
+            dead = int(pad.view(-1, per).all(1).repeat_interleave(per)[:m]
+                       .sum())
+            ms = cuda_ms(torch, lambda: gva_op.gva(attn, level, x, k, dt),
+                         10)
+            plain_ms = cuda_ms(torch, lambda: gva_op.gva_plain(
+                attn, level, x, k, dt), 1)
+        bound, by = gva_bound_ms(m, c, g, k, real_slots)
+        row = {"call": n, "shape": f"M={m} C={c} G={g} k={k}",
+               "real_slots": real_slots, "counted": probe.tolist(),
+               "skipped": int(probe[2]),
+               "dead_rows": dead, "gap": gap, "plain_vs_f32": own,
+               "scale": scale, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by,
+               "pct_of_bound": 100.0 * bound / ms}
+        rows.append(row)
+        print(f"gva {label} call {n} ({row['shape']}, {real_slots} real "
+              f"slots, {dead} rows in warps without a neighbour, counted "
+              f"{row['counted']}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
+              f"{row['pct_of_bound']:.2f}% of "
+              f"bound; largest gap to the plain version {gap:.3e} (limit "
+              f"{GVA_GAP}), the plain version's to f32 {own:.3e}, largest "
+              f"|out| {scale:.3f} [{card}]", flush=True)
+        if not gap <= GVA_GAP or row["counted"] != [real_slots, m * k,
+                                                     dead]:
+            raise AssertionError(f"gva {label} call {n}: gap {gap} over "
+                                 f"{GVA_GAP}, or counted {row['counted']} "
+                                 f"(real slots, slots, rows skipped), not "
+                                 f"{[real_slots, m * k, dead]}")
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"gva {label}, the {GVA_CALLS} GVAs of a call: kernel "
+          f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.4f} ms, "
+          f"{100.0 * total['bound_ms'] / total['ms']:.2f}% of bound "
+          f"[{card}]", flush=True)
+    return rows
+
+
 def ptv2_phase(torch, dev, card, work):
     """Point Transformer V2 as the recipe's backbone at its published
-    widths: at (8, 16384) and (128, 16384) every kNN search held to its
-    plain version (`knn_shapes`), 5 kNN launches a forward in the launch
-    registry and 5 `knn_kernel` (and one `pair_mlp_kernel`) in a profile,
+    widths: at (8, 16384) and (128, 16384) every kNN search and every GVA
+    held to its plain version (`knn_shapes`, `gva_shapes`), 5 kNN and 17
+    GVA launches a forward in the launch registry and 5 `knn_kernel`, 17
+    `gva_kernel` (and one `pair_mlp_kernel`) in a profile,
     the forward under CUDA's sync debug mode "error", ms, peak memory and
     the device counters; at (8, 16384) the forward against the
     benchmark's plain reference within the cell's limits and the five
@@ -2056,7 +2165,7 @@ def ptv2_phase(torch, dev, card, work):
     model, weights = build_model(cfg, 23, dev)
     model.eval()
     fwd = make_forward_fn(cfg)
-    searches, forwards = {}, 0
+    searches, gvas, forwards = {}, {}, 0
     gaps = None
     for b in (8, 128):
         xb = torch.from_numpy(ptv3_batch(rng, b, 16384, 0.25)).to(dev)
@@ -2090,14 +2199,15 @@ def ptv2_phase(torch, dev, card, work):
             calls[0] += 1
             return fwd(model, xb)
 
-        keys = ("pair MLP", "knn")
+        keys = ("pair MLP", "knn", "gva")
         before = launch_counts(keys)
         ms = cuda_ms(torch, timed, 3)
-        pair, knn = (launch_counts(keys)[k] - before[k] for k in keys)
-        if pair != calls[0] or knn != KNN_SEARCHES * calls[0]:
-            raise AssertionError(f"ptv2 ({b}, 16384): {pair} pair MLP and "
-                                 f"{knn} knn launches in {calls[0]} "
-                                 f"forwards")
+        pair, knn, gva = (launch_counts(keys)[k] - before[k] for k in keys)
+        if (pair != calls[0] or knn != KNN_SEARCHES * calls[0]
+                or gva != GVA_CALLS * calls[0]):
+            raise AssertionError(f"ptv2 ({b}, 16384): {pair} pair MLP, "
+                                 f"{knn} knn and {gva} gva launches in "
+                                 f"{calls[0]} forwards")
         forwards += calls[0]
         c = model.encoder.backbone.counters()
         caps = [capacity_rows(f, b * 16384) for f in cfg.model.ptv2_capacity]
@@ -2108,18 +2218,22 @@ def ptv2_phase(torch, dev, card, work):
               f"{[c[f'rows.level{i}'] // c['calls'] for i in range(5)]} of "
               f"{caps}, most {[c[f'rows_max.level{i}'] for i in range(5)]}, "
               f"GVA slots real {c['gva_real_slots'] // c['calls']} of "
-              f"{c['gva_slots'] // c['calls']} a call, dropped by grid "
-              f"sampling {100 * c['grid_dropped'] / c['input_rows']:.1f} %, "
-              f"pair MLP launches {pair} and knn launches {knn} in "
-              f"{calls[0]} forwards [{card}]", flush=True)
+              f"{c['gva_slots'] // c['calls']} a call, GVA rows skipped "
+              f"{c['gva_rows_skipped'] // c['calls']} a call, dropped by "
+              f"grid sampling {100 * c['grid_dropped'] / c['input_rows']:.1f}"
+              f" %, pair MLP launches {pair}, knn launches {knn} and gva "
+              f"launches {gva} in {calls[0]} forwards [{card}]", flush=True)
         searches[b] = knn_shapes(torch, card, lambda: fwd(model, xb),
                                  f"({b}, 16384)")
+        gvas[b] = gva_shapes(torch, card, lambda: fwd(model, xb),
+                             f"({b}, 16384)")
         kernels = device_launches(torch, lambda: fwd(model, xb),
-                                  ("pair_mlp_kernel", "knn_kernel"))
+                                  ("pair_mlp_kernel", "knn_kernel",
+                                   "gva_kernel"))
         print(f"ptv2 ({b}, 16384): device kernels in one forward "
               f"{kernels} [{card}]", flush=True)
-        assert kernels == {"pair_mlp_kernel": 1,
-                           "knn_kernel": KNN_SEARCHES}, kernels
+        assert kernels == {"pair_mlp_kernel": 1, "knn_kernel": KNN_SEARCHES,
+                           "gva_kernel": GVA_CALLS}, kernels
         del xb, out
 
     small = ptv2_config([f"model.ptv2_capacity={','.join(['0.02'] * 5)}"])
@@ -2150,7 +2264,8 @@ def ptv2_phase(torch, dev, card, work):
         assert "X-ptv2-train" in str(e), e
     print(f"ptv2 train step refused at build; phase "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
-    return {"gaps": gaps, "forwards": forwards, "knn": searches}
+    return {"gaps": gaps, "forwards": forwards, "knn": searches,
+            "gva": gvas}
 
 
 def pair_mlp_phase(torch, dev, card, work):
@@ -6096,7 +6211,7 @@ def main() -> int:
         built = _build.build_all(["fused_encoder", "chain_grad",
                                   "lockstep_lsa", "layernorm_rows",
                                   "pair_mlp", "subm_conv",
-                                  "neighbour_map", "knn"])
+                                  "neighbour_map", "knn", "gva"])
         print(f"build: {len(built)} libraries in "
               f"{time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
         for name, (path, secs, log) in built.items():
@@ -6377,6 +6492,17 @@ def main() -> int:
                for k in ("ms", "plain_ms", "bound_ms")},
             "shape": f"the {KNN_SEARCHES} searches of a (128, 16384) call",
             "equal": all(r["equal"] for r in searches), "library_ms": None})
+        gvas = ptv2["gva"][128]
+        kernels.append({
+            "name": "GVA (PTv2 blocks)", "route": "cuda",
+            "source": f"{src}gva.cu",
+            "replaces": "none (the JAX package has no PTv2)",
+            "launches": GVA_CALLS * ptv2["forwards"],
+            "forwards": ptv2["forwards"],
+            **{k: sum(r[k] for r in gvas)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "shape": f"the {GVA_CALLS} GVAs of a (128, 16384) call",
+            "max_gap": max(r["gap"] for r in gvas), "library_ms": None})
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:
         traceback.print_exc()

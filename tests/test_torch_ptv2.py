@@ -19,12 +19,16 @@ plain reference (`port_bench/reference/ptv2.py`):
   rounded to bf16 at every product, the packed and the per-cloud products
   round apart: ~0.002 seen), a bound the planted fault (the positional
   bias of encoder stage 0's first block left out) exceeds;
+- the GVA kernel's wrapper (`ops/gva.py`): its route, the model's rule
+  (`engages`) and counters, its refusals, and its blocking
+  (`csrc/gva.cu`) transcribed against `gva_plain` (the kernel itself runs
+  on the card: `chip_smoke.py`'s ptv2 phase);
 - a capacity overflow raises `CapacityOverflow` where the outputs are
   read (serving, evaluation), and the next call that fits is served;
 - `make_train_step` refuses the configuration; the reference imports
   nothing of the port and no JAX; the config keys; the cell's per-layer
-  readers and operation counts, and the cell's driver on the CPU at a cut
-  size.
+  readers (the GVA kernel's roofline among them) and operation counts,
+  and the cell's driver on the CPU at a cut size.
 """
 
 import dataclasses
@@ -524,14 +528,18 @@ def test_benchmark_configuration_is_the_recipe_with_ptv2():
 LEVEL_ROWS = [608176, 92264, 20344, 5248, 1392]
 
 
+KNN_KERNEL = ("void (anonymous namespace)::knn_kernel<16>(float const*, "
+              "long long const*, long long const*, long long*, int, int)")
+GVA_KERNEL = ("void (anonymous namespace)::gva_kernel<192, 16>((anonymous "
+              "namespace)::Params)")
+
+
 def _reading(device=((0.0, 0.001), (0.002, 0.0025)), device_name=H100,
-             window=None):
+             window=None, name=KNN_KERNEL):
     from port_bench import harness
     from port_bench.trace import Segment
 
     cell = harness.load_cell(ROOT, CELL)
-    name = ("void (anonymous namespace)::knn_kernel<16>(float const*, long "
-            "long const*, long long const*, long long*, int, int)")
     seg = Segment(device=[(name, a, b) for a, b in device]
                   + [("void at::native::vectorized_elementwise_kernel", 0.0,
                       1.0)], start=0.0, end=1.0, units=2)
@@ -564,6 +572,54 @@ def test_knn_roofline_metric_is_none(case):
                  ((0.0, 0.001),), device_name="cpu" if case == "cpu"
                  else H100, window={"ptv2_capacity_rows": None}
                  if case == "no rows" else None)
+    if case == "no segment":
+        r.segment = None
+    assert read(r) is None
+
+
+GVA_COUNTERS = {"calls": 2, **{f"knn_slots.level{i}": 2 * 16 * n * 7 // 10
+                               for i, n in enumerate(LEVEL_ROWS)}}
+
+
+def test_gva_roofline_metric_arithmetic():
+    """The 17 GVAs' products on the real slots (the level's kNN slots a
+    call, half of them at the patch embed's k = 8) at the bf16 peak, or
+    their bytes on the capacity rows at 3.35 TB/s, whichever is longer,
+    over the kernel's 0.75 ms a call."""
+    from port_bench import harness
+
+    read = harness.metric_module(ROOT, "ptv2_gva_roofline_pct.infer").read
+    gvas = ([(0, 48, 6, 8)] + [(1, 96, 12, 16)] * 2 + [(2, 192, 24, 16)] * 2
+            + [(3, 384, 48, 16)] * 6 + [(4, 512, 64, 16)] * 2
+            + [(0, 48, 6, 16), (1, 96, 12, 16), (2, 192, 24, 16),
+               (3, 384, 48, 16)])
+    flops = nbytes = 0.0
+    for lv, c, g, k in gvas:
+        slots = 16 * LEVEL_ROWS[lv] * 7 // 10 * k / 16
+        flops += 2 * slots * (3 * c + c * c + c * g + g * g + c)
+        nbytes += (LEVEL_ROWS[lv] * (2 * 3 * c + 12 + 8 * k + 4 * c)
+                   + 4 * (c * c + g * c + g * g + 20 * c + 6 * g))
+    least = max(flops / 989.4e12, nbytes / 3.35e12)
+    r = _reading(name=GVA_KERNEL, window={"ptv2_counters": GVA_COUNTERS})
+    assert read(r) == pytest.approx(100.0 * least / 0.75e-3, rel=1e-12)
+
+
+@pytest.mark.parametrize("case", ["kernel never ran", "cpu", "no segment",
+                                  "no counters", "no rows"])
+def test_gva_roofline_metric_is_none(case):
+    """None on the parent (no gva_kernel in the trace), on the CPU, and
+    where the window lacks what it reads."""
+    from port_bench import harness
+
+    read = harness.metric_module(ROOT, "ptv2_gva_roofline_pct.infer").read
+    window = {"ptv2_counters": GVA_COUNTERS}
+    if case == "no counters":
+        window["ptv2_counters"] = None
+    if case == "no rows":
+        window["ptv2_capacity_rows"] = None
+    r = _reading(name=KNN_KERNEL if case == "kernel never ran"
+                 else GVA_KERNEL, device_name="cpu" if case == "cpu"
+                 else H100, window=window)
     if case == "no segment":
         r.segment = None
     assert read(r) is None
@@ -645,3 +701,247 @@ def test_cell_driver_on_the_cpu(tmp_path):
     assert all(v <= lim for v, lim in checks.values()), checks
     fault = driver.fault_numbers()
     assert fault["vertex_gap"] > 0
+
+
+# --- the GVA kernel's wrapper, rule and blocking -----------------------------
+
+def _gva_level(c, seed=11, sizes=(1, 2, 3, 4, 17), pad=5):
+    """A GVA at width C (C / 8 groups) with seeded parameters and running
+    statistics off 0 and 1, a level of clouds of 1-4 rows (and one of 17)
+    with `pad` dummy rows and its k = 16 neighbours, and x (M, C)."""
+    from wireframe_tpu_torch.models.ptv2 import GVA, Level
+
+    gen = torch.Generator().manual_seed(seed)
+    attn = GVA(c, c // 8)
+    with torch.no_grad():
+        for name, t in attn.named_parameters():
+            fan = t.shape[-1] if t.dim() > 1 else 1
+            t.copy_(torch.randn(t.shape, generator=gen) / fan ** 0.5)
+        for name, t in attn.named_buffers():
+            if name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            else:
+                t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+    clouds = _random_clouds(seed, sizes)
+    xyz, batch, offsets = _packed(clouds, pad)
+    level = Level(xyz=xyz, batch=batch, valid=batch < len(clouds),
+                  counts=offsets[1:] - offsets[:-1])
+    level.nbr = knn_op.knn(xyz, batch, offsets, 16)
+    level.gather = torch.where(level.nbr >= 0, level.nbr,
+                               torch.full_like(level.nbr, len(xyz)))
+    x = torch.randn(len(xyz), c, generator=gen)
+    return attn.eval(), level, x
+
+
+def _gva_transcribed(attn, level, x, k, dt):
+    """csrc/gva.cu's blocking in Python: the block's parameters folded
+    from the running statistics and its weights rounded to `dt` as they
+    are staged; each warp's 16 pair rows (16 / k query rows); pe2 and then
+    we1 by chunks of 16 output columns (we1's padded to 16 groups); we1's
+    epilogue and we2 in the warp; the softmax over each query row's k
+    slots; the weighted sum in slot order; a warp whose rows have no
+    neighbour writes 0 and counts its rows.  Returns (out, rows
+    skipped)."""
+    def rd(t):
+        return t.to(dt).float()
+
+    def fold(bn):
+        scale = torch.rsqrt(bn.running_var + 1e-5) * bn.weight
+        return scale, bn.bias - bn.running_mean * scale
+
+    def lin_out(prod, bias):
+        return rd(rd(prod) + rd(bias))
+
+    m, c = x.shape
+    g = attn.groups
+    gp = -(-g // 16) * 16
+    pes, pet = fold(attn.pe_bn)
+    qs, qt = fold(attn.q_bn)
+    ks, kt = fold(attn.k_bn)
+    ws, wt = fold(attn.we_bn)
+    w1, w2 = rd(attn.pe1.weight), rd(attn.pe2.weight)
+    we1 = torch.zeros(gp, c)
+    we1[:g] = rd(attn.we1.weight)
+    be1, be2 = torch.zeros(gp), torch.zeros(gp)
+    be1[:g], be2[:g] = attn.we1.bias, attn.we2.bias
+    ws = torch.cat([ws, torch.zeros(gp - g)])
+    wt = torch.cat([wt, torch.zeros(gp - g)])
+    we2 = torch.zeros(gp, gp)
+    we2[:g, :g] = rd(attn.we2.weight)
+    xb = rd(x)
+    qp, kp, vp = (rd(xb @ rd(lin.weight).t())
+                  for lin in (attn.q, attn.k, attn.v))
+    nbr = level.nbr[:, :k]
+    out = torch.full((m, c), float("nan"))
+    skipped, per_warp = 0, 16 // k
+    for i0 in range(0, m, per_warp):
+        rows = torch.arange(i0, i0 + per_warp)
+        qrow = rows.repeat_interleave(k)                # pair row -> i
+        j = torch.full((16,), -1, dtype=torch.long)
+        real = qrow < m
+        j[real] = nbr[qrow[real], torch.arange(16)[real] % k]
+        has = j >= 0
+        if not has.any():
+            out[i0:min(i0 + per_warp, m)] = 0.0
+            skipped += min(per_warp, m - i0)
+            continue
+        qi, jj = qrow.clamp_max(m - 1), j.clamp_min(0)
+        pos = torch.where(has[:, None], level.xyz[jj] - level.xyz[qi], 0.0)
+        h = torch.relu(lin_out(rd(pos) @ w1.t(), attn.pe1.bias) * pes + pet)
+        h = rd(h)
+        peb = torch.cat([lin_out(h @ w2[s:s + 16].t(), attn.pe2.bias[s:s + 16])
+                         for s in range(0, c, 16)], 1)
+        q = torch.relu(lin_out(qp[qi], attn.q.bias) * qs + qt)
+        q = torch.where(real[:, None], q, 0.0)
+        kj = torch.relu(lin_out(kp[jj], attn.k.bias) * ks + kt)
+        kj = torch.where(has[:, None], kj, 0.0)
+        rel = rd((kj - q) + peb)
+        accw = torch.cat([rel @ we1[t:t + 16].t() for t in range(0, gp, 16)],
+                         1)
+        e = rd(torch.relu(lin_out(accw, be1) * ws + wt))
+        logits = lin_out(e @ we2.t(), be2)[:, :g].reshape(per_warp, k, g)
+        w = torch.softmax(logits, dim=1) * has.reshape(per_warp, k, 1)
+        v = torch.where(has[:, None], lin_out(vp[jj], attn.v.bias), 0.0)
+        val = (v + peb).reshape(per_warp, k, g, c // g)
+        for r in range(per_warp):
+            if i0 + r >= m:
+                break
+            acc = torch.zeros(g, c // g)
+            for s in range(k):
+                acc = acc + val[r, s] * w[r, s][:, None]
+            out[i0 + r] = acc.reshape(c)
+    return out, skipped
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 0.01)])
+@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("c", [48, 512])
+def test_gva_kernel_transcription_equals_the_plain_version(c, k, dtype, tol):
+    from wireframe_tpu_torch.ops import gva as gva_op
+
+    attn, level, x = _gva_level(c)
+    with torch.inference_mode():
+        want = gva_op.gva_plain(attn, level, x, k, dtype)
+        got, skipped = _gva_transcribed(attn, level, x, k, dtype)
+    assert (got - want).abs().max() < tol
+    dead = ~(level.nbr[:, :k] >= 0).any(1)
+    assert bool((got[dead] == 0).all()) and bool((want[dead] == 0).all())
+    # The 5 dummy rows, less one at k = 8 that shares a warp with a real
+    # row (27 real rows).
+    assert int(dead.sum()) == 5 and skipped == (5 if k == 16 else 4)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta", "cuda"])
+def test_gva_route(device, monkeypatch):
+    """A CPU tensor takes the plain version and counts no launch; a meta
+    tensor raises with the route's message; a CUDA tensor (the route
+    patched to take it, the launch stubbed) goes to the kernel."""
+    from wireframe_tpu_torch.ops import _launch
+    from wireframe_tpu_torch.ops import gva as gva_op
+
+    attn, level, x = _gva_level(48)
+    if device == "meta":
+        with pytest.raises(ValueError, match="the GVA runs on CUDA or CPU "
+                           "tensors, not meta"):
+            gva_op.gva(attn, level, x.to("meta"), 16, torch.bfloat16)
+        return
+    taken = []
+
+    def stub(*args):
+        taken.append(args)
+        return "kernel"
+
+    monkeypatch.setattr(gva_op, "_launch", stub)
+    if device == "cuda":
+        monkeypatch.setattr(gva_op, "on_card", lambda t, what: True)
+        counters = torch.zeros(3, dtype=torch.long)
+        assert gva_op.gva(attn, level, x, 16, torch.bfloat16,
+                          counters) == "kernel"
+        assert taken == [(attn, level, x, 16, torch.bfloat16, counters)]
+        return
+    before = _launch.launch_counts(["gva"])
+    with torch.inference_mode():
+        got = gva_op.gva(attn, level, x, 16, torch.bfloat16)
+        want = gva_op.gva_plain(attn, level, x, 16, torch.bfloat16)
+    assert torch.equal(got, want) and not taken
+    assert _launch.launch_counts(["gva"]) == before
+
+
+@pytest.mark.parametrize("device,dtype,grad,want", [
+    ("cuda", torch.bfloat16, False, True),
+    ("cuda", torch.float32, False, False),
+    ("cuda", torch.bfloat16, True, False),
+    ("cpu", torch.bfloat16, False, False),
+])
+def test_gva_engages(device, dtype, grad, want, monkeypatch):
+    """The kernel for CUDA, bf16 and autograd off; GVA.forward follows the
+    rule and hands the kernel the backbone's three GVA counters, or counts
+    the plain version's slots itself."""
+    from wireframe_tpu_torch.ops import gva as gva_op
+
+    assert gva_op.engages(torch.device(device), dtype, grad) is want
+    attn, level, x = _gva_level(48)
+    calls = []
+    monkeypatch.setattr(gva_op, "engages", lambda *a: want)
+    monkeypatch.setattr(gva_op, "gva",
+                        lambda *a: calls.append(a) or "kernel")
+    net = PTv2Backbone()
+    got = attn(level, x, 16, dtype, net.gva_counters())
+    c = net.counters()
+    if want:
+        assert got == "kernel" and calls[0][-1].data_ptr() == \
+            net.counter_values[4].data_ptr()
+        assert c["gva_real_slots"] == c["gva_slots"] == 0
+    else:
+        assert not calls and got.shape == x.shape
+        assert c["gva_real_slots"] == int((level.nbr >= 0).sum())
+        assert c["gva_slots"] == 16 * len(x) and c["gva_rows_skipped"] == 0
+
+
+@pytest.mark.parametrize("what", ["width", "group ratio", "k", "dtype",
+                                  "nbr layout", "xyz layout",
+                                  "parameter dtype", "counters"])
+def test_gva_wrapper_refuses(what):
+    """What the kernel does not take raises before any library loads."""
+    from wireframe_tpu_torch.models.ptv2 import GVA
+    from wireframe_tpu_torch.ops import gva as gva_op
+
+    c, k, dt, counters = 48, 16, torch.bfloat16, None
+    attn, level, x = _gva_level(c)
+    if what == "width":
+        attn, x = GVA(56, 7), torch.zeros(len(x), 56)
+    elif what == "group ratio":
+        attn = GVA(48, 12)
+    elif what == "k":
+        k = 12
+    elif what == "dtype":
+        dt = torch.float32
+    elif what == "nbr layout":
+        level.nbr = level.nbr.t().contiguous().t()
+    elif what == "xyz layout":
+        level.xyz = level.xyz.t().contiguous().t()
+    elif what == "parameter dtype":
+        attn.pe2.weight.data = attn.pe2.weight.data.double()
+    else:
+        counters = torch.zeros(2, dtype=torch.long)
+    with pytest.raises(ValueError):
+        gva_op._launch(attn, level, x, k, dt, counters)
+
+
+def test_gva_widths_cover_the_published_configuration():
+    from wireframe_tpu_torch.ops import gva as gva_op
+
+    cfg = load_config(RECIPE, ["model.encoder=ptv2"])
+    m = cfg.model
+    shapes = {(m.ptv2_patch_embed_channels, m.ptv2_patch_embed_groups,
+               m.ptv2_patch_embed_neighbours)}
+    for cs, gs, ks in ((m.ptv2_enc_channels, m.ptv2_enc_groups,
+                        m.ptv2_enc_neighbours),
+                       (m.ptv2_dec_channels, m.ptv2_dec_groups,
+                        m.ptv2_dec_neighbours)):
+        shapes |= set(zip(cs, gs, ks))
+    for c, g, k in shapes:
+        plan = gva_op.gva_plan(608176, c, g, k)
+        assert plan["smem"] <= 232448 and plan["rows"] * k == 16 * \
+            plan["warps"]

@@ -113,6 +113,8 @@ NAMES = {
     "(anonymous namespace)::Params)": "PTv3 maps and convs",
     "void (anonymous namespace)::knn_kernel<16>(float const*, long long "
     "const*, long long const*, long long*, int, int)": "PTv2 kNN",
+    "void (anonymous namespace)::gva_kernel<192, 16>((anonymous namespace)::"
+    "Params)": "PTv2 GVA",
     "nvjet_tst_128x256_64x4_1x2_h_bz_coopB_NNT":
         "library GEMM (cuBLAS / CUTLASS)",
     "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64":

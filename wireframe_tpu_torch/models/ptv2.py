@@ -58,7 +58,9 @@ share encoder stages 0-2's sets.
 Numerics: each product takes its operands in the compute dtype and
 accumulates in float32; BN (folded to a scale and a shift, in float32),
 ReLU, the relation and value sums, the softmax, the weighted sum over
-the neighbours and the residual are float32.
+the neighbours and the residual are float32.  The GVA is `ops.gva`: on a
+CUDA tensor in bf16 at inference one kernel (`csrc/gva.cu`) after the q, k
+and v products, elsewhere its plain version.
 
 Under a `torch.profiler` the work is in spans: grid_sample, knn, gva,
 grid_pool, grid_unpool.  `counters()` reads the device-side counters the
@@ -74,8 +76,11 @@ import torch
 from torch import nn
 
 from wireframe_tpu_torch.models.ptv3 import capacity_rows
+from wireframe_tpu_torch.ops import gva as gva_op
 from wireframe_tpu_torch.ops import knn as knn_op
 from wireframe_tpu_torch.ops import voxel
+from wireframe_tpu_torch.ops.gva import bn_relu as _bn_relu
+from wireframe_tpu_torch.ops.gva import linear as _linear
 from wireframe_tpu_torch.ops.masked_pool import point_validity_mask
 from wireframe_tpu_torch.utils.profiling import span
 
@@ -119,15 +124,6 @@ class BatchNorm(nn.Module):
         return torch.addcmul(shift, x.float(), scale)
 
 
-def _linear(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
-    y = torch.matmul(x.to(dtype), lin.weight.to(dtype).t())
-    return y if lin.bias is None else y + lin.bias.to(dtype)
-
-
-def _bn_relu(x: torch.Tensor, bn: BatchNorm) -> torch.Tensor:
-    return torch.relu_(bn(x))
-
-
 class GVA(nn.Module):
     def __init__(self, c: int, groups: int):
         super().__init__()
@@ -146,27 +142,19 @@ class GVA(nn.Module):
         self.we_bn = BatchNorm(groups)
         self.we2 = nn.Linear(groups, groups)
 
-    def forward(self, level: Level, x: torch.Tensor, k: int, dt
-                ) -> torch.Tensor:
-        m, c = x.shape
-        g = self.groups
-        idx, has = level.gather[:, :k], level.nbr[:, :k] >= 0
-        q = _bn_relu(_linear(x, self.q, dt), self.q_bn)
-        key = _bn_relu(_linear(x, self.k, dt), self.k_bn)
-        val = _linear(x, self.v, dt).float()
-        zero = x.new_zeros((1, c), dtype=torch.float32)
-        xyz = torch.cat([level.xyz, level.xyz.new_zeros((1, 3))])
-        pos = torch.where(has[..., None], xyz[idx] - level.xyz[:, None],
-                          torch.zeros((), device=x.device))
-        peb = _linear(_bn_relu(_linear(pos, self.pe1, dt), self.pe_bn),
-                      self.pe2, dt).float()
-        rel = torch.cat([key, zero])[idx].sub_(q[:, None]).add_(peb)
-        val = torch.cat([val, zero])[idx].add_(peb)
-        w = _linear(_bn_relu(_linear(rel, self.we1, dt), self.we_bn),
-                    self.we2, dt).float()
-        w = torch.softmax(w, dim=1).mul_(has[..., None])
-        out = val.view(m, k, g, c // g).mul_(w[..., None]).sum(1)
-        return out.reshape(m, c)
+    def forward(self, level: Level, x: torch.Tensor, k: int, dt,
+                counters: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`ops.gva`: the kernel where `gva_op.engages`, else the plain
+        version.  `counters` (the backbone's gva_real_slots, gva_slots,
+        gva_rows_skipped) gain the call's: the kernel counts them itself,
+        the plain version skips no row."""
+        if gva_op.engages(x.device, dt, torch.is_grad_enabled()):
+            return gva_op.gva(self, level, x, k, dt, counters)
+        if counters is not None:
+            real = ((level.nbr[:, :k] >= 0) & level.valid[:, None]).sum()
+            counters[0:1].add_(real)
+            counters[1:2].add_(level.rows * k)
+        return gva_op.gva_plain(self, level, x, k, dt)
 
 
 class Block(nn.Module):
@@ -184,8 +172,7 @@ class Block(nn.Module):
         dt = net.dtype
         h = _bn_relu(_linear(x, self.fc1, dt), self.bn1)
         with span("gva"):
-            h = self.attn(level, h, k, dt)
-            net.count_gva(level, k)
+            h = self.attn(level, h, k, dt, net.gva_counters())
         h = _bn_relu(h, self.bn2)
         h = self.bn3(_linear(h, self.fc3, dt))
         return torch.relu_(h.add_(x))
@@ -235,10 +222,12 @@ class Unpooling(nn.Module):
 # "max" ones (the largest in one call).  knn_slots.levelL: the real
 # neighbour slots of the level's kNN (valid rows, index >= 0) at the
 # level's largest k; gva_real_slots / gva_slots: a GVA's real neighbour
-# slots and the capacity rows x k it computes, summed over the blocks.
+# slots and the capacity rows x k it computes, summed over the blocks;
+# gva_rows_skipped: the rows the GVA kernel wrote as 0 without a product
+# (a warp's rows when none has a neighbour: the capacity's dummy rows).
 def counter_names(levels: int) -> List[str]:
     names = ["calls", "input_rows", "grid_dropped", "overflow_calls",
-             "gva_real_slots", "gva_slots"]
+             "gva_real_slots", "gva_slots", "gva_rows_skipped"]
     for lv in range(levels):
         names += [f"rows.level{lv}", f"rows_max.level{lv}",
                   f"knn_slots.level{lv}"]
@@ -306,6 +295,12 @@ class PTv2Backbone(nn.Module):
 
     # -- counters ---------------------------------------------------------
 
+    def gva_counters(self) -> torch.Tensor:
+        """gva_real_slots, gva_slots, gva_rows_skipped: a view of three
+        int64 on the device."""
+        i = self._slot["gva_real_slots"]
+        return self.counter_values[i:i + 3]
+
     def _add(self, name: str, value) -> None:
         i = self._slot[name]
         self.counter_values[i:i + 1].add_(value)
@@ -327,11 +322,6 @@ class PTv2Backbone(nn.Module):
         scalar, read by nothing until `raise_on_overflow`."""
         i = self._slot["overflow_calls"]
         return self.counter_values[i].clone()
-
-    def count_gva(self, level: Level, k: int) -> None:
-        real = ((level.nbr[:, :k] >= 0) & level.valid[:, None]).sum()
-        self._add("gva_real_slots", real)
-        self._add("gva_slots", level.rows * k)
 
     # -- levels -------------------------------------------------------------
 

@@ -1,12 +1,13 @@
-"""What `ops/`'s seven kernel modules (each a plain version, a plan, a
+"""What `ops/`'s nine kernel modules (each a plain version, a plan, a
 signature table and a wrapper; `voxel` for the neighbour map) share: the
 card's facts; the route (`on_card`); loading a library, typed and held to
 its module's plans (`library`); the launch-error raise (`check`); the
 16-byte row layouts; and one launch count.  A wrapper calls `count(key)`
 once its launches returned without error, keyed by kernel: "K1" ... "K5
 bwd", "LN rows fwd" / "LN rows bwd" (each with an " f32" twin), "K4" and
-"K4 <variant>", "pair MLP", "subm conv", "neighbour map".  Counts tick on the host as a wrapper returns:
-under a CUDA graph, at capture and never at a replay.
+"K4 <variant>", "pair MLP", "subm conv", "neighbour map", "knn", "gva".
+Counts tick on the host as a wrapper returns: under a CUDA graph, at
+capture and never at a replay.
 """
 
 from __future__ import annotations

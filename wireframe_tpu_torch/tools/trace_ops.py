@@ -62,7 +62,8 @@ GROUPS = (
     # counts them under the chain; a train step runs no K1.  The edge
     # head's pair MLP at inference is csrc/pair_mlp.cu's pair_mlp_kernel;
     # PTv3's neighbour maps and submanifold convs, csrc/neighbour_map.cu's
-    # and csrc/subm_conv.cu's kernels; PTv2's kNN search, csrc/knn.cu's.
+    # and csrc/subm_conv.cu's kernels; PTv2's kNN search, csrc/knn.cu's,
+    # and its grouped vector attention, csrc/gva.cu's.
     ("K4 (lockstep JV)", re.compile(r"lsa_kernel")),
     ("K1 (fused encoder)", re.compile(
         r"k1_finalize|wgmma_chain_kernel<0, 3")),
@@ -73,6 +74,7 @@ GROUPS = (
     ("PTv3 maps and convs", re.compile(
         r"nbr_table_kernel|nbr_query_kernel|subm_conv_kernel")),
     ("PTv2 kNN", re.compile(r"knn_kernel")),
+    ("PTv2 GVA", re.compile(r"gva_kernel")),
     ("library GEMM (cuBLAS / CUTLASS)", re.compile(
         r"gemm|gemv|nvjet|cutlass|cublas|xmma|splitKreduce|dot_kernel",
         re.I)),
